@@ -1,0 +1,119 @@
+"""Command-line frame loop (reference: source/main.cpp:23-121).
+
+Counterpart of ``raytpu/app/cli.py``.  The reference's #defines and F-keys
+become flags:
+  --scene       scene registry name        (was: editing main.cpp:48)
+  --size WxH    resolution                 (was: literals main.cpp:32-33)
+  --mode        lighting debug mode        (was: F3 cycle)
+  --no-shadows  disable shadow rays        (was: F2 toggle)
+  --screenshot  save the last frame, BMP or PNG (was: X key)
+  --benchmark N FPS benchmark -> file      (was: F6)
+  --frames N    run N animated frames
+  --watch       print FPS once per second  (was: main.cpp:95-100)
+  --device      cuda (default) or cpu
+
+Usage: python -m raytpu_torch.app.cli --scene reference --size 640x480 --frames 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from raytpu_torch.core import scenes
+from raytpu_torch.core.types import LightingMode, RenderConfig
+from raytpu_torch.render import render_image
+from raytpu_torch.utils import image as image_io
+from raytpu_torch.utils.profiling import Benchmark, FrameTimer, RayStats
+
+_MODES = {
+    "observed_area": LightingMode.OBSERVED_AREA,
+    "radiance": LightingMode.RADIANCE,
+    "brdf": LightingMode.BRDF,
+    "combined": LightingMode.COMBINED,
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="raytpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--scene", default="reference", choices=sorted(scenes.REGISTRY), help="scene fixture")
+    p.add_argument("--size", default="640x480", help="WxH resolution")
+    p.add_argument("--mode", default="combined", choices=list(_MODES),
+                   help="lighting debug mode (reference: F3)")
+    p.add_argument("--no-shadows", action="store_true", help="disable shadow rays (reference: F2)")
+    p.add_argument("--frames", type=int, default=1, help="number of animated frames to render")
+    p.add_argument("--screenshot", metavar="PATH", default=None, help="save the last frame (BMP or PNG)")
+    p.add_argument("--benchmark", type=int, metavar="N", default=0,
+                   help="run an N-sample FPS benchmark (reference: F6)")
+    p.add_argument("--benchmark-out", default="benchmark.txt", help="benchmark report path")
+    p.add_argument("--watch", action="store_true", help="print FPS once per second")
+    p.add_argument("--time", type=float, default=0.0, help="animation start time (seconds)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="render on the CUDA card (default) or, asked for, the CPU")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    try:
+        w, h = (int(x) for x in args.size.lower().split("x"))
+    except ValueError:
+        print(f"error: --size must be WxH (got {args.size!r})", file=sys.stderr)
+        return 2
+    if w <= 0 or h <= 0:
+        print(f"error: --size must be positive (got {args.size!r})", file=sys.stderr)
+        return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but torch finds no CUDA device; "
+              "pass --device cpu to render on the CPU", file=sys.stderr)
+        return 2
+    config = RenderConfig(width=w, height=h, lighting_mode=_MODES[args.mode],
+                          shadows=not args.no_shadows)
+    spec = scenes.get(args.scene)
+    scene = spec.build(args.device)
+    print(f"raytpu_torch: scene={args.scene} {w}x{h} mode={args.mode} "
+          f"shadows={config.shadows} device={args.device}")
+
+    # warm-up: builds the kernel on first use; .cpu() waits for the frame
+    t0 = time.perf_counter()
+    img = render_image(spec.animate(scene, args.time), config).cpu().numpy()
+    print(f"build+first frame: {time.perf_counter() - t0:.2f}s")
+
+    timer = FrameTimer()
+    bench = Benchmark(args.benchmark) if args.benchmark else None
+    if bench:
+        print(f"**BENCHMARK STARTED ({args.benchmark} samples)**")
+        bench.start()
+    stats = RayStats()
+    n_frames = max(args.frames, 1)
+    while True:
+        t = args.time + timer.total
+        ft0 = time.perf_counter()
+        img = render_image(spec.animate(scene, t), config).cpu().numpy()
+        stats.add_frame(w, h, scene.lights.count, time.perf_counter() - ft0, config.shadows)
+        timer.tick()
+        if timer.fps_window_closed:
+            if args.watch:
+                print(f"dFPS: {timer.dfps:.1f}  ({stats.primary_rays_per_s / 1e6:.1f} M primary rays/s)")
+            if bench and bench.record(timer.dfps):
+                print("**BENCHMARK FINISHED**")
+                print(bench.report(), end="")
+                bench.write(args.benchmark_out)
+                break
+        if not bench and stats.frames >= n_frames:
+            break
+
+    print(f"frames={stats.frames} avg_ms={1e3 * stats.seconds / max(stats.frames, 1):.2f} "
+          f"primary_rays/s={stats.primary_rays_per_s:.3e} total_rays/s={stats.total_rays_per_s:.3e}")
+    if args.screenshot:
+        image_io.write_image(args.screenshot, img)
+        print(f"screenshot saved: {args.screenshot}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Vector / matrix / color math in the reference's conventions, on tensors.
+
+Counterpart of ``raytpu/core/math3d.py``.  Matrices are **row-vector**: a 4x4
+matrix stores its basis axes as rows plus a translation row, and a point is
+transformed as ``p @ M[:3, :3] + M[3, :3]`` (reference: source/Matrix.cpp).
+Everything is float32, as parity with the reference requires.
+
+Rounding.  XLA compiles raytpu's jnp code on the CPU with multiply-adds
+contracted into fused multiply-adds, and the committed goldens were rendered
+that way.  Ray-primitive decisions near a tie (a shadow ray grazing the
+sphere it leaves) turn on that last bit.  With every product rounded on its
+own, 0.29% of the 640x480 reference frame differed from its golden by more
+than one step, against a budget of 0.2%; fused as below, 0.06% (both from
+chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W).  So
+the port fuses where the geometry does its cancelling sums: 3-vector dot
+products and squared lengths (``dot3``), cross products (``cross3``), and
+points ``o + t*d`` (``fma``).  The CUDA kernel uses ``fmaf`` at the same
+places and rounds every other operation on its own, as these tensor ops do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PI = 3.14159265358979323846
+PI_2 = 6.283185307179586476925
+TO_RADIANS = PI / 180.0
+
+UNIT_Y = (0.0, 1.0, 0.0)
+UNIT_Z = (0.0, 0.0, 1.0)
+
+
+def fma(a, b, c):
+    """``a*b + c`` rounded once to float32, as CUDA's ``fmaf``; each operand
+    a float32 tensor or a Python float.  The product of two float32 values
+    is exact in float64; the sum is rounded to float64 and then to float32,
+    which differs from one rounding only when the float64 sum lands exactly
+    halfway between two float32 values (a few in 2^29)."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
+
+
+def _f64(x):
+    return x.double() if isinstance(x, torch.Tensor) else x
+
+
+def dot3(ax, ay, az, bx, by, bz):
+    """``ax*bx + ay*by + az*bz`` as ``fma(az, bz, fma(ay, by, ax*bx))``."""
+    return fma(az, bz, fma(ay, by, ax * bx))
+
+
+def cross3(ax, ay, az, bx, by, bz):
+    """``a x b``, each component ``fma(p, q, -(r*s))``."""
+    return (fma(ay, bz, -(az * by)),
+            fma(az, bx, -(ax * bz)),
+            fma(ax, by, -(ay * bx)))
+
+
+def dot(a, b):
+    """Batched 3-vector dot product over the last axis (``dot3``)."""
+    return dot3(a[..., 0], a[..., 1], a[..., 2], b[..., 0], b[..., 1], b[..., 2])
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def magnitude(v):
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v):
+    """Divide by the Euclidean norm, with no epsilon guard (``Vector3::Normalize``)."""
+    return v / magnitude(v)[..., None]
+
+
+def transform_vector(m, v):
+    """``v @ M[:3, :3]``: rotate and scale only (reference: source/Matrix.cpp:35-42)."""
+    return v @ m[:3, :3]
+
+
+def transform_point(m, p):
+    """``p @ M[:3, :3] + M[3, :3]`` (reference: source/Matrix.cpp:49-56)."""
+    return p @ m[:3, :3] + m[3, :3]
+
+
+def mat_identity(device="cuda"):
+    return torch.eye(4, dtype=torch.float32, device=device)
+
+
+def mat_rotation_y(yaw, device="cuda"):
+    """Row-vector Y rotation (reference: source/Matrix.cpp:124-134):
+    rows = {cos,0,-sin}, {0,1,0}, {sin,0,cos}."""
+    a = torch.as_tensor(yaw, dtype=torch.float32, device=device)
+    c, s = torch.cos(a), torch.sin(a)
+    m = mat_identity(device)
+    m[0, 0], m[0, 2] = c, -s
+    m[2, 0], m[2, 2] = s, c
+    return m
+
+
+def max_to_one(rgb):
+    """Per-pixel tone map: divide by the max channel when it exceeds 1
+    (reference: source/ColorRGB.h:12-17).
+
+    Double-where on the denominator: on black pixels (m=0) the unselected
+    division's partial is infinite, and a zero cotangent times infinity would
+    put NaN into every gradient that sums over pixels."""
+    m = torch.amax(rgb, dim=-1, keepdim=True)
+    over = m > 1.0
+    return torch.where(over, rgb / torch.where(over, m, torch.ones_like(m)), rgb)
+
+
+def as_divisor(x, like):
+    """A Python number as a 0-dim float32 tensor on ``like``'s device.  On
+    CUDA, PyTorch divides by a Python number as a multiply by its rounded
+    reciprocal, which is not IEEE division; by a tensor, it divides."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def quantize_u8(rgb):
+    """``static_cast<uint8_t>(c*255)``: truncation, not rounding
+    (reference: source/Renderer.cpp:178-181)."""
+    return (rgb * 255.0).to(torch.uint8)

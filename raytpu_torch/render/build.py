@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc -c`` per source, all started together, then linked into one shared
+library with a plain C interface, ``raytpu_torch/_build/libraytpu_torch_kernels.so``,
+and loaded with ``ctypes``.  The build runs the first time a kernel is used
+and again whenever a source or a flag changes (a hash of both is kept beside
+the library).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libraytpu_torch_kernels.so"
+
+#: No FMA contraction and no fast math: mega.cu's header says what each costs.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+#: What the last build printed (ptxas register and shared-memory use), or "".
+last_build_log = ""
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build(force: bool = False) -> float:
+    """Compile the kernels if the library is missing or stale.  Returns the
+    seconds spent compiling (0.0 when the library was current)."""
+    global last_build_log
+    lib_path, stamp = BUILD_DIR / LIB_NAME, BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _digest()
+    if not force and lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [src.name for src, p in zip(_sources(), procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs),
+                               "-o", str(tmp_lib)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib_path)
+    stamp.write_text(digest)
+    last_build_log = "\n".join(logs)
+    return time.perf_counter() - t0
+
+
+def load():
+    """The kernel library, built first if needed, with its C signatures set."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
+        c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        lib.raytpu_mega_render.argtypes = [c_ptr, c_int, c_int, c_int, c_int, c_int, c_int,
+                                           c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr]
+        lib.raytpu_mega_render.restype = c_int
+        lib.raytpu_cuda_error_string.argtypes = [c_int]
+        lib.raytpu_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def cuda_error_name(lib, err: int) -> str:
+    return f"{err} ({lib.raytpu_cuda_error_string(err).decode()})"
