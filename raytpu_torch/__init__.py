@@ -2,11 +2,17 @@
 
 A second package beside ``raytpu`` (the JAX reference it is held against),
 with the same layout:
-  raytpu_torch.core    — math conventions, scene schema and builder, scenes,
-                         the carry-across from raytpu's scene arrays
-  raytpu_torch.ops     — batched intersection and shading on tensors
+  raytpu_torch.core    — math conventions, scene schema and builder, the OBJ
+                         loader, scenes, the carry-across from raytpu's
+                         scene arrays
+  raytpu_torch.native  — the host library (OBJ parser, SAH and Morton
+                         orders), a copy of raytpu's, built with g++
+  raytpu_torch.ops     — batched intersection and shading on tensors, and
+                         the triangle order and cull glue (accel)
   raytpu_torch.render  — the eager renderer; the router and the hand-written
-                         CUDA megakernel (csrc/mega.cu), built by render/build.py
+                         CUDA kernels (csrc/: K1 mega.cu, K2a/K2b mega2.cu,
+                         K3/K4 packed.cu) with their plain versions, built
+                         by render/build.py
   raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers and ray stats
   raytpu_torch.app     — the command line
 

@@ -20,6 +20,8 @@ places and rounds every other operation on its own, as these tensor ops do.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 PI = 3.14159265358979323846
@@ -35,12 +37,22 @@ def fma(a, b, c):
     a float32 tensor or a Python float.  The product of two float32 values
     is exact in float64; the sum is rounded to float64 and then to float32,
     which differs from one rounding only when the float64 sum lands exactly
-    halfway between two float32 values (a few in 2^29)."""
+    halfway between two float32 values (a few in 2^29).  ``addcmul`` forms
+    the float64 sum in one pass, promoting the float32 operands as it reads
+    them once one operand is float64: the smaller of ``a`` and ``b`` is cast."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and isinstance(c, torch.Tensor):
+        if a.numel() <= b.numel():
+            return torch.addcmul(c, a.double(), b).float()
+        return torch.addcmul(c, a, b.double()).float()
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 def _f64(x):
-    return x.double() if isinstance(x, torch.Tensor) else x
+    """An operand of ``fma`` in float64: a Python number is rounded to float32
+    first, as ``fmaf``'s operands are (1e-4 is not a float32)."""
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 def dot3(ax, ay, az, bx, by, bz):

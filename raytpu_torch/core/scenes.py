@@ -1,16 +1,23 @@
-"""The course scenes that need no OBJ file, as builders
+"""The course scenes and the stress meshes, as builders
 (reference: source/Scene.cpp:163-475).
 
 Counterpart of ``raytpu/core/scenes.py``.  Each entry builds a Scene on a
 device (``build(device)``) and has an ``animate(scene, t)`` function in place
-of the reference's ``Scene::Update`` overrides.
+of the reference's ``Scene::Update`` overrides.  The OBJ scenes read
+raytpu's assets (``raytpu_torch.core.obj``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
+
+from raytpu_torch.core import obj
 from raytpu_torch.core.types import CullMode, Scene, SceneBuilder
+
+PI_DIV_2 = 1.57079632679489661923
 
 # Named colors (reference: source/ColorRGB.h:137-148)
 RED = (1.0, 0.0, 0.0)
@@ -34,6 +41,11 @@ def _static(scene: Scene, t) -> Scene:
 def _cos_yaw(scene: Scene, t) -> Scene:
     """yaw = (cos(t)+1)/2 * 2π (reference: source/Scene.cpp:394)."""
     return scene.update(t)
+
+
+def _linear_yaw(scene: Scene, t) -> Scene:
+    """yaw = π/2 * t (reference: source/Scene.cpp:326)."""
+    return scene.with_mesh_yaw(PI_DIV_2 * t)
 
 
 def _add_room_planes(b: SceneBuilder, mat: int, half_extent=5.0, height=10.0, depth=10.0):
@@ -141,6 +153,22 @@ def scene_w3(device="cuda") -> Scene:
     return b.build(device)
 
 
+def scene_w4_test(device="cuda") -> Scene:
+    """simple_object.obj mesh, rotating (reference: source/Scene.cpp:289-328)."""
+    b = SceneBuilder()
+    gray_blue = b.add_lambert((0.49, 0.57, 0.57), 1.0)
+    white = b.add_lambert(WHITE, 1.0)
+    _add_room_planes(b, gray_blue)
+    pos, nrm, idx = obj.parse_obj("simple_object.obj")
+    m = b.add_triangle_mesh(CullMode.BACK_FACE, white)
+    m.set_geometry(pos, idx, nrm)
+    m.scale((0.7, 0.7, 0.7))
+    m.translate((0.0, 1.0, 0.0))
+    _add_w4_lights(b)
+    b.set_camera((0.0, 1.0, -5.0), fov_degrees=45.0)
+    return b.build(device)
+
+
 def scene_w4_reference(device="cuda") -> Scene:
     """The default benchmark scene: CT sphere grid + 3 one-triangle meshes with
     the three cull modes + 3 point lights (reference: source/Scene.cpp:330-400)."""
@@ -160,6 +188,75 @@ def scene_w4_reference(device="cuda") -> Scene:
         m.translate((tx, 4.5, 0.0))
     _add_w4_lights(b)
     b.set_camera((0.0, 3.0, -9.0), fov_degrees=45.0)
+    return b.build(device)
+
+
+def scene_w4_bunny(device="cuda") -> Scene:
+    """lowpoly_bunny2.obj at 2x scale in the room (reference: source/Scene.cpp:402-437)."""
+    b = SceneBuilder()
+    gray_blue = b.add_lambert((0.49, 0.57, 0.57), 1.0)
+    white = b.add_lambert(WHITE, 1.0)
+    pos, nrm, idx = obj.parse_obj("lowpoly_bunny2.obj")
+    m = b.add_triangle_mesh(CullMode.BACK_FACE, white)
+    m.set_geometry(pos, idx, nrm)
+    m.scale((2.0, 2.0, 2.0))
+    _add_room_planes(b, gray_blue)
+    _add_w4_lights(b)
+    b.set_camera((0.0, 3.0, -9.0), fov_degrees=45.0)
+    return b.build(device)
+
+
+def _subdivide(pos, idx, levels: int):
+    """Midpoint 1->4 triangle subdivision with no smoothing: the surface is
+    the base mesh's, so renders match it up to shared-edge ties.  Stress
+    geometry for the big-mesh kernels; the reference has no such scene."""
+    pos = np.asarray(pos, np.float32).reshape(-1, 3)
+    idx = np.asarray(idx, np.int64).reshape(-1, 3)
+    for _ in range(levels):
+        a, b, c = idx[:, 0], idx[:, 1], idx[:, 2]
+        edges = np.stack([np.stack([a, b], 1), np.stack([b, c], 1), np.stack([c, a], 1)],
+                         axis=1).reshape(-1, 2)  # (3F, 2)
+        uniq, inv = np.unique(np.sort(edges, axis=1), axis=0, return_inverse=True)
+        mid = 0.5 * (pos[uniq[:, 0]] + pos[uniq[:, 1]])
+        mids = inv.reshape(-1, 3) + len(pos)  # (F, 3): [mab, mbc, mca]
+        mab, mbc, mca = mids[:, 0], mids[:, 1], mids[:, 2]
+        pos = np.concatenate([pos, mid.astype(np.float32)], axis=0)
+        idx = np.concatenate([np.stack([a, mab, mca], 1), np.stack([mab, b, mbc], 1),
+                              np.stack([mca, mbc, c], 1), np.stack([mab, mbc, mca], 1)], axis=0)
+    return pos, idx.astype(np.int32)
+
+
+def scene_bunny_subdiv(levels: int = 4, device="cuda") -> Scene:
+    """The bunny room with the mesh midpoint-subdivided ``levels`` times,
+    292 * 4^levels triangles (4 -> 74,752; 5 -> 299,008).  Same surface as
+    ``bunny``, so images match it up to edge-tie flips."""
+    b = SceneBuilder()
+    gray_blue = b.add_lambert((0.49, 0.57, 0.57), 1.0)
+    white = b.add_lambert(WHITE, 1.0)
+    pos, _, idx = obj.parse_obj("lowpoly_bunny2.obj")
+    pos, idx = _subdivide(pos, idx, levels)
+    m = b.add_triangle_mesh(CullMode.BACK_FACE, white)
+    m.set_geometry(pos, idx.reshape(-1), None)  # per-face normals recomputed
+    m.scale((2.0, 2.0, 2.0))
+    _add_room_planes(b, gray_blue)
+    _add_w4_lights(b)
+    b.set_camera((0.0, 3.0, -9.0), fov_degrees=45.0)
+    return b.build(device)
+
+
+def scene_w4_optional(device="cuda") -> Scene:
+    """Assignment3D1.obj at 0.03x scale, Cook-Torrance orange
+    (reference: source/Scene.cpp:439-467)."""
+    b = SceneBuilder()
+    gray_blue = b.add_lambert((0.49, 0.57, 0.57), 1.0)
+    orange_ct = b.add_cook_torrance((0.72, 0.254, 0.055), 1.0, 0.7)
+    pos, nrm, idx = obj.parse_obj("Assignment3D1.obj")
+    m = b.add_triangle_mesh(CullMode.BACK_FACE, orange_ct)
+    m.set_geometry(pos, idx, nrm)
+    m.scale((0.03, 0.03, 0.03))
+    _add_room_planes(b, gray_blue)
+    _add_w4_lights(b)
+    b.set_camera((0.0, 2.0, -9.0), fov_degrees=45.0)
     return b.build(device)
 
 
@@ -196,7 +293,14 @@ REGISTRY: dict[str, SceneSpec] = {
     "w2": SceneSpec(scene_w2, _static, "6 spheres + box + 1 point light"),
     "w3_test": SceneSpec(scene_w3_test, _static, "Lambert/LambertPhong spheres"),
     "w3": SceneSpec(scene_w3, _static, "Cook-Torrance sphere grid + 3 lights"),
+    "w4_test": SceneSpec(scene_w4_test, _linear_yaw, "rotating simple_object.obj"),
     "reference": SceneSpec(scene_w4_reference, _cos_yaw, "default benchmark scene"),
+    "bunny": SceneSpec(scene_w4_bunny, _cos_yaw, "lowpoly bunny x2"),
+    "bunny50k": SceneSpec(functools.partial(scene_bunny_subdiv, 4), _cos_yaw,
+                          "bunny subdivided 4x (74,752 triangles)"),
+    "bunny300k": SceneSpec(functools.partial(scene_bunny_subdiv, 5), _cos_yaw,
+                           "bunny subdivided 5x (299,008 triangles)"),
+    "optional": SceneSpec(scene_w4_optional, _cos_yaw, "Assignment3D1 x0.03 CT orange"),
 }
 
 

@@ -181,7 +181,10 @@ class Meshes(_Tensors):
         lin = self.scale[:, :, None] * self.rotation  # (N,3,3) == diag(s) @ R
         vm, fm = self.vertex_mesh.long(), self.face_mesh.long()
         wpos = _row_times(self.positions, lin[vm]) + self.translation[vm]
-        wnrm = math3d.normalize(_row_times(self.face_normal, lin[fm]))
+        n = _row_times(self.face_normal, lin[fm])
+        # the sum of squares unfused, as raytpu's op-by-op jnp.sum(n*n) rounds it
+        n_len = torch.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2])
+        wnrm = n / n_len[:, None]
         v = wpos[self.face_vertex.long()]  # (T,3,3)
         return Triangles(
             v0=v[:, 0], v1=v[:, 1], v2=v[:, 2], normal=wnrm,
@@ -202,8 +205,11 @@ class Meshes(_Tensors):
 
 
 def _row_times(v, m):
-    """Batched row vector times matrix, ``v[k] @ m[k]``, summed x + y + z."""
-    return v[:, 0:1] * m[:, 0] + v[:, 1:2] * m[:, 1] + v[:, 2:3] * m[:, 2]
+    """Batched row vector times matrix, ``v[k] @ m[k]``, as
+    ``fma(z, m2, fma(y, m1, x*m0))``: the rounding of raytpu's
+    ``jnp.einsum`` on the CPU, so that an animated mesh's world triangles
+    are bit-identical in both packages."""
+    return math3d.fma(v[:, 2:3], m[:, 2], math3d.fma(v[:, 1:2], m[:, 1], v[:, 0:1] * m[:, 0]))
 
 
 @dataclass(frozen=True)
@@ -305,8 +311,9 @@ class RenderConfig:
 # (reference: source/Scene.cpp:99-159).
 # ---------------------------------------------------------------------------
 
-#: Largest mesh the builder keeps in insertion order.  raytpu reorders larger
-#: meshes spatially (raytpu/ops/accel.py), which this package does not have yet.
+#: Largest mesh soup the builder keeps in insertion order, so that small
+#: scenes keep the reference's tie-break; larger ones are reordered by SAH
+#: leaf order (``raytpu_torch.ops.accel.reorder_scene_triangles``), as in raytpu.
 MAX_UNORDERED_FACES = 256
 
 
@@ -443,15 +450,11 @@ class SceneBuilder:
     # -- build -------------------------------------------------------------
     def build(self, device="cuda") -> Scene:
         meshes = self._build_meshes(device)
-        if meshes.num_faces > MAX_UNORDERED_FACES:
-            raise NotImplementedError(
-                f"{meshes.num_faces} mesh faces: meshes over {MAX_UNORDERED_FACES} faces "
-                "need the spatial reorder of raytpu/ops/accel.py, not ported yet")
 
         def vec3(rows):
             return _f32(np.asarray(rows, np.float32).reshape(-1, 3), device)
 
-        return Scene(
+        scene = Scene(
             spheres=Spheres(center=vec3(self._sph_c), radius=_f32(self._sph_r, device),
                             material=_i32(self._sph_m, device)),
             planes=Planes(origin=vec3(self._pl_o), normal=vec3(self._pl_n),
@@ -465,6 +468,11 @@ class SceneBuilder:
                                 params=vec3(self._mat_params)),
             camera=self.camera.to(device),
         )
+        if meshes.num_faces > MAX_UNORDERED_FACES:
+            from raytpu_torch.ops import accel
+
+            scene = accel.reorder_scene_triangles(scene)
+        return scene
 
     def _build_meshes(self, device) -> Meshes:
         if not self._meshes:

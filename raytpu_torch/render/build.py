@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc -c`` per source, all started together, then linked into one shared
 library with a plain C interface, ``raytpu_torch/_build/libraytpu_torch_kernels.so``,
 and loaded with ``ctypes``.  The build runs the first time a kernel is used
-and again whenever a source or a flag changes (a hash of both is kept beside
-the library).
+and again whenever a source, the shared header ``csrc/common.cuh`` or a flag
+changes (a hash of them is kept beside the library).
 """
 
 from __future__ import annotations
@@ -19,11 +19,13 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libraytpu_torch_kernels.so"
 
-#: No FMA contraction and no fast math: mega.cu's header says what each costs.
+#: No FMA contraction and no fast math: common.cuh's header says why.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,7 +50,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -95,10 +97,38 @@ def load():
         lib.raytpu_mega_render.argtypes = [c_ptr, c_int, c_int, c_int, c_int, c_int, c_int,
                                            c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr]
         lib.raytpu_mega_render.restype = c_int
+        lib.raytpu_mega2_closest.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_int, c_int,
+                                             c_int, c_int, c_float, c_float, c_ptr, c_ptr, c_ptr]
+        lib.raytpu_mega2_closest.restype = c_int
+        lib.raytpu_mega2_shade.argtypes = [c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr, c_int,
+                                           c_int, c_int, c_int, c_int, c_int, c_float, c_float,
+                                           c_float, c_ptr, c_ptr, c_ptr]
+        lib.raytpu_mega2_shade.restype = c_int
+        lib.raytpu_packed_closest.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_int, c_ptr, c_int,
+                                              c_ptr, c_int, c_ptr, c_ptr, c_int, c_float, c_ptr,
+                                              c_ptr, c_ptr, c_ptr, c_ptr]
+        lib.raytpu_packed_closest.restype = c_int
+        lib.raytpu_packed_anyhit.argtypes = [c_ptr, c_ptr, c_ptr, c_int, c_int, c_ptr, c_int, c_ptr,
+                                             c_int, c_ptr, c_int, c_ptr, c_ptr, c_int, c_float,
+                                             c_ptr, c_ptr]
+        lib.raytpu_packed_anyhit.restype = c_int
         lib.raytpu_cuda_error_string.argtypes = [c_int]
         lib.raytpu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_tensors(what: str, device, tensors: dict) -> None:
+    """Raise ValueError unless ``device`` is a CUDA device and each entry
+    ``name: (tensor, dtype, shape)`` is a contiguous tensor of that dtype
+    and shape on it: what a kernel's C interface takes."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {device}")
+    for name, (x, dtype, shape) in tensors.items():
+        if (x.device != torch.device(device) or x.dtype != dtype or not x.is_contiguous()
+                or tuple(x.shape) != tuple(shape)):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {tuple(shape)} tensor "
+                             f"on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def cuda_error_name(lib, err: int) -> str:

@@ -27,92 +27,16 @@
 // its first occluder: both give the same result as the full evaluation.
 // Making it fast (e.g. packets, fewer divisions) is later work.
 //
-// Arithmetic follows the Pallas kernel's op order, and rounds where the
-// plain version (cuda_kernel.py:render_image_mega_f32_plain) rounds, so the
-// two agree up to powf's last bit.  Dot and cross products and the points
-// o + t*d are explicit fmaf calls: XLA contracts them so on the CPU, where
-// the committed goldens were rendered, and a shadow ray grazing the sphere
-// it leaves decides on that last bit (raytpu_torch/core/math3d.py says more).
-// Build flags (raytpu_torch/render/build.py), and what each costs:
-//   -fmad=false      no contraction beyond those fmaf calls: every other
-//                    a*b+c rounds twice, as in the plain version; a multiply
-//                    and an add are two instructions where one FMA would do.
-//   no --use_fast_math, and sqrtf, powf and '/' rather than __fdividef,
-//                    rsqrtf or __powf: IEEE-rounded division and square
-//                    root, several instructions each instead of one
-//                    approximate one.  Closest-hit and shadow decisions
-//                    turn on near-ties, so approximations would flip pixels.
+// Arithmetic: the primitive tests, raygen and shading live in common.cuh,
+// shared with K2a/K2b and K3/K4; its header says how they round and what the
+// build flags (-fmad=false, no fast math) cost.  K1 agrees with its plain
+// version (cuda_kernel.py:render_image_mega_f32_plain) up to powf's last bit.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kCam = 16, kSph = 11, kPln = 11, kTri = 20, kLight = 8;
-constexpr float kFltEps = 1.1920929e-07f;
-constexpr float kFltMax = 3.4028235e38f;
-constexpr float kPi = 3.14159265358979323846f;
-
-enum Mode { kObservedArea = 0, kRadiance = 1, kBrdf = 2, kCombined = 3 };
-
-// x*x' + y*y' + z*z' fused as fmaf(z, z', fmaf(y, y', x*x')) (math3d.dot3)
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by, float bz) {
-  return fmaf(az, bz, fmaf(ay, by, ax * bx));
-}
-__device__ __forceinline__ float sqn(float x, float y, float z) { return dot3(x, y, z, x, y, z); }
-
-// pallas_kernel.py:_sphere_t_reg; valid on [lo, hi]
-__device__ __forceinline__ float sphere_t(const float* s, float ox, float oy, float oz,
-                                          float dx, float dy, float dz, float lo, float hi) {
-  const float lx = s[0] - ox, ly = s[1] - oy, lz = s[2] - oz;
-  const float l2 = sqn(lx, ly, lz);
-  const float proj = dot3(dx, dy, dz, lx, ly, lz);
-  const float perp2 = fmaf(-proj, proj, l2);
-  const bool inside = s[3] >= perp2;
-  const float tc = proj - sqrtf(inside ? s[3] - perp2 : 1.0f);
-  return (inside && tc >= lo && tc <= hi) ? tc : INFINITY;
-}
-
-// pallas_kernel.py:_plane_t_reg; valid on [lo, hi)
-__device__ __forceinline__ float plane_t(const float* p, float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float lo, float hi) {
-  const float denom = dot3(dx, dy, dz, p[0], p[1], p[2]);
-  const float num = p[3] - dot3(ox, oy, oz, p[0], p[1], p[2]);
-  const bool nz = denom != 0.0f;
-  const float tc = num / (nz ? denom : 1.0f);
-  return (nz && tc >= lo && tc < hi) ? tc : INFINITY;
-}
-
-// pallas_kernel.py:_tri_t_read; Moller-Trumbore with cull modes, valid on
-// [lo, hi).  A shadow ray swaps front- and back-face culling.
-__device__ __forceinline__ float tri_t(const float* k, float ox, float oy, float oz,
-                                       float dx, float dy, float dz, float lo, float hi,
-                                       bool shadow) {
-  const float v0x = k[0], v0y = k[1], v0z = k[2];
-  const float e1x = k[3], e1y = k[4], e1z = k[5];
-  const float e2x = k[6], e2y = k[7], e2z = k[8];
-  const float cull = k[12];
-  const float cull_dot = dot3(k[9], k[10], k[11], dx, dy, dz);
-  const bool not_par = fabsf(cull_dot) >= kFltEps;
-  const float cull_eff = (cull == 2.0f) ? 2.0f : (shadow ? 1.0f - cull : cull);
-  const bool culled = (cull_eff == 0.0f && cull_dot < 0.0f) || (cull_eff == 1.0f && cull_dot > 0.0f);
-  // cross products as fmaf(p, q, -(r*s)) (math3d.cross3)
-  const float hx = fmaf(dy, e2z, -(dz * e2y));
-  const float hy = fmaf(dz, e2x, -(dx * e2z));
-  const float hz = fmaf(dx, e2y, -(dy * e2x));
-  const float a = dot3(e1x, e1y, e1z, hx, hy, hz);
-  const bool det_ok = fabsf(a) >= kFltEps;
-  const float inv_a = 1.0f / (det_ok ? a : 1.0f);
-  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-  const float u = inv_a * dot3(sx, sy, sz, hx, hy, hz);
-  const float qx = fmaf(sy, e1z, -(sz * e1y));
-  const float qy = fmaf(sz, e1x, -(sx * e1z));
-  const float qz = fmaf(sx, e1y, -(sy * e1x));
-  const float v = inv_a * dot3(dx, dy, dz, qx, qy, qz);
-  const float tc = inv_a * dot3(e2x, e2y, e2z, qx, qy, qz);
-  const bool ok = u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
-  return (not_par && !culled && det_ok && ok && tc >= lo && tc < hi) ? tc : INFINITY;
-}
+using namespace raytpu_dev;
 
 // Any primitive in [lo, hi) ([lo, hi] for spheres) along the shadow ray.
 __device__ bool occluded(const float* sph, int S, const float* pln, int P, const float* tri, int T,
@@ -125,75 +49,6 @@ __device__ bool occluded(const float* sph, int S, const float* pln, int P, const
   for (int k = 0; k < T; ++k)
     if (tri_t(tri + k * kTri, ox, oy, oz, dx, dy, dz, lo, hi, true) < INFINITY) return true;
   return false;
-}
-
-// One light's contribution w[3] (pallas_kernel.py:_shade_one_light).  The
-// material m = [kind r g b p0 p1 p2]; kind 0 solid, 1 Lambert, 2
-// Lambert+Phong, anything else Cook-Torrance.
-__device__ __forceinline__ void shade_one_light(
-    int mode, bool is_point, const float* li, float px, float py, float pz,
-    float nx, float ny, float nz, float lx, float ly, float lz, float vx, float vy, float vz,
-    const float* m, float* w) {
-  // radiance at the UNOFFSET hit point (reference: source/Renderer.cpp:150)
-  const float rdx = li[0] - px, rdy = li[1] - py, rdz = li[2] - pz;
-  const float rad_scale = is_point ? li[6] / sqn(rdx, rdy, rdz) : li[6];
-  const float ndl = dot3(nx, ny, nz, lx, ly, lz);
-  const float oa = fmaxf(ndl, 0.0f);
-  if (mode == kObservedArea) {
-    w[0] = w[1] = w[2] = oa;
-    return;
-  }
-  if (mode == kRadiance) {
-    for (int c = 0; c < 3; ++c) w[c] = rad_scale * li[3 + c];
-    return;
-  }
-  const float mk = m[0], m0 = m[4], m1 = m[5], m2 = m[6];
-  float b[3];
-  if (mk == 0.0f) {
-    for (int c = 0; c < 3; ++c) b[c] = m[1 + c];
-  } else if (mk == 1.0f) {
-    for (int c = 0; c < 3; ++c) b[c] = m[1 + c] * m0 / kPi;
-  } else if (mk == 2.0f) {
-    // Phong lobe with the reference's clamped reflect
-    const float two_ndl = 2.0f * oa;
-    const float rfx = lx - two_ndl * nx, rfy = ly - two_ndl * ny, rfz = lz - two_ndl * nz;
-    const float cosa = fmaxf(dot3(rfx, rfy, rfz, vx, vy, vz), 0.0f);
-    const float spec_p = m1 * powf(cosa, m2);
-    for (int c = 0; c < 3; ++c) b[c] = m[1 + c] * m0 / kPi + spec_p;
-  } else {
-    // Cook-Torrance: [metalness, roughness]
-    float hx = vx + lx, hy = vy + ly, hz = vz + lz;
-    const float h_len = fmaxf(sqrtf(sqn(hx, hy, hz)), 1e-20f);
-    hx = hx / h_len;
-    hy = hy / h_len;
-    hz = hz / h_len;
-    const bool dielectric = m0 == 0.0f;
-    const float hdv = fmaxf(dot3(hx, hy, hz, vx, vy, vz), 0.0f);
-    const float fw = 1.0f - hdv;
-    const float fw2 = fw * fw;
-    const float fres_w = fw * (fw2 * fw2);  // JAX's integer power: x * (x^2)^2
-    const float a = m1 * m1;
-    const float sqr_a = a * a;
-    const float ndh = fmaxf(dot3(nx, ny, nz, hx, hy, hz), 0.0f);
-    const float dden = ndh * ndh * (sqr_a - 1.0f) + 1.0f;
-    const float D = sqr_a / (kPi * dden * dden);
-    const float kk = (a + 1.0f) * (a + 1.0f) / 8.0f;
-    const float ndv = fmaxf(dot3(nx, ny, nz, vx, vy, vz), 0.0f);
-    const float G = (ndv / (ndv * (1.0f - kk) + kk)) * (oa / (oa * (1.0f - kk) + kk));
-    const float spec_s = D * G / (4.0f * fmaxf(ndv, 1e-4f) * fmaxf(oa, 1e-4f));
-    for (int c = 0; c < 3; ++c) {
-      const float mc = m[1 + c];
-      const float f0 = dielectric ? 0.04f : mc;
-      const float F = f0 + (1.0f - f0) * fres_w;
-      b[c] = (dielectric ? mc * (1.0f - F) / kPi : 0.0f) + F * spec_s;
-    }
-  }
-  if (mode == kBrdf) {
-    for (int c = 0; c < 3; ++c) w[c] = b[c];
-    return;
-  }
-  // COMBINED: ((oa * (color*scale)) * brdf), the jnp path's op order
-  for (int c = 0; c < 3; ++c) w[c] = oa * (li[3 + c] * rad_scale) * b[c];
 }
 
 __global__ void __launch_bounds__(256) mega_kernel(
@@ -213,19 +68,9 @@ __global__ void __launch_bounds__(256) mega_kernel(
   const float* lit = tri + T * kTri;
   float* o = out + 3 * rid;
 
-  // raygen (reference: source/Renderer.cpp:104-114); cx = ((2u-1)*aspect)*fov
-  const int pxi = rid % W, pyi = rid / W;
-  const float ux = ((float)pxi + 0.5f) / (float)W;
-  const float uy = ((float)pyi + 0.5f) / (float)H;
-  const float fov = cam[12], aspect = cam[13];
-  const float cx = (2.0f * ux - 1.0f) * aspect * fov;
-  const float cy = (1.0f - 2.0f * uy) * fov;
   const float rox = cam[0], roy = cam[1], roz = cam[2];
-  const float dx0 = cx * cam[3] + cy * cam[6] + cam[9];
-  const float dy0 = cx * cam[4] + cy * cam[7] + cam[10];
-  const float dz0 = cx * cam[5] + cy * cam[8] + cam[11];
-  const float d_len = sqrtf(sqn(dx0, dy0, dz0));
-  const float rdx = dx0 / d_len, rdy = dy0 / d_len, rdz = dz0 / d_len;
+  float rdx, rdy, rdz;
+  raygen(cam, rid % W, rid / W, W, H, &rdx, &rdy, &rdz);
 
   // closest hit; strict < keeps the first primitive on ties
   float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
@@ -272,61 +117,18 @@ __global__ void __launch_bounds__(256) mega_kernel(
     return;
   }
 
-  const float px = fmaf(t, rdx, rox), py = fmaf(t, rdy, roy), pz = fmaf(t, rdz, roz);
   if (is_sph) {  // normalized after the selection (reference: source/Scene.cpp:40)
     const float n_len = sqrtf(fmaxf(sqn(nx, ny, nz), 1e-20f));
     nx = nx / n_len;
     ny = ny / n_len;
     nz = nz / n_len;
   }
-  const float ox = fmaf(nx, normal_offset, px);
-  const float oy = fmaf(ny, normal_offset, py);
-  const float oz = fmaf(nz, normal_offset, pz);
-
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f, sf = 1.0f;
-  for (int l = 0; l < L; ++l) {
-    const float* li = lit + l * kLight;
-    const bool is_point = li[7] == 0.0f;
-    const float ldx = li[0] - ox, ldy = li[1] - oy, ldz = li[2] - oz;
-    float lx, ly, lz, mag;
-    if (is_point) {
-      mag = sqrtf(sqn(ldx, ldy, ldz));
-      lx = ldx / mag;
-      ly = ldy / mag;
-      lz = ldz / mag;
-    } else {  // directional: the direction sits in the position slot
-      mag = kFltMax;
-      lx = -li[0];
-      ly = -li[1];
-      lz = -li[2];
-    }
-    bool lit_here = true;
-    if (shadows) {
-      lit_here = !occluded(sph, S, pln, P, tri, T, ox, oy, oz, lx, ly, lz, tmin, mag);
-      if (!lit_here) sf = sf * shadow_dim;
-    }
-    if (lit_here) {
-      float w[3];
-      shade_one_light(mode, is_point, li, px, py, pz, nx, ny, nz, lx, ly, lz, -rdx, -rdy, -rdz,
-                      mat, w);
-      cr = cr + w[0];
-      cg = cg + w[1];
-      cb = cb + w[2];
-    }
-  }
-  cr = cr * sf;
-  cg = cg * sf;
-  cb = cb * sf;
-  // MaxToOne as a division (reference: source/ColorRGB.h:12-17)
-  const float mx = fmaxf(cr, fmaxf(cg, cb));
-  if (mx > 1.0f) {
-    cr = cr / mx;
-    cg = cg / mx;
-    cb = cb / mx;
-  }
-  o[0] = cr;
-  o[1] = cg;
-  o[2] = cb;
+  shade_hit(lit, L, mode, shadows != 0, normal_offset, shadow_dim, rox, roy, roz, rdx, rdy, rdz,
+            t, nx, ny, nz, mat,
+            [&](int, float ox, float oy, float oz, float lx, float ly, float lz, float mag) {
+              return occluded(sph, S, pln, P, tri, T, ox, oy, oz, lx, ly, lz, tmin, mag);
+            },
+            o);
 }
 
 }  // namespace

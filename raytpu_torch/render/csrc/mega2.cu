@@ -1,0 +1,281 @@
+// K2a and K2b: the mega2 route's two whole-frame passes for Hopper (sm_90a).
+//
+// Replace raytpu/render/pallas_kernel.py:_make_mega2_closest_kernel with
+// _emit_hit_bounds (K2a) and _make_mega2_shadow_kernel (K2b), the two
+// launch chains of render_image_mega2_f32, for scenes of up to 9,600
+// triangles.  Between them, eager torch glue (raytpu_torch/render/mega2.py)
+// builds each light's shadow worklists from K2a's per-tile boxes.
+//
+//   K2a: camera rays generated in the kernel -> closest hit over every
+//        sphere and plane and the triangles of the tile's worklist of
+//        8-triangle groups -> per ray t, unit normal and material(7) into
+//        `acc` (11 rows of nt*1024 floats), and per tile the box of the
+//        offset hit points into `bounds` (nt, 6): [min xyz, max xyz], empty
+//        (+inf/-inf) when no ray of the tile hits.
+//   K2b: the same camera rays -> from `acc`, the hit's shading tail: per
+//        light a shadow ray against every sphere and plane and the groups
+//        of that light's worklist, stopping at the first occluder -> 4
+//        lighting modes x 4 material kinds -> 0.95 dim per occluded light
+//        -> MaxToOne -> (H, W, 3) float32.
+//
+// A tile is 1024 rays: a 32x32 pixel block when W and H are multiples of 32
+// (a tight cone of directions, which culls well), else 1024 consecutive
+// row-major pixels with the ragged end masked.  One block of 1024 threads
+// per tile, one thread per ray.  Worklists hold each tile's passing groups
+// in ascending order; with the strict < update a tie goes to the first
+// primitive in sphere -> plane -> triangle order, as in the eager argmin.
+//
+// What bounds it.  The bytes are small: a scene of at most ~0.8 MB, 44 B
+// of `acc` per ray each way, 12 B of image per ray.  The work is FP32
+// arithmetic, ~50 operations for each ray-triangle test that the
+// worklists pass and ~100 of shading per light, so the bound is the card's
+// FP32 rate (chip_smoke.py counts the tests from this frame's worklists).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, 640x480:
+// on optional (66 triangle tests per camera ray) K2a 0.64 ms and K2b
+// 2.49 ms, 39x and 44x their bounds of 0.0165 and 0.056 ms.
+//
+// What the design does about it.  The culls skip most groups (a tile tests
+// only the groups its ray bounds may reach).  The TPU kernel's SMEM budget
+// of 1,200 triangles, its chain of launches and its (8,128) register tiles
+// are layout artifacts that are not ported: here each pass is one launch at
+// any triangle count.  Spheres, planes, the camera and the lights sit in
+// shared memory; triangles stay in device memory, and all threads of a
+// block read the same group at the same time, which the cache serves as a
+// broadcast.  A miss skips K2b's lights, and a shadow ray stops at its first
+// occluder.  The arithmetic is common.cuh's, so the passes agree with their
+// plain versions (mega2.py) up to powf's last bit.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace raytpu_dev;
+
+constexpr int kTile = 1024;
+constexpr int kGroup = 8;
+constexpr int kAccRows = 11;  // t, normal(3), material(7)
+
+// The pixel of slot j of tile i; false past the end of an untiled frame.
+__device__ __forceinline__ bool tile_pixel(int i, int j, int W, int H, int tiled, int* pxi,
+                                           int* pyi) {
+  if (tiled) {
+    const int TX = W / 32;
+    *pxi = (i % TX) * 32 + j % 32;
+    *pyi = (i / TX) * 32 + j / 32;
+    return true;
+  }
+  const int rid = i * kTile + j;
+  if (rid >= W * H) return false;
+  *pxi = rid % W;
+  *pyi = rid / W;
+  return true;
+}
+
+__global__ void __launch_bounds__(kTile) mega2_closest_kernel(
+    const float* __restrict__ scene, int S, int P, int T, const int* __restrict__ wl,
+    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, float tmin,
+    float normal_offset, float* __restrict__ acc, float* __restrict__ bounds) {
+  extern __shared__ float sm[];  // cam | spheres | planes
+  __shared__ float part[6][32];
+  const int n = kCam + S * kSph + P * kPln;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
+  __syncthreads();
+  const float* cam = sm;
+  const float* sph = cam + kCam;
+  const float* pln = sph + S * kSph;
+  const float* tri = scene + n;  // device memory
+  const int tile = blockIdx.x;
+  const int slots = gridDim.x * kTile;
+
+  int pxi = 0, pyi = 0;
+  const bool valid = tile_pixel(tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
+  const float rox = cam[0], roy = cam[1], roz = cam[2];
+  float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
+  float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  bool is_sph = false;
+  const float* mat = nullptr;
+  if (valid) {
+    raygen(cam, pxi, pyi, W, H, &rdx, &rdy, &rdz);
+    for (int s = 0; s < S; ++s) {
+      const float* r = sph + s * kSph;
+      const float tc = sphere_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
+      if (tc < t) {
+        t = tc;
+        nx = fmaf(tc, rdx, rox) - r[0];
+        ny = fmaf(tc, rdy, roy) - r[1];
+        nz = fmaf(tc, rdz, roz) - r[2];
+        is_sph = true;
+        mat = r + 4;
+      }
+    }
+    for (int p = 0; p < P; ++p) {
+      const float* r = pln + p * kPln;
+      const float tc = plane_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
+      if (tc < t) {
+        t = tc;
+        nx = r[0];
+        ny = r[1];
+        nz = r[2];
+        is_sph = false;
+        mat = r + 4;
+      }
+    }
+    const int* w = wl + (size_t)tile * wl_cols;
+    const int c = min(cnt[tile], wl_cols);
+    for (int e = 0; e < c; ++e) {
+      const int g = w[e];
+      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
+      const int k1 = min(g * kGroup + kGroup, T);
+      for (int k = g * kGroup; k < k1; ++k) {
+        const float* r = tri + (size_t)k * kTri;
+        const float tc = tri_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY, false);
+        if (tc < t) {
+          t = tc;
+          nx = r[9];
+          ny = r[10];
+          nz = r[11];
+          is_sph = false;
+          mat = r + 13;
+        }
+      }
+    }
+  }
+
+  float* a = acc + (size_t)tile * kTile + threadIdx.x;  // row q at a[q * slots]
+  float box[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  if (t < INFINITY) {
+    if (is_sph) {  // normalized after the selection (reference: source/Scene.cpp:40)
+      const float n_len = sqrtf(fmaxf(sqn(nx, ny, nz), 1e-20f));
+      nx = nx / n_len;
+      ny = ny / n_len;
+      nz = nz / n_len;
+    }
+    // the offset hit point, exactly as K2b's shade_hit forms its shadow origin
+    const float ox = fmaf(nx, normal_offset, fmaf(t, rdx, rox));
+    const float oy = fmaf(ny, normal_offset, fmaf(t, rdy, roy));
+    const float oz = fmaf(nz, normal_offset, fmaf(t, rdz, roz));
+    box[0] = box[3] = ox;
+    box[1] = box[4] = oy;
+    box[2] = box[5] = oz;
+    a[0] = t;
+    a[slots] = nx;
+    a[2 * slots] = ny;
+    a[3 * slots] = nz;
+    for (int q = 0; q < 7; ++q) a[(4 + q) * slots] = mat[q];
+  } else {
+    a[0] = INFINITY;
+    for (int q = 1; q < kAccRows; ++q) a[q * slots] = 0.0f;
+  }
+
+  // the tile's box: min/max over warps by shuffles, then over the 32 warps
+  for (int off = 16; off > 0; off >>= 1) {
+    for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+    for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0)
+    for (int q = 0; q < 6; ++q) part[q][warp] = box[q];
+  __syncthreads();
+  if (warp == 0) {
+    for (int q = 0; q < 6; ++q) box[q] = part[q][lane];
+    for (int off = 16; off > 0; off >>= 1) {
+      for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+      for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+    }
+    if (lane == 0)
+      for (int q = 0; q < 6; ++q) bounds[tile * 6 + q] = box[q];
+  }
+}
+
+__global__ void __launch_bounds__(kTile) mega2_shade_kernel(
+    const float* __restrict__ scene, int S, int P, int T, int L, const int* __restrict__ wl,
+    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, int mode, int shadows,
+    float tmin, float normal_offset, float shadow_dim, const float* __restrict__ acc,
+    float* __restrict__ out) {
+  extern __shared__ float sm[];  // cam | spheres | planes | lights
+  const int n = kCam + S * kSph + P * kPln;
+  const float* lit_g = scene + n + (size_t)T * kTri;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
+  for (int k = threadIdx.x; k < L * kLight; k += blockDim.x) sm[n + k] = lit_g[k];
+  __syncthreads();
+  const float* cam = sm;
+  const float* sph = cam + kCam;
+  const float* pln = sph + S * kSph;
+  const float* lit = sm + n;
+  const float* tri = scene + n;  // device memory
+  const int tile = blockIdx.x;
+  const int slots = gridDim.x * kTile;
+
+  int pxi, pyi;
+  if (!tile_pixel(tile, threadIdx.x, W, H, tiled, &pxi, &pyi)) return;
+  float* o = out + 3 * ((size_t)pyi * W + pxi);
+  const float* a = acc + (size_t)tile * kTile + threadIdx.x;
+  const float t = a[0];
+  if (!(t < INFINITY)) {  // miss: black, whatever the lights
+    o[0] = o[1] = o[2] = 0.0f;
+    return;
+  }
+  const float rox = cam[0], roy = cam[1], roz = cam[2];
+  float rdx, rdy, rdz;
+  raygen(cam, pxi, pyi, W, H, &rdx, &rdy, &rdz);
+  float mat[7];
+  for (int q = 0; q < 7; ++q) mat[q] = a[(4 + q) * slots];
+  shade_hit(lit, L, mode, shadows != 0, normal_offset, shadow_dim, rox, roy, roz, rdx, rdy, rdz,
+            t, a[slots], a[2 * slots], a[3 * slots], mat,
+            [&](int l, float ox, float oy, float oz, float lx, float ly, float lz, float mag) {
+              for (int s = 0; s < S; ++s)
+                if (sphere_t(sph + s * kSph, ox, oy, oz, lx, ly, lz, tmin, mag) < INFINITY)
+                  return true;
+              for (int p = 0; p < P; ++p)
+                if (plane_t(pln + p * kPln, ox, oy, oz, lx, ly, lz, tmin, mag) < INFINITY)
+                  return true;
+              const int row = tile * L + l;
+              const int* w = wl + (size_t)row * wl_cols;
+              const int c = min(cnt[row], wl_cols);
+              for (int e = 0; e < c; ++e) {
+                const int g = w[e];
+                if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
+                const int k1 = min(g * kGroup + kGroup, T);
+                for (int k = g * kGroup; k < k1; ++k)
+                  if (tri_t(tri + (size_t)k * kTri, ox, oy, oz, lx, ly, lz, tmin, mag, true) <
+                      INFINITY)
+                    return true;
+              }
+              return false;
+            },
+            o);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K2a on `stream` over ceil(W*H/1024) tiles.  `wl` (nt, wl_cols)
+// and `cnt` (nt,) are the tiles' group worklists; `acc` is 11 x nt*1024
+// float32 and `bounds` nt x 6.  Returns cudaGetLastError() after the launch.
+int raytpu_mega2_closest(const float* scene, int S, int P, int T, const int* wl, const int* cnt,
+                         int wl_cols, int W, int H, int tiled, float ray_min, float normal_offset,
+                         float* acc, float* bounds, void* stream) {
+  const int tiles = (W * H + kTile - 1) / kTile;
+  const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln);
+  mega2_closest_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      scene, S, P, T, wl, cnt, wl_cols, W, H, tiled, ray_min, normal_offset, acc, bounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K2b on `stream`.  `wl` (nt, L, wl_cols) and `cnt` (nt, L) are the
+// per-light shadow worklists (read only when `shadows`); `acc` is K2a's;
+// `out` is (H, W, 3) float32.  Returns cudaGetLastError() after the launch.
+int raytpu_mega2_shade(const float* scene, int S, int P, int T, int L, const int* wl,
+                       const int* cnt, int wl_cols, int W, int H, int tiled, int mode, int shadows,
+                       float ray_min, float normal_offset, float shadow_dim, const float* acc,
+                       float* out, void* stream) {
+  const int tiles = (W * H + kTile - 1) / kTile;
+  const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln + L * kLight);
+  mega2_shade_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      scene, S, P, T, L, wl, cnt, wl_cols, W, H, tiled, mode, shadows, ray_min, normal_offset,
+      shadow_dim, acc, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

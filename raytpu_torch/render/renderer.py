@@ -60,9 +60,14 @@ def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
     return p_off, torch.stack([l for l, _ in lds]), torch.stack([m for _, m in lds])
 
 
-def shade_from_records(scene: Scene, rec, rd, config: RenderConfig):
+def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn=None):
     """The shading tail of ``shade_rays`` given the closest hit's records:
-    hard shadows, 0.95 dim per occluded light, MaxToOne."""
+    hard shadows, 0.95 dim per occluded light, MaxToOne.
+
+    ``any_multi_fn(scene, p_off (R,3), dirs (L,R,3), mags (L,R), tmin) ->
+    (L,R) bool`` answers every light's occlusion in one call (the packed
+    route's all-lights any-hit kernel); without it each light takes
+    ``intersect.any_hit``."""
     if config.soft_shadows:
         raise NotImplementedError("soft shadows come with the differentiable path")
     n = rd.shape[0]
@@ -70,10 +75,14 @@ def shade_from_records(scene: Scene, rec, rd, config: RenderConfig):
     color = torch.zeros((n, 3), dtype=torch.float32, device=rd.device)
     shadow_factor = torch.ones((n,), dtype=torch.float32, device=rd.device)
     mode = config.lighting_mode
+    occ_multi = None
+    if any_multi_fn is not None and config.shadows and dirs is not None:
+        occ_multi = any_multi_fn(scene, p_off, dirs, mags, config.ray_min)
     for li in range(scene.lights.count):
         l, mag = dirs[li], mags[li]
         if config.shadows:
-            occluded = intersect.any_hit(scene, p_off, l, config.ray_min, mag)
+            occluded = (occ_multi[li] if occ_multi is not None
+                        else intersect.any_hit(scene, p_off, l, config.ray_min, mag))
             trans = torch.where(occluded & rec.hit, 0.0, 1.0)
         else:
             trans = torch.ones((n,), dtype=torch.float32, device=rd.device)

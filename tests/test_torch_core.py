@@ -84,13 +84,28 @@ def test_scene_from_arrays_names_missing_leaves():
         convert.scene_from_arrays(arrays, "cpu")
 
 
-def test_builder_refuses_meshes_that_need_the_reorder():
+@pytest.mark.parametrize("faces", [256, 257])
+def test_builder_reorders_meshes_over_256_faces(faces):
+    """Up to 256 faces the soup keeps insertion order; past that the builder
+    reorders it, face tables with it, by raytpu's SAH leaf order (raytpu's
+    own spatial_permutation on the same soup, native library and all)."""
+    from raytpu.ops import accel as jaccel
+
+    rng = np.random.default_rng(faces)
     b = SceneBuilder()
     m = b.add_triangle_mesh(CullMode.NONE, 0)
-    for i in range(257):
-        m.append_triangle((0.0, 0.0, float(i)), (1.0, 0.0, float(i)), (0.0, 1.0, float(i)))
-    with pytest.raises(NotImplementedError, match="reorder"):
-        b.build("cpu")
+    soup = rng.uniform(-3.0, 3.0, (faces, 3, 3)).astype(np.float32)
+    for tri in soup:
+        m.append_triangle(*tri)
+    scene = b.build("cpu")
+    perm = jaccel.spatial_permutation(soup) if faces > 256 else np.arange(faces)
+    assert faces == 256 or not np.array_equal(perm, np.arange(faces))
+    tr = scene.triangles
+    np.testing.assert_array_equal(np.stack([tr.v0.numpy(), tr.v1.numpy(), tr.v2.numpy()], axis=1),
+                                  soup[perm])
+    world = scene.meshes.world_triangles()
+    np.testing.assert_array_equal(world.v0.numpy(), tr.v0.numpy())
+    np.testing.assert_array_equal(world.normal.numpy(), tr.normal.numpy())
 
 
 def test_quantize_u8_truncates():

@@ -151,13 +151,20 @@ def test_port_matches_oracle(name, cfg):
         _close(img, ref, 0.01, 0.5)
 
 
+#: registry scenes past K1's 72 primitives; tests/test_torch_bigmesh.py
+#: holds their routes' plain versions against the eager path and raytpu
+BIG_MESH_SCENES = {"bunny", "optional", "bunny50k", "bunny300k"}
+
+
 def test_eager_and_plain_agree_on_every_scene():
     """The eager path and K1's plain version are two formulations of one
-    render: the megakernel budget holds between them on every port scene.
-    The eager path in chunks of 100 rays renders the same image."""
+    render: the megakernel budget holds between them on every port scene
+    that K1 serves.  The eager path in chunks of 100 rays renders the same
+    image."""
     cfg = RenderConfig(width=24, height=18)
-    for name in sorted(scenes.REGISTRY):
+    for name in sorted(set(scenes.REGISTRY) - BIG_MESH_SCENES):
         scene = scenes.get(name).build("cpu")
+        assert cuda_kernel.route_kind(scene, cfg) == "mega", name
         imgs = _port_images(scene, cfg)
         _close(imgs["eager"], imgs["mega plain"], 0.01, 0.5)
         chunked = renderer.render_image(scene, RenderConfig(width=24, height=18, ray_chunk=100))
