@@ -9,15 +9,27 @@ Phases (each passes or raises; nothing is caught):
      small scenes and the OBJ scene w4_test, K2a + K2b (the mega2 route) on
      bunny and optional, K3 and K4 (the packed route) on bunny50k's and
      bunny300k's camera rays at 640x480 (the main path's shapes), 160x128
-     and 50x37, and the packed route against the eager path;
+     and 50x37, and the packed route against the eager path; K5, K6 and K7
+     (the soft-shadow kernels) on the soft shadow queries of optional at
+     640x480 (the main path's shapes), of optional with a light just above
+     its ceiling (so that g_mags is not zero) and of bunny50k at 160x128;
+     and the autograd Function around them, with its sphere and plane
+     cotangents, against plain autograd on reference at 160x128;
   3. the main paths, each with the launch counts set to 0 just before it and
      read just after: 64 animated frames of the reference scene at 640x480
      (K1) with frames t=0 and t=1.25 against the committed goldens, 16 of
      bunny and of optional (K2a, K2b), 4 of bunny50k and 2 of bunny300k
      (K3, K4), as bench.py counts them; the CLI once on reference and on
-     optional;
+     optional; the differentiable path's train steps (bench.py:50-54), a
+     material fit on optional at 640x480 with payload_grad True and False
+     (K3 and K5 once a step, no K6 or K7), a light and mesh fit (K3, K5,
+     K6, K7 once a step), the material fit on bunny50k and bunny300k; and
+     the kernel route's gradients against the eager route's on optional at
+     160x128;
   4. times on the card (CUDA events) of every kernel beside its bound, and
-     of each scene's frame, with the device's idle share from torch.profiler.
+     of each scene's frame, with the device's idle share from torch.profiler;
+     the same for K5, K6 and K7, and each train step's milliseconds, idle
+     share and peak memory.
 The last line is {"ok": true, "device": {...}}; it prints only if every phase
 passed.  Without a CUDA card the script exits non-zero and prints no result.
 """
@@ -55,6 +67,22 @@ CMP_TILE_STRIDE = 10
 PACKED_PLAIN_SIZE = PACKED_CMP_SIZES[1]
 #: the kernels each route launches once per frame
 ROUTE_KERNELS = {"mega": ["K1"], "mega2": ["K2a", "K2b"], "packed": ["K3", "K4"]}
+#: the soft kernels' comparison cases: the main path's frame, optional
+#: with a light just above its ceiling (``far_light``), and the stress
+#: mesh's band, at sizes whose plain versions take seconds
+SOFT_CMP = (("optional", (W, H)), ("optional_far_light", (160, 128)), ("bunny50k", (160, 128)))
+#: the autograd Function against plain autograd of the eager transmittance:
+#: a scene of spheres, planes and triangles, and one whose shadow rays
+#: cross a plane (its plane cotangents are not zero)
+SOFT_FUNCTION_CMP = (("reference", (160, 128)), ("optional_far_light", (160, 128)))
+#: the differentiable main paths (bench.py:50-54): scene, steps, fit,
+#: payload_grad, learning rate
+GRAD_PATHS = (("optional", 8, "material", True, 1e-2), ("optional", 8, "material", False, 1e-2),
+              ("optional", 4, "light+mesh", True, 1e-1), ("bunny50k", 2, "material", True, 1e-2),
+              ("bunny300k", 1, "material", True, 1e-2))
+#: the kernel route against the eager route: a size at which the eager
+#: route's (rays x triangles) residuals fit, in chunks of rays
+GRAD_VS_EAGER = ("optional", (160, 128), 1024)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -103,18 +131,22 @@ def launch_counts() -> dict:
     from raytpu_torch.render import cuda_kernel as ck
     from raytpu_torch.render import mega2, packed
 
+    from raytpu_torch.render import soft
+
     return {"K1": ck.MEGA_LAUNCHES, "K2a": mega2.MEGA2_CLOSEST_LAUNCHES,
             "K2b": mega2.MEGA2_SHADE_LAUNCHES, "K3": packed.PACKED_CLOSEST_LAUNCHES,
-            "K4": packed.PACKED_ANYHIT_LAUNCHES}
+            "K4": packed.PACKED_ANYHIT_LAUNCHES, "K5": soft.SOFT_TRANS_LAUNCHES,
+            "K6": soft.SOFT_DRAY_LAUNCHES, "K7": soft.SOFT_DPRIM_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from raytpu_torch.render import cuda_kernel as ck
-    from raytpu_torch.render import mega2, packed
+    from raytpu_torch.render import mega2, packed, soft
 
     ck.MEGA_LAUNCHES = 0
     mega2.MEGA2_CLOSEST_LAUNCHES = mega2.MEGA2_SHADE_LAUNCHES = 0
     packed.PACKED_CLOSEST_LAUNCHES = packed.PACKED_ANYHIT_LAUNCHES = 0
+    soft.SOFT_TRANS_LAUNCHES = soft.SOFT_DRAY_LAUNCHES = soft.SOFT_DPRIM_LAUNCHES = 0
 
 
 def build_scenes(dev) -> dict:
@@ -127,7 +159,20 @@ def build_scenes(dev) -> dict:
         out[name] = scenes.get(name).build(dev)
         print(f"built {name}: {out[name].triangles.count} triangles in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
+    out["optional_far_light"] = far_light(out["optional"])
     return out
+
+
+def far_light(scene):
+    """``scene`` (optional) with its first light 3 cm above the ceiling
+    (y = 10): every shadow ray toward it crosses the ceiling just before the
+    light, where the plane's margin is the light's distance minus t, the
+    branch of K6 that writes g_mags."""
+    import dataclasses
+
+    pos = scene.lights.position.clone()
+    pos[0] = torch.tensor([0.0, 10.03, 5.0], device=pos.device)
+    return dataclasses.replace(scene, lights=dataclasses.replace(scene.lights, position=pos))
 
 
 def _directional_scene(device):
@@ -339,6 +384,140 @@ def phase_compare_packed(dev, built: dict) -> dict:
     return out
 
 
+def _soft_queries(scene, cfg):
+    """The soft shadow queries ``(p, dirs, mags)`` of the differentiable main
+    path at ``cfg``: camera rays in tile order, K3's closest hit, the offset
+    points and each light's direction and distance."""
+    from raytpu_torch.render import packed, renderer
+
+    ro, rd = _folded_rays(scene, cfg)
+    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, cfg.ray_min)
+    rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
+    return tuple(x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_compare_soft(dev, built: dict) -> dict:
+    """K5, K6 and K7 against their plain versions on the soft shadow queries
+    of optional at 640x480 (the main path's shapes) and bunny50k at
+    160x128, with a random cotangent.  Each kernel launches on the whole
+    frame; K5 and K6 are checked on every CMP_TILE_STRIDE-th tile, K7 (a sum
+    over every ray) against its plain version over every ray.  K5 must be
+    within 1e-5, K6 and K7 within 1e-4 of each output's largest magnitude;
+    K7 launches twice, to show how far its atomic sums move between runs."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import packed, soft
+
+    out = {k: {"max_abs_diff": 0.0, "max_rel_err": 0.0} for k in ("K5", "K6", "K7")}
+    out["K7_run_to_run"] = 0.0
+    for name, (w, h) in SOFT_CMP:
+        scene = built[name]
+        cfg = RenderConfig(width=w, height=h, soft_shadows=True)
+        tmin, beta = cfg.ray_min, cfg.soft_beta
+        p, dirs, mags = _soft_queries(scene, cfg)
+        blobs = packed.soft_packs(scene)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+        g = torch.rand(trans.shape, generator=gen, device=dev) * 2.0 - 1.0
+        ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta)
+        prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta)
+        prim2 = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta)
+        sub = _cmp_rays(p.shape[0], dev)
+        ps, ds, ms, gs, ts = (p[sub].contiguous(), dirs[:, sub].contiguous(),
+                              mags[:, sub].contiguous(), g[:, sub].contiguous(),
+                              trans[:, sub].contiguous())
+        t0 = time.perf_counter()
+        trans_p = soft.soft_trans_plain(ps, ds, ms, *blobs, tmin, beta)
+        ray_p = soft.soft_dray_plain(ps, ds, ms, gs, ts, *blobs, tmin, beta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prim_p = soft.soft_dprim_plain(p, dirs, mags, g, trans, blobs[2], tmin, beta)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for x in (trans, *ray, prim):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"soft kernels {name}: an output is not finite")
+        errs = {"K5": (float((trans[:, sub] - trans_p).abs().max()), None),
+                "K6": (max(float((a - b).abs().max()) for a, b in zip(
+                    (ray[0][sub], ray[1][:, sub], ray[2][:, sub]), ray_p)),
+                    max(_rel_err(a, b) for a, b in zip(
+                        (ray[0][sub], ray[1][:, sub], ray[2][:, sub]), ray_p))),
+                "K7": (float((prim - prim_p).abs().max()), _rel_err(prim, prim_p))}
+        run_to_run = float((prim - prim2).abs().max())
+        g_mags_max = float(ray_p[2].abs().max())
+        print(f"phase 2: K5-K7 {name} {w}x{h}, (L, R) {tuple(trans.shape)}, {sub.numel()} rays "
+              f"checked for K5 and K6, all for K7: K5 max|diff| {errs['K5'][0]:.3e}; K6 max|diff| "
+              f"{errs['K6'][0]:.3e} ({errs['K6'][1]:.3e} of the largest, g_mags max "
+              f"{g_mags_max:.3e}); K7 max|diff| {errs['K7'][0]:.3e} ({errs['K7'][1]:.3e} of the "
+              f"largest), run to run {run_to_run:.3e}; transmittance < 1 on "
+              f"{float((trans < 1.0).float().mean()):.4f} of pairs; plain K5+K6 {t1 - t0:.1f}s, "
+              f"plain K7 {t2 - t1:.1f}s", flush=True)
+        if errs["K5"][0] > 1e-5 or errs["K6"][1] > 1e-4 or errs["K7"][1] > 1e-4:
+            raise AssertionError(f"soft kernels {name} {w}x{h} disagree with their plain versions: "
+                                 f"{errs}")
+        if name.endswith("far_light") and not g_mags_max > 0.0:
+            raise AssertionError(f"soft kernels {name}: g_mags is zero, K6's far-end branch unheld")
+        for k, (a, r) in errs.items():
+            out[k]["max_abs_diff"] = max(out[k]["max_abs_diff"], a)
+            out[k]["max_rel_err"] = max(out[k]["max_rel_err"], r or 0.0)
+        out["K7_run_to_run"] = max(out["K7_run_to_run"], run_to_run)
+    out["function_vs_autograd"] = _function_vs_autograd(dev, built)
+    return out
+
+
+def _function_vs_autograd(dev, built: dict) -> float:
+    """The soft transmittance's autograd Function (K5 forward, K6, K7 and
+    the sphere and plane cotangents of ``_scene_cotangent`` backward)
+    against plain autograd of the eager transmittance, every input's
+    gradient within 1e-3 of its largest magnitude (the VJP tolerance); the
+    sphere and plane cotangents must be non-zero in some case."""
+    import dataclasses
+
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.grad import soft as gsoft
+
+    keys = ("p", "dirs", "mags", "sphere.center", "sphere.radius", "plane.origin", "plane.normal",
+            "tri.v0", "tri.v1", "tri.v2")
+    worst, largest = 0.0, dict.fromkeys(keys, 0.0)
+    for name, (w, h) in SOFT_FUNCTION_CMP:
+        scene = built[name]
+        cfg = RenderConfig(width=w, height=h, soft_shadows=True)
+        p, dirs, mags = _soft_queries(scene, cfg)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        g = torch.rand(mags.shape, generator=gen, device=dev) * 2.0 - 1.0
+        sph, pln, tri = scene.spheres, scene.planes, scene.triangles
+        grads = {}
+        for kernels in (True, False):
+            leaves = [x.detach().clone().requires_grad_(True) for x in (
+                p, dirs, mags, sph.center, sph.radius, pln.origin, pln.normal, tri.v0, tri.v1,
+                tri.v2)]
+            s = dataclasses.replace(
+                scene, spheres=dataclasses.replace(sph, center=leaves[3], radius=leaves[4]),
+                planes=dataclasses.replace(pln, origin=leaves[5], normal=leaves[6]),
+                triangles=dataclasses.replace(tri, v0=leaves[7], v1=leaves[8], v2=leaves[9]))
+            out = gsoft.soft_trans_lights(kernels, cfg.ray_min, cfg.soft_beta, s, *leaves[:3])
+            got = torch.autograd.grad(out, leaves, g, allow_unused=True)
+            grads[kernels] = [torch.zeros_like(x) if d is None else d for d, x in zip(got, leaves)]
+        errs = {k: _rel_err(a, b) if b.numel() else 0.0
+                for k, a, b in zip(keys, grads[True], grads[False])}
+        big = {k: float(b.abs().max()) if b.numel() else 0.0 for k, b in zip(keys, grads[False])}
+        print(f"phase 2: soft Function vs autograd, {name} {w}x{h}: worst diff over the largest "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; largest "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in big.items()})}", flush=True)
+        if not all(torch.isfinite(x).all() for x in grads[True]) or max(errs.values()) > 1e-3:
+            raise AssertionError(f"soft Function {name} disagrees with plain autograd: {errs}")
+        worst = max(worst, *errs.values())
+        largest = {k: max(largest[k], big[k]) for k in keys}
+    if not all(largest[k] > 0.0 for k in ("sphere.center", "sphere.radius", "plane.origin",
+                                           "plane.normal")):
+        raise AssertionError(f"a sphere or plane cotangent is zero in every case: {largest}")
+    return worst
+
+
 def _check_counts(name: str, route: str, frames: int, counts: dict) -> None:
     """Each kernel of the route launched once per frame, no other kernel."""
     want = {k: 0 for k in counts}
@@ -436,6 +615,164 @@ def phase_big_paths(dev, built: dict) -> dict:
     return out
 
 
+def _fit(fit: str):
+    """(pick, merge) of a fit's parameters (raytpu_torch.grad.diff_render)."""
+    import dataclasses
+
+    from raytpu_torch.grad import diff_render as dr
+
+    if fit == "material":
+        return dr.material_params, dr.merge_material_params
+
+    def pick(s):
+        return {"position": s.lights.position, "mesh_positions": s.meshes.positions}
+
+    def merge(s, p):
+        s = dataclasses.replace(s, lights=dataclasses.replace(s.lights, position=p["position"]))
+        return s.with_meshes(s.meshes.with_positions(p["mesh_positions"]))
+
+    return pick, merge
+
+
+def phase_grad_paths(dev, built: dict) -> dict:
+    """The differentiable main paths (bench.py:50-54): train steps of SGD on
+    mean((image - 0)^2) through render_soft_f32 at 640x480, on the kernels.
+    One step first (not counted), then the counts are set to 0, the steps
+    run, and the counts are read: K3 and K5 once a step, K6 and K7 once a
+    step in the light and mesh fit and never in a material fit, no other
+    kernel.  The loss must fall over each fit, and every gradient be
+    finite.  Each fit's steps are timed on the host clock to a synchronize,
+    its peak memory read, and one more step profiled for the idle share."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.grad import diff_render as dr
+
+    cfg = RenderConfig(width=W, height=H)
+    target = torch.zeros((H, W, 3), device=dev)
+    out = []
+    for name, steps, fit, payload_grad, lr in GRAD_PATHS:
+        scene = built[name]
+        if not dr.kernels_fit(scene):
+            raise AssertionError(f"{name} does not take the differentiable path's kernels")
+        pick, merge = _fit(fit)
+        params = dr.trainable(pick(scene))
+        step = dr.make_train_step(cfg, torch.optim.SGD(params.values(), lr=lr), merge,
+                                  payload_grad=payload_grad)
+        losses = [float(step(params, scene, target))]  # the first step, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses += [step(params, scene, target) for _ in range(steps)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(x) for x in losses]
+        want = {k: 0 for k in counts}
+        want.update(K3=steps, K5=steps)
+        if fit != "material":
+            want.update(K6=steps, K7=steps)
+        if counts != want:
+            raise AssertionError(f"{name} {fit}: {steps} steps launched {counts}, expected {want}")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} {fit}: the loss did not fall: {losses}")
+        for k, v in params.items():
+            if v.grad is None or not torch.isfinite(v.grad).all():
+                raise AssertionError(f"{name} {fit}: gradient of {k} missing or not finite")
+        top = []
+        acts, busy_ms = frame_breakdown(lambda: step(params, scene, target), 1, top)
+        idle = None if busy_ms is None else 1.0 - busy_ms / step_ms
+        line = {"scene": name, "size": f"{W}x{H}", "fit": fit, "payload_grad": payload_grad,
+                "steps": steps, "lr": lr, "launches": counts,
+                "launches_per_step": {k: v / steps for k, v in counts.items() if v},
+                "step_ms": step_ms, "step_device_activities": acts, "step_device_busy_ms": busy_ms,
+                "device_idle_share": idle, "peak_memory_bytes": peak, "losses": losses,
+                "top_device_kernels_ms": top}
+        print(f"phase 3: grad {name} {fit} payload_grad={payload_grad}: {steps} steps, launches "
+              f"{counts}; {step_ms:.2f} ms per fwd+bwd step, {acts} device activities, busy "
+              f"{busy_ms} ms, idle share {idle}; peak memory {peak / 2**30:.2f} GiB; loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}; most device time: "
+              + "; ".join(f"{ms:.2f} ms {name}" for ms, name in top[:3]), flush=True)
+        out.append(line)
+    return out
+
+
+def _grads_close(name: str, got, want, rtol=2e-2, atol=3e-3) -> float:
+    """tests/test_grad_fast.py:65's gradient tolerance; returns the worst
+    |got - want| over the largest |want|."""
+    scale = max(float(want.abs().max()), 1e-12)
+    if not torch.isfinite(got).all() or bool(
+            ((got - want).abs() > rtol * want.abs() + atol * scale + 1e-8).any()):
+        raise AssertionError(f"{name}: kernel-route gradient differs from the eager route's "
+                             f"({_rel_err(got, want):.3e} of the largest)")
+    return _rel_err(got, want)
+
+
+def phase_grad_vs_eager(dev, built: dict) -> dict:
+    """The kernel route's image and gradients (every material, light and
+    geometry parameter) against the eager route's, on optional at 160x128,
+    for the loss sum(image * weights).  The eager route holds (rays x
+    triangles) residuals, so it runs its rays in chunks, each rendered and
+    backpropagated on its own, the gradients summed: the same gradient as
+    one pass.  Images within rtol 2e-2, atol 3e-3 on >= 99% of pixels (a
+    soft gate at t = tmin on a grazing ray goes either way), gradients
+    within rtol 2e-2 and 3e-3 of the largest (tests/test_grad_fast.py:65)."""
+    import dataclasses
+
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.grad import diff_render as dr
+    from raytpu_torch.grad import fast
+    from raytpu_torch.render import renderer
+
+    name, (w, h), chunk = GRAD_VS_EAGER
+    scene = built[name]
+    cfg = RenderConfig(width=w, height=h, soft_shadows=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wt = torch.rand((h, w, 3), generator=gen, device=dev)
+    groups = {"material": (dr.material_params, dr.merge_material_params),
+              "light": (dr.light_params, dr.merge_light_params),
+              "geometry": (dr.geometry_params, dr.merge_geometry_params)}
+
+    def merged(params):
+        s = scene
+        for g, (_, merge) in groups.items():
+            s = merge(s, params[g])
+        return s
+
+    kp = {g: dr.trainable(pick(scene)) for g, (pick, _) in groups.items()}
+    reset_launch_counts()
+    img_k = dr.render_soft_f32(merged(kp), cfg, kernels=True)
+    (img_k * wt).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ep = {g: dr.trainable(pick(scene)) for g, (pick, _) in groups.items()}
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    img_e = []
+    for i in range(0, w * h, chunk):
+        colors = renderer.render_pixels_f32(merged(ep), ro, rd[i:i + chunk],
+                                            dataclasses.replace(cfg, ray_chunk=chunk),
+                                            closest_fn=fast.detached_closest_hit)
+        (colors * wt.reshape(-1, 3)[i:i + chunk]).sum().backward()
+        img_e.append(colors.detach())
+    img_e = torch.cat(img_e).reshape(h, w, 3)
+    torch.cuda.synchronize()
+    off = ((img_k.detach() - img_e).abs() > 3e-3 + 2e-2 * img_e.abs()).any(dim=-1)
+    if float(off.float().mean()) > 0.01:
+        raise AssertionError(f"kernel route image differs from the eager route on "
+                             f"{int(off.sum())} pixels")
+    worst = {}
+    for g in groups:
+        for k, v in ep[g].items():
+            if v.grad is None:
+                continue
+            worst[f"{g}.{k}"] = _grads_close(f"{g}.{k}", kp[g][k].grad, v.grad)
+    print(f"phase 3: kernel route vs eager route, {name} {w}x{h} ({w * h // chunk} eager chunks): "
+          f"launches {counts}; image max|diff| {float((img_k.detach() - img_e).abs().max()):.3e}, "
+          f"{int(off.sum())} pixels beyond the tolerance; gradients, worst diff over the largest: "
+          f"{json.dumps(worst)}", flush=True)
+    return {"pixels_beyond": int(off.sum()), "grad_rel_err": worst, "launches": counts}
+
+
 # FP32 operations (add, sub, mul, div, sqrt, pow, min/max, abs) of one call of
 # each piece of mega.cu, counted from its source.  Comparisons and selects are
 # not counted, nor the few operations of a closest-hit winner's update, so
@@ -507,10 +844,11 @@ def count_ops(scene, config) -> float:
     return float(ops)
 
 
-def frame_breakdown(frame, n: int):
+def frame_breakdown(frame, n: int, top: list | None = None):
     """(device activities per frame, device-busy ms per frame) over ``n``
     calls of ``frame`` under torch.profiler, or (None, None) when the
-    profiler records no device activity."""
+    profiler records no device activity.  ``top``, if given, receives the
+    six device kernels with the most time per frame, as (ms, name)."""
     from torch.profiler import ProfilerActivity, profile
 
     frame()
@@ -522,6 +860,11 @@ def frame_breakdown(frame, n: int):
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None, None
+    if top is not None:
+        by_name = {}
+        for e in dev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        top.extend(sorted(((ms, name[:90]) for name, ms in by_name.items()), reverse=True)[:6])
     return len(dev) / n, sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
 
 
@@ -757,17 +1100,90 @@ def time_packed(dev, built: dict, name: str):
     return out
 
 
+# FP32 operations of soft.cu per test, counted from its source as above (an
+# fmaf counts 2, expf 1): tri_soft 65, and K5's multiply into the product 2;
+# sphere_soft 28 + 2, plane_soft 24 + 2.  K6 and K7 do tri_soft's 65 on every
+# test and their gradient arithmetic only where the sigmoid is live, which
+# is not counted: their operation bounds are lower bounds.
+OPS_SOFT_TRI = 65
+OPS_SOFT_MUL = 2
+OPS_SOFT_SPHERE, OPS_SOFT_PLANE = 28, 24
+
+
+def time_soft(dev, built: dict, name: str, plain: bool):
+    """K5's, K6's and K7's times at 640x480 on the differentiable main
+    path's soft shadow queries, beside their bounds, counted from the
+    queries' worklists; the plain versions' times on the same whole frame
+    when ``plain``."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import packed, soft
+    from raytpu_torch.utils.profiling import device_ms
+
+    scene = built[name]
+    cfg = RenderConfig(width=W, height=H, soft_shadows=True)
+    tmin, beta = cfg.ray_min, cfg.soft_beta
+    p, dirs, mags = _soft_queries(scene, cfg)
+    blobs = packed.soft_packs(scene)
+    S, P, T = (b.shape[0] for b in blobs)
+    L, R = mags.shape
+    trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+    g = torch.rand(trans.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev) * 2.0 - 1.0
+    calls = {
+        "K5": (lambda: soft.soft_trans_lights_cuda(p, dirs, mags, *blobs, wl, cnt, tmin, beta),
+               lambda: soft.soft_trans_plain(p, dirs, mags, *blobs, tmin, beta)),
+        "K6": (lambda: soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta),
+               lambda: soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, tmin, beta)),
+        "K7": (lambda: soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta),
+               lambda: soft.soft_dprim_plain(p, dirs, mags, g, trans, blobs[2], tmin, beta))}
+    nt = cnt.shape[0]
+    tile_rays = torch.full((nt,), 1024.0, dtype=torch.float64, device=dev)
+    tile_rays[-1] = R - 1024 * (nt - 1)
+    tests = float((tile_rays[:, None] * _worklist_tris(wl, cnt, T)).sum())
+    sp_ops = L * R * (S * OPS_SOFT_SPHERE + P * OPS_SOFT_PLANE)
+    blob_bytes = sum(b.numel() for b in blobs) * 4
+    wl_bytes = (int(cnt.sum()) + cnt.numel()) * 4
+    rays_in = R * 12 + L * R * 16
+    bounds = {
+        "K5": _bound(sp_ops + L * R * (S + P) * OPS_SOFT_MUL + tests * (OPS_SOFT_TRI + OPS_SOFT_MUL),
+                     rays_in + blob_bytes + wl_bytes + L * R * 4),
+        "K6": _bound(sp_ops + tests * OPS_SOFT_TRI,
+                     rays_in + L * R * 8 + blob_bytes + wl_bytes + R * 12 + L * R * 16),
+        "K7": _bound(tests * OPS_SOFT_TRI,
+                     rays_in + L * R * 8 + T * 14 * 4 + wl_bytes + T * 9 * 4)}
+    out = {"tests_per_query": tests / (L * R), "queries": L * R}
+    for key, (kernel, plain_fn) in calls.items():
+        ms = device_ms(kernel, iters=5, warmup=1)
+        plain_ms = device_ms(plain_fn, iters=1, warmup=0) if plain else None
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "plain_size": f"{W}x{H}" if plain else None,
+                    **bounds[key]}
+        e = out[key]
+        print(f"phase 4: {key} {name}: {ms:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B), plain "
+              f"{plain_ms if plain_ms is None else round(plain_ms, 2)} ms; "
+              f"{out['tests_per_query']:.1f} triangle tests per (shadow ray, light)", flush=True)
+    return out
+
+
 KERNEL_INFO = {
     "K2a": ("mega2_closest", "raytpu_torch/render/csrc/mega2.cu", "raytpu/render/pallas_kernel.py:1192"),
     "K2b": ("mega2_shade", "raytpu_torch/render/csrc/mega2.cu", "raytpu/render/pallas_kernel.py:1300"),
     "K3": ("packed_closest", "raytpu_torch/render/csrc/packed.cu", "raytpu/render/pallas_soft.py:1033"),
     "K4": ("packed_anyhit", "raytpu_torch/render/csrc/packed.cu", "raytpu/render/pallas_soft.py:822"),
+    "K5": ("soft_trans", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:598"),
+    "K6": ("soft_dray", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:1351"),
+    "K7": ("soft_dprim", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:1584"),
 }
-#: the scene whose numbers head each kernel's entry: the largest it serves
-HEADLINE = {"K2a": "optional", "K2b": "optional", "K3": "bunny300k", "K4": "bunny300k"}
+#: the scene whose numbers head each kernel's entry: the largest it serves on
+#: the forward routes, the slice's scene for the soft kernels
+HEADLINE = {"K2a": "optional", "K2b": "optional", "K3": "bunny300k", "K4": "bunny300k",
+            "K5": "optional", "K6": "optional", "K7": "optional"}
+#: the scenes whose soft kernels are timed; the plain versions on the first
+SOFT_TIMED = ("optional", "bunny50k", "bunny300k")
 
 
-def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict) -> None:
+def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
+                grad: list) -> None:
     from raytpu_torch.core import scenes
     from raytpu_torch.core.types import RenderConfig
 
@@ -791,19 +1207,27 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict)
                       "device_idle_share": idle, "card": env["nvidia_smi"]})
         print(f"phase 4: {name}: frame {frame_ms:.4f} ms ({rays_per_s:.4e} primary rays/s); per "
               f"frame {acts} device activities, busy {busy_ms} ms, idle share {idle}", flush=True)
+    for name in SOFT_TIMED:
+        timed = time_soft(dev, built, name, plain=name == SOFT_TIMED[0])
+        for key in ("K5", "K6", "K7"):
+            per_scene.setdefault(name, {})[key] = timed[key]
+    for line in grad:
+        lines.append({"grad_path": line, "card": env["nvidia_smi"]})
+    main_launches = [v["launches"] for v in big.values()] + [v["launches"] for v in grad]
     entries = [k1]
     for key, (kname, source, replaces) in KERNEL_INFO.items():
         head = per_scene[HEADLINE[key]][key]
         cmp = worst[key]
         entries.append({
             "name": kname, "id": key, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(v["launches"][key] for v in big.values()),
+            "launches": sum(c[key] for c in main_launches),
             "max_abs_err": cmp["max_abs_diff"], "max_abs_diff": cmp["max_abs_diff"],
-            "flip_frac": cmp["flip_frac"], "scene": HEADLINE[key], "library_ms": None,
+            "flip_frac": cmp.get("flip_frac"), "max_rel_err": cmp.get("max_rel_err"),
+            "scene": HEADLINE[key], "library_ms": None,
             **head,
             "per_scene": {n: v[key] for n, v in per_scene.items() if key in v}})
     for line in lines:
-        print(json.dumps({"main_path": line}))
+        print(json.dumps(line if "grad_path" in line else {"main_path": line}))
     print(json.dumps({"kernels": entries}))
 
 
@@ -826,14 +1250,21 @@ def main() -> int:
     worst = {"K1": timed("phase 2 (K1)", phase_compare, dev)}
     mega2_worst = timed("phase 2 (K2a, K2b)", phase_compare_mega2, dev, built)
     packed_cmp = timed("phase 2 (K3, K4)", phase_compare_packed, dev, built)
+    soft_cmp = timed("phase 2 (K5, K6, K7)", phase_compare_soft, dev, built)
     worst.update({"K2a": mega2_worst["K2a"], "K2b": mega2_worst["K2b"], "K3": packed_cmp["K3"],
-                  "K4": packed_cmp["K4"]})
+                  "K4": packed_cmp["K4"], "K5": soft_cmp["K5"], "K6": soft_cmp["K6"],
+                  "K7": soft_cmp["K7"]})
     main_path = timed("phase 3 (reference)", phase_main_path, dev, built)
     big = timed("phase 3 (big meshes)", phase_big_paths, dev, built)
-    timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big)
+    grad = timed("phase 3 (grad)", phase_grad_paths, dev, built)
+    vs_eager = timed("phase 3 (grad vs eager)", phase_grad_vs_eager, dev, built)
+    timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad)
     print(json.dumps({"phase_seconds": seconds,
                       "packed_vs_eager_160x128": packed_cmp["packed_vs_eager"],
-                      "mega2_route_vs_plain": mega2_worst["route"]}))
+                      "mega2_route_vs_plain": mega2_worst["route"],
+                      "k7_run_to_run_max_abs": soft_cmp["K7_run_to_run"],
+                      "soft_function_vs_autograd": soft_cmp["function_vs_autograd"],
+                      "grad_kernel_vs_eager_160x128": vs_eager}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
           f"on {env['nvidia_smi']}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,10 @@ with the same layout:
                          the triangle order and cull glue (accel)
   raytpu_torch.render  — the eager renderer; the router and the hand-written
                          CUDA kernels (csrc/: K1 mega.cu, K2a/K2b mega2.cu,
-                         K3/K4 packed.cu) with their plain versions, built
-                         by render/build.py
+                         K3/K4 packed.cu, K5/K6/K7 soft.cu) with their plain
+                         versions, built by render/build.py
+  raytpu_torch.grad    — the differentiable soft-shadow renderer and its
+                         train step
   raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers and ray stats
   raytpu_torch.app     — the command line
 

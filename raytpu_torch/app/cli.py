@@ -6,6 +6,8 @@ become flags:
   --size WxH    resolution                 (was: literals main.cpp:32-33)
   --mode        lighting debug mode        (was: F3 cycle)
   --no-shadows  disable shadow rays        (was: F2 toggle)
+  --soft-shadows  sigmoid soft-shadow visibility, the differentiable form
+  --soft-beta B   its sharpness (default 300; lower is softer)
   --screenshot  save the last frame, BMP or PNG (was: X key)
   --benchmark N FPS benchmark -> file      (was: F6)
   --frames N    run N animated frames
@@ -45,6 +47,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", default="combined", choices=list(_MODES),
                    help="lighting debug mode (reference: F3)")
     p.add_argument("--no-shadows", action="store_true", help="disable shadow rays (reference: F2)")
+    p.add_argument("--soft-shadows", action="store_true",
+                   help="sigmoid soft-shadow visibility (the differentiable renderer's)")
+    p.add_argument("--soft-beta", type=float, default=None, metavar="B",
+                   help="soft-shadow sigmoid sharpness (default 300; lower = softer)")
     p.add_argument("--frames", type=int, default=1, help="number of animated frames to render")
     p.add_argument("--screenshot", metavar="PATH", default=None, help="save the last frame (BMP or PNG)")
     p.add_argument("--benchmark", type=int, metavar="N", default=0,
@@ -71,12 +77,17 @@ def main(argv=None) -> int:
         print("error: --device cuda, but torch finds no CUDA device; "
               "pass --device cpu to render on the CPU", file=sys.stderr)
         return 2
+    soft_kw = {}
+    if args.soft_shadows:
+        soft_kw["soft_shadows"] = True
+        if args.soft_beta is not None:
+            soft_kw["soft_beta"] = float(args.soft_beta)
     config = RenderConfig(width=w, height=h, lighting_mode=_MODES[args.mode],
-                          shadows=not args.no_shadows)
+                          shadows=not args.no_shadows, **soft_kw)
     spec = scenes.get(args.scene)
     scene = spec.build(args.device)
     print(f"raytpu_torch: scene={args.scene} {w}x{h} mode={args.mode} "
-          f"shadows={config.shadows} device={args.device}")
+          f"shadows={config.shadows} soft={config.soft_shadows} device={args.device}")
 
     # warm-up: builds the kernel on first use; .cpu() waits for the frame
     t0 = time.perf_counter()

@@ -85,6 +85,22 @@ def normalize(v):
     return v / magnitude(v)[..., None]
 
 
+def normalize_safe(v, eps=1e-20):
+    """Normalize with the norm clamped away from zero, so that the gradient
+    of a zero vector is finite (the differentiable path's normalize)."""
+    return v / torch.clamp(magnitude(v), min=eps)[..., None]
+
+
+def gather_rows(table, idx):
+    """``table[idx]`` for an integer index tensor of any shape, through
+    ``index_select``: its backward is an ``index_add_``, where advanced
+    indexing's serialises repeated indices (every vertex of a mesh gathers
+    the mesh's one transform; every ray that misses a class gathers its
+    row 0)."""
+    flat = torch.index_select(table, 0, idx.reshape(-1).long())
+    return flat.reshape(*idx.shape, *table.shape[1:])
+
+
 def transform_vector(m, v):
     """``v @ M[:3, :3]``: rotate and scale only (reference: source/Matrix.cpp:35-42)."""
     return v @ m[:3, :3]

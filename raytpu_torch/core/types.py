@@ -174,21 +174,31 @@ class Meshes(_Tensors):
         )
         return dataclasses.replace(self, rotation=rot)
 
+    def with_positions(self, positions) -> "Meshes":
+        """Replace the vertex pool and recompute the object-space face
+        normals, ``normalize(cross(v1-v0, v2-v0))`` (reference:
+        source/DataTypes.h:191-208), as vertices being optimized need."""
+        v = math3d.gather_rows(positions, self.face_vertex)
+        n = math3d.normalize_safe(math3d.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]))
+        return dataclasses.replace(self, positions=positions, face_normal=n)
+
     def world_triangles(self) -> Triangles:
         """Positions through ``S·R·T`` (scale, rotate, translate in row-vector
         order), face normals through the 3x3 part and re-normalized
         (reference: source/DataTypes.h:210-236)."""
         lin = self.scale[:, :, None] * self.rotation  # (N,3,3) == diag(s) @ R
-        vm, fm = self.vertex_mesh.long(), self.face_mesh.long()
-        wpos = _row_times(self.positions, lin[vm]) + self.translation[vm]
-        n = _row_times(self.face_normal, lin[fm])
+        vm, fm = self.vertex_mesh, self.face_mesh
+        wpos = (_row_times(self.positions, math3d.gather_rows(lin, vm))
+                + math3d.gather_rows(self.translation, vm))
+        n = _row_times(self.face_normal, math3d.gather_rows(lin, fm))
         # the sum of squares unfused, as raytpu's op-by-op jnp.sum(n*n) rounds it
         n_len = torch.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2])
         wnrm = n / n_len[:, None]
-        v = wpos[self.face_vertex.long()]  # (T,3,3)
+        v = math3d.gather_rows(wpos, self.face_vertex)  # (T,3,3)
         return Triangles(
             v0=v[:, 0], v1=v[:, 1], v2=v[:, 2], normal=wnrm,
-            cull=self.cull[fm], material=self.material[fm],
+            cull=math3d.gather_rows(self.cull, fm),
+            material=math3d.gather_rows(self.material, fm),
         )
 
     @staticmethod
@@ -297,7 +307,7 @@ class RenderConfig:
     shadow_dim: float = 0.95  # per-occluded-light pixel dimming factor
     ray_min: float = 1e-4
     normal_offset: float = 1e-4
-    soft_shadows: bool = False  # differentiable visibility (not ported yet)
+    soft_shadows: bool = False  # differentiable (sigmoid) visibility
     soft_beta: float = 300.0  # sharpness of the soft visibility sigmoid
     ray_chunk: Optional[int] = None  # rays per eager chunk (None = auto)
 

@@ -36,6 +36,9 @@ SAH_LEAF = GROUP  # builder leaf size == the cull-group size: every group is a S
 #: groups; bounds its temporaries at large group counts
 CULL_STEP_ELEMS = 1 << 22
 BIG = 3.0e38
+#: the soft sigmoid's tail is cut where beta * margin < -SOFT_SUPPORT, an
+#: occlusion below ~2e-9 (raytpu/render/pallas_soft.py:38)
+SOFT_SUPPORT = 20.0
 
 
 def spatial_permutation(tri_verts: np.ndarray) -> np.ndarray:
@@ -93,6 +96,23 @@ def chunk_bounds(tris: Triangles, chunk: int = CHUNK):
     lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=float("inf"))
     hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=float("-inf"))
     return lo.reshape(nc, chunk, 3).amin(dim=1), hi.reshape(nc, chunk, 3).amax(dim=1)
+
+
+def chunk_soft_slack(tris: Triangles, beta: float, chunk: int = CHUNK,
+                     support: float = SOFT_SUPPORT):
+    """(nc,) widening of each chunk's box that covers the soft sigmoid's
+    support (raytpu/ops/accel.py:161).  A ray passing a distance ``d``
+    outside a triangle of extent ``E`` has a barycentric margin of about
+    ``-d/E``, so clipping where ``beta * margin < -support`` needs the box
+    widened by ``support / beta`` times the chunk's largest triangle
+    extent, here each triangle's box diagonal."""
+    T = tris.count
+    nc = -(-T // chunk)
+    lo = torch.minimum(torch.minimum(tris.v0, tris.v1), tris.v2)
+    hi = torch.maximum(torch.maximum(tris.v0, tris.v1), tris.v2)
+    diag = torch.sqrt(((hi - lo) ** 2).sum(dim=1))
+    diag = torch.nn.functional.pad(diag, (0, nc * chunk - T), value=0.0)
+    return (support / beta) * diag.reshape(nc, chunk).amax(dim=1)
 
 
 def cull_matrix(rb, chunk_lo, chunk_hi, tmin):

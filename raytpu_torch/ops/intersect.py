@@ -22,6 +22,7 @@ from raytpu_torch.core.types import Scene
 
 FLT_EPSILON = 1.1920929e-07
 INF = float("inf")
+OCC_MAX = 1.0 - 1e-6  #: soft occlusions stay below 1: torch.prod's backward divides by 1 - occ
 
 
 def _cols(v):
@@ -176,3 +177,74 @@ def any_hit(scene: Scene, ro, rd, tmin, tmax):
     ``tmax`` is per-ray (R,): the distance to the light."""
     tmat = scene_t_matrix(scene, ro, rd, tmin, tmax, shadow_pass=True)
     return torch.isfinite(tmat).any(dim=1)
+
+
+def _soft_occ(margin, gate, beta):
+    """``min(sigmoid(beta * margin), OCC_MAX)`` on the gated entries, else 0.
+    ``torch.sigmoid``'s backward stays finite where ``exp(-beta * margin)``
+    overflows on an ungated entry; ``1 / (1 + exp)``'s would be NaN there,
+    and ``where`` would carry the NaN into the gradient."""
+    occ = torch.clamp(torch.sigmoid(beta * margin), max=OCC_MAX)
+    return torch.where(gate, occ, 0.0)
+
+
+def soft_transmittance(scene: Scene, ro, rd, tmin, tmax, beta):
+    """(R,) differentiable visibility in [0, 1] of shadow rays ``ro``, ``rd``
+    (R,3) over [tmin, tmax], ``tmax`` (R,): the product over primitives of
+    ``1 - occ``, each occlusion a sigmoid of a signed penetration margin
+    (raytpu/ops/intersect.py:288).  It tends to ``1 - any_hit`` as
+    ``beta -> inf`` and gives shadow edges gradients that the binary
+    visibility zeroes.
+
+    Spheres gate on ``t <= tmax``, triangles on ``t < tmax``; triangle
+    culling is inverted, as for every shadow ray.  Occlusions are clamped
+    below 1 (``OCC_MAX``), so no factor is 0 and the product's backward
+    stays finite."""
+    d = _cols(rd)
+    hi = _tmax_col(tmax)
+    trans = torch.ones_like(rd[:, 0])
+    if scene.spheres.count:
+        L = _sub(_rows(scene.spheres.center), _cols(ro))
+        proj = _dot(d, L)
+        perp2 = math3d.fma(-proj, proj, _dot(L, L))
+        r2 = (scene.spheres.radius * scene.spheres.radius)[None, :]
+        margin = (r2 - perp2) / r2  # > 0 where the ray's core passes inside
+        inside = margin > 0.0
+        t = proj - torch.sqrt(torch.where(inside, r2 - perp2, torch.ones_like(perp2)))
+        gate = inside & (t >= tmin) & (t <= hi)
+        trans = trans * torch.prod(1.0 - _soft_occ(margin, gate, beta), dim=1)
+    if scene.planes.count:
+        # a plane's shadow edge comes from the segment's ends crossing it: the
+        # margin is how far (in t) the crossing lies inside the segment
+        n = _rows(scene.planes.normal)
+        denom = _dot(d, n)
+        num = _dot(_sub(_rows(scene.planes.origin), _cols(ro)), n)
+        denom_nz = torch.abs(denom) > FLT_EPSILON
+        t = num / torch.where(denom_nz, denom, torch.ones_like(denom))
+        margin = torch.minimum(t - tmin, hi - t)
+        gate = denom_nz & (margin > 0.0)
+        trans = trans * torch.prod(1.0 - _soft_occ(margin, gate, beta), dim=1)
+    tr = scene.triangles
+    if tr.count:
+        p0 = _rows(tr.v0)
+        cull_dot = _dot(_rows(tr.normal), d)
+        not_parallel = torch.abs(cull_dot) >= FLT_EPSILON
+        cull = tr.cull[None, :]
+        cull = torch.where(cull == 2, 2, 1 - cull)  # the shadow pass inverts
+        culled = ((cull == 0) & (cull_dot < 0)) | ((cull == 1) & (cull_dot > 0))
+        e1 = _sub(_rows(tr.v1), p0)
+        e2 = _sub(_rows(tr.v2), p0)
+        h = _cross(d, e2)
+        a = _dot(e1, h)
+        det_ok = torch.abs(a) >= FLT_EPSILON
+        inv_a = 1.0 / torch.where(det_ok, a, torch.ones_like(a))
+        s = _sub(_cols(ro), p0)
+        u = inv_a * _dot(s, h)
+        q = _cross(s, e1)
+        v = inv_a * _dot(d, q)
+        t = inv_a * _dot(e2, q)
+        # signed distance to the triangle's boundary in barycentric terms
+        margin = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+        gate = not_parallel & ~culled & det_ok & (t >= tmin) & (t < hi)
+        trans = trans * torch.prod(1.0 - _soft_occ(margin, gate, beta), dim=1)
+    return trans

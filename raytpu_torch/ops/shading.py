@@ -32,10 +32,9 @@ def shade(materials: Materials, mat_idx, n, l, v):
     sanitized on the rows where a family is NOT selected, so that the
     unselected formulas stay finite (Cook-Torrance at roughness 0, Phong at
     a zero exponent)."""
-    idx = mat_idx.long()
-    kind = materials.kind[idx]
-    col = materials.color[idx]  # (R,3)
-    p0, p1, p2 = materials.params[idx].unbind(-1)
+    kind = math3d.gather_rows(materials.kind, mat_idx)
+    col = math3d.gather_rows(materials.color, mat_idx)  # (R,3)
+    p0, p1, p2 = math3d.gather_rows(materials.params, mat_idx).unbind(-1)
     one = torch.ones_like(p0)
     is_ct = kind == 3
     rough = torch.where(is_ct, p1, one)

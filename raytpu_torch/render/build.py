@@ -112,6 +112,15 @@ def load():
                                              c_int, c_ptr, c_int, c_ptr, c_ptr, c_int, c_float,
                                              c_ptr, c_ptr]
         lib.raytpu_packed_anyhit.restype = c_int
+        soft_in = [c_ptr, c_ptr, c_ptr, c_int, c_int]  # p, dirs, mags, R, L
+        soft_wl = [c_ptr, c_ptr, c_int, c_float, c_float]  # wl, cnt, wl_cols, tmin, beta
+        sp_tri = [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]  # spheres, planes, triangles
+        lib.raytpu_soft_trans.argtypes = soft_in + sp_tri + soft_wl + [c_ptr, c_ptr]
+        lib.raytpu_soft_trans.restype = c_int
+        lib.raytpu_soft_dray.argtypes = soft_in + sp_tri + soft_wl + [c_ptr] * 6
+        lib.raytpu_soft_dray.restype = c_int
+        lib.raytpu_soft_dprim.argtypes = soft_in + [c_ptr, c_int] + soft_wl + [c_ptr] * 4
+        lib.raytpu_soft_dprim.restype = c_int
         lib.raytpu_cuda_error_string.argtypes = [c_int]
         lib.raytpu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -114,8 +114,6 @@ def render_image_mega_f32_plain(scene: Scene, config: RenderConfig):
 
 _NOT_PORTED = {
     "chunked": "K8-K10, the chunked min-t, shadow and shadow+shade kernels (pallas_kernel.py)",
-    "jnp": "K5, the soft-shadow transmittance kernel (pallas_soft.py:_make_soft_mega_kernel), "
-           "and the differentiable path (raytpu/grad)",
 }
 
 
@@ -142,10 +140,10 @@ def route_kind(scene: Scene, config: RenderConfig) -> str:
 def render_image_f32(scene: Scene, config: RenderConfig):
     """(H, W, 3) float32 image through the route raytpu would take: K1 for
     small scenes, K2a + K2b up to 9,600 triangles, K3 + K4 and the eager
-    shade tail up to 1M, and raytpu's jnp route (the eager path) for hard
-    shadows past that.
-    The chunked and soft-shadow routes raise, naming the kernels they wait
-    for."""
+    shade tail up to 1M, and raytpu's jnp route (the eager path) for soft
+    shadows and for hard shadows past that (pallas_kernel.py:2291; the
+    differentiable renderer with its kernels is ``raytpu_torch.grad``).
+    The chunked route raises, naming the kernels it waits for."""
     kind = route_kind(scene, config)
     if kind == "mega":
         return render_image_mega_f32(scene, config)
@@ -153,9 +151,9 @@ def render_image_f32(scene: Scene, config: RenderConfig):
         return mega2.render_image_mega2_f32(scene, config)
     if kind == "packed":
         return packed.render_image_packed_f32(scene, config)
-    if kind == "jnp" and not config.soft_shadows:
-        # past the packed band, raytpu renders scenes over 32k triangles
-        # with plain jnp ops: the eager path
+    if kind == "jnp":
+        # soft shadows, and hard shadows past the packed band over 32k
+        # triangles: raytpu's plain jnp ops, here the eager path
         return renderer.render_image_f32(scene, config)
     raise NotImplementedError(f"route {kind!r} needs {_NOT_PORTED[kind]}, not ported yet")
 

@@ -78,15 +78,21 @@ def closest_worklists(scene: Scene, ro, rd, tmin):
     return accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi, float(tmin)))
 
 
-def shadow_worklists(scene: Scene, p, dirs, mags, tmin):
-    """K4's worklists ``(wl (nt, L, ng) int32, cnt (nt, L) int32)``: each
-    light's groups that a shadow ray of the tile may hit, from the shadow
-    rays themselves (``accel.shadow_cull_matrix``)."""
+def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None):
+    """The shadow rays' worklists ``(wl (nt, L, ng) int32, cnt (nt, L)
+    int32)``: each light's groups that a shadow ray of the tile may hit,
+    from the shadow rays themselves (``accel.shadow_cull_matrix``).  K4
+    passes no ``soft_beta``; the soft kernels K5-K7 pass theirs, which
+    widens every group's box by ``accel.chunk_soft_slack``
+    (pallas_soft.py:_padded_group_bounds)."""
     L, nt = dirs.shape[0], -(-p.shape[0] // TILE)
     if not accel.culls_groups(scene.triangles):
         wl, cnt = accel.full_worklist(nt * L, scene.triangles)
         return wl.reshape(nt, L, -1), cnt.reshape(nt, L)
     glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
+    if soft_beta is not None:
+        slack = accel.chunk_soft_slack(scene.triangles, float(soft_beta), accel.GROUP)[:, None]
+        glo, ghi = glo - slack, ghi + slack
     lights = scene.lights
     per_light = [accel.chunk_worklist(accel.shadow_cull_matrix(
         p, dirs[li], mags[li], lights.position[li], lights.kind[li] == LightKind.POINT,

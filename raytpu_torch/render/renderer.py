@@ -4,8 +4,9 @@ tone map, as plain tensor ops.
 Counterpart of ``raytpu/render/renderer.py`` (reference:
 source/Renderer.cpp:34-182).  It runs on whatever device the scene is on, is
 the reference the megakernel's plain version is held against, and is what
-the tests compare with raytpu's jnp renderer.  Hard shadows only: soft
-shadows come with the differentiable path.
+the tests compare with raytpu's jnp renderer.  Soft shadows
+(``RenderConfig.soft_shadows``) are differentiable: ``raytpu_torch.grad``
+renders them through the kernels.
 """
 
 from __future__ import annotations
@@ -40,13 +41,20 @@ def generate_rays(camera, config: RenderConfig):
     return camera.origin, math3d.normalize(d).reshape(-1, 3)
 
 
-def shade_rays(scene: Scene, ro, rd, config: RenderConfig):
+def shade_rays(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None, soft_multi_fn=None):
     """Closest hit, per-light shadows and shading, shadow dim and tone map
     for a batch of rays.  ``ro`` is (3,) or (N,3).  Returns (N,3) in [0,1].
     One shared origin stays (1,3), so the primary pass's origin-to-primitive
-    terms are computed once per primitive rather than once per ray."""
-    rec = intersect.closest_hit(scene, ro.reshape(-1, 3), rd, config.ray_min)
-    return shade_from_records(scene, rec, rd, config)
+    terms are computed once per primitive rather than once per ray.
+
+    ``closest_fn(scene, ro (N,3), rd, tmin) -> HitRecords`` replaces the
+    eager closest hit (the differentiable path's detached winner search);
+    ``soft_multi_fn`` goes to ``shade_from_records``."""
+    if closest_fn is None:
+        rec = intersect.closest_hit(scene, ro.reshape(-1, 3), rd, config.ray_min)
+    else:
+        rec = closest_fn(scene, ro.reshape(-1, 3).expand_as(rd), rd, config.ray_min)
+    return shade_from_records(scene, rec, rd, config, soft_multi_fn=soft_multi_fn)
 
 
 def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
@@ -60,34 +68,53 @@ def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
     return p_off, torch.stack([l for l, _ in lds]), torch.stack([m for _, m in lds])
 
 
-def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn=None):
+def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn=None,
+                       soft_multi_fn=None):
     """The shading tail of ``shade_rays`` given the closest hit's records:
-    hard shadows, 0.95 dim per occluded light, MaxToOne.
+    shadows, the shadow dim, MaxToOne.
 
+    Hard shadows dim a pixel by ``shadow_dim`` per occluded light.
     ``any_multi_fn(scene, p_off (R,3), dirs (L,R,3), mags (L,R), tmin) ->
     (L,R) bool`` answers every light's occlusion in one call (the packed
     route's all-lights any-hit kernel); without it each light takes
-    ``intersect.any_hit``."""
-    if config.soft_shadows:
-        raise NotImplementedError("soft shadows come with the differentiable path")
+    ``intersect.any_hit``.
+
+    Soft shadows (``config.soft_shadows``) weight each light by its
+    transmittance ``trans`` in [0, 1] and dim by ``dim + (1 - dim) *
+    trans``.  ``soft_multi_fn(scene, p_off, dirs, mags) -> (L,R)`` gives
+    every light's transmittance in one call, computed once per render, as
+    raytpu hoists it out of its recompute (raytpu/render/renderer.py:228);
+    without it each light takes ``intersect.soft_transmittance``."""
     n = rd.shape[0]
     p_off, dirs, mags = shadow_query_inputs(scene, rec, config)
     color = torch.zeros((n, 3), dtype=torch.float32, device=rd.device)
     shadow_factor = torch.ones((n,), dtype=torch.float32, device=rd.device)
     mode = config.lighting_mode
-    occ_multi = None
-    if any_multi_fn is not None and config.shadows and dirs is not None:
+    soft = config.shadows and config.soft_shadows
+    occ_multi = trans_multi = None
+    if any_multi_fn is not None and config.shadows and not soft and dirs is not None:
         occ_multi = any_multi_fn(scene, p_off, dirs, mags, config.ray_min)
+    if soft_multi_fn is not None and soft and dirs is not None:
+        trans_multi = soft_multi_fn(scene, p_off, dirs, mags)
+    # float32 arithmetic on the dim, as raytpu's jnp.float32(shadow_dim)
+    dim = torch.tensor(config.shadow_dim, dtype=torch.float32, device=rd.device)
     for li in range(scene.lights.count):
         l, mag = dirs[li], mags[li]
-        if config.shadows:
+        if soft:
+            trans = (trans_multi[li] if trans_multi is not None
+                     else intersect.soft_transmittance(scene, p_off, l, config.ray_min, mag,
+                                                       config.soft_beta))
+            trans = torch.where(rec.hit, trans, 1.0)
+            # the soft dim interpolates between dim and 1
+            shadow_factor = shadow_factor * (dim + (1.0 - dim) * trans)
+        elif config.shadows:
             occluded = (occ_multi[li] if occ_multi is not None
                         else intersect.any_hit(scene, p_off, l, config.ray_min, mag))
             trans = torch.where(occluded & rec.hit, 0.0, 1.0)
+            # each occluded light dims the whole pixel (reference: source/Renderer.cpp:139)
+            shadow_factor = shadow_factor * torch.where(trans == 0.0, config.shadow_dim, 1.0)
         else:
             trans = torch.ones((n,), dtype=torch.float32, device=rd.device)
-        # each occluded light dims the whole pixel (reference: source/Renderer.cpp:139)
-        shadow_factor = shadow_factor * torch.where(trans == 0.0, config.shadow_dim, 1.0)
         if mode == LightingMode.COMBINED:
             oa = torch.clamp(math3d.dot(rec.normal, l), min=0.0)[:, None]
             rad = shading.radiance(scene.lights, li, rec.point)
@@ -104,12 +131,14 @@ def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn
     return math3d.max_to_one(color)
 
 
-def render_pixels_f32(scene: Scene, ro, rd, config: RenderConfig):
-    """``shade_rays`` over a flat ray batch, in chunks that keep the
-    (rays x primitives) t-matrix within ``CHUNK_ELEMS`` elements."""
+def render_pixels_f32(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None,
+                      soft_multi_fn=None):
+    """``shade_rays`` over a flat ray batch, in chunks of
+    ``config.ray_chunk`` rays, by default as many as keep the (rays x
+    primitives) t-matrix within ``CHUNK_ELEMS`` elements."""
     n = rd.shape[0]
     chunk = config.ray_chunk or max(1024, CHUNK_ELEMS // max(scene.num_primitives, 1))
-    return torch.cat([shade_rays(scene, ro, rd[i:i + chunk], config)
+    return torch.cat([shade_rays(scene, ro, rd[i:i + chunk], config, closest_fn, soft_multi_fn)
                       for i in range(0, n, chunk)])
 
 

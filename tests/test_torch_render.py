@@ -289,8 +289,10 @@ def test_no_fallback_to_the_cpu():
 def test_routes_the_port_lacks_raise():
     scene = scenes.get("reference").build("cpu")
     assert cuda_kernel.route_kind(scene, RenderConfig()) == "mega"
-    with pytest.raises(NotImplementedError, match="K5"):
-        cuda_kernel.render_image_f32(scene, RenderConfig(width=8, height=6, soft_shadows=True))
+    soft = RenderConfig(width=8, height=6, soft_shadows=True)
+    assert cuda_kernel.route_kind(scene, soft) == "jnp"  # soft shadows: the eager path
+    assert torch.equal(cuda_kernel.render_image_f32(scene, soft),
+                       renderer.render_image_f32(scene, soft))
     arrays = convert.scene_to_arrays(scene)
     n = 80  # past the megakernel's 72 primitives, past mega2's 16 spheres
     arrays["spheres.center"] = np.zeros((n, 3), np.float32) + [0.0, 1.0, 4.0]
