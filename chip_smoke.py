@@ -14,7 +14,10 @@ Phases (each passes or raises; nothing is caught):
      640x480 (the main path's shapes), of optional with a light just above
      its ceiling (so that g_mags is not zero) and of bunny50k at 160x128;
      and the autograd Function around them, with its sphere and plane
-     cotangents, against plain autograd on reference at 160x128;
+     cotangents, against plain autograd on reference at 160x128; K8 (both
+     modes), K9 and K10 (the chunked route) on optional_l12 at 640x480 and
+     on bunny18k_l12 and reference_s106 at 160x128, and the route's 24-light
+     boundary (24 render, 25 raise);
   3. the main paths, each with the launch counts set to 0 just before it and
      read just after: 64 animated frames of the reference scene at 640x480
      (K1) with frames t=0 and t=1.25 against the committed goldens, 16 of
@@ -25,11 +28,20 @@ Phases (each passes or raises; nothing is caught):
      (K3 and K5 once a step, no K6 or K7), a light and mesh fit (K3, K5,
      K6, K7 once a step), the material fit on bunny50k and bunny300k; and
      the kernel route's gradients against the eager route's on optional at
-     160x128;
+     160x128; the chunked route (K8, K10) on optional_l12 and reference_s106
+     (16 frames) and bunny18k_l12 (4), frame 0 of each against the eager
+     path, chunked.shade_rays (K8, K9) against the route on optional_l12, and
+     the per-stage profiler on reference and optional_l12;
   4. times on the card (CUDA events) of every kernel beside its bound, and
      of each scene's frame, with the device's idle share from torch.profiler;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
-     share and peak memory.
+     share and peak memory; K8, K9 and K10 and the chunked fixtures' frames.
+
+The chunked route's fixtures are registry scenes carried across with
+``convert`` and edited (raytpu's registry has no scene past its caps):
+optional_l12 and bunny18k_l12 add nine white point lights to optional and
+to bunny subdivided 3 times (18,688 triangles), reference_s106 adds a grid
+of 100 spheres to reference.
 The last line is {"ok": true, "device": {...}}; it prints only if every phase
 passed.  Without a CUDA card the script exits non-zero and prints no result.
 """
@@ -66,7 +78,8 @@ CMP_TILE_STRIDE = 10
 #: held against the eager path: the first that they see whole
 PACKED_PLAIN_SIZE = PACKED_CMP_SIZES[1]
 #: the kernels each route launches once per frame
-ROUTE_KERNELS = {"mega": ["K1"], "mega2": ["K2a", "K2b"], "packed": ["K3", "K4"]}
+ROUTE_KERNELS = {"mega": ["K1"], "mega2": ["K2a", "K2b"], "packed": ["K3", "K4"],
+                 "chunked": ["K8", "K10"]}
 #: the soft kernels' comparison cases: the main path's frame, optional
 #: with a light just above its ceiling (``far_light``), and the stress
 #: mesh's band, at sizes whose plain versions take seconds
@@ -83,6 +96,19 @@ GRAD_PATHS = (("optional", 8, "material", True, 1e-2), ("optional", 8, "material
 #: the kernel route against the eager route: a size at which the eager
 #: route's (rays x triangles) residuals fit, in chunks of rays
 GRAD_VS_EAGER = ("optional", (160, 128), 1024)
+
+#: the chunked route's main paths: fixture, frames at 640x480, the size of
+#: its kernels' comparisons with their plain versions (every
+#: CMP_TILE_STRIDE-th tile at 640x480), the registry scene that animates it
+CHUNKED_PATHS = (("optional_l12", 16, (W, H), "optional"),
+                 ("bunny18k_l12", 4, (160, 128), "bunny"),
+                 ("reference_s106", 16, (160, 128), "reference"))
+ANIMATED_BY = {name: base for name, _, _, base in CHUNKED_PATHS}
+#: the size at which the chunked route is held against the eager path and
+#: the plain versions are timed
+CHUNKED_PLAIN_SIZE = (160, 128)
+#: the fixtures the per-stage profiler runs on
+STAGE_SCENES = ("reference", "optional_l12")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -131,22 +157,26 @@ def launch_counts() -> dict:
     from raytpu_torch.render import cuda_kernel as ck
     from raytpu_torch.render import mega2, packed
 
-    from raytpu_torch.render import soft
+    from raytpu_torch.render import chunked, soft
 
     return {"K1": ck.MEGA_LAUNCHES, "K2a": mega2.MEGA2_CLOSEST_LAUNCHES,
             "K2b": mega2.MEGA2_SHADE_LAUNCHES, "K3": packed.PACKED_CLOSEST_LAUNCHES,
             "K4": packed.PACKED_ANYHIT_LAUNCHES, "K5": soft.SOFT_TRANS_LAUNCHES,
-            "K6": soft.SOFT_DRAY_LAUNCHES, "K7": soft.SOFT_DPRIM_LAUNCHES}
+            "K6": soft.SOFT_DRAY_LAUNCHES, "K7": soft.SOFT_DPRIM_LAUNCHES,
+            "K8": chunked.CHUNKED_MIN_T_LAUNCHES, "K9": chunked.CHUNKED_ANYHIT_LAUNCHES,
+            "K10": chunked.CHUNKED_SHADE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
+    from raytpu_torch.render import chunked, mega2, packed, soft
     from raytpu_torch.render import cuda_kernel as ck
-    from raytpu_torch.render import mega2, packed, soft
 
     ck.MEGA_LAUNCHES = 0
     mega2.MEGA2_CLOSEST_LAUNCHES = mega2.MEGA2_SHADE_LAUNCHES = 0
     packed.PACKED_CLOSEST_LAUNCHES = packed.PACKED_ANYHIT_LAUNCHES = 0
     soft.SOFT_TRANS_LAUNCHES = soft.SOFT_DRAY_LAUNCHES = soft.SOFT_DPRIM_LAUNCHES = 0
+    chunked.CHUNKED_MIN_T_LAUNCHES = chunked.CHUNKED_ANYHIT_LAUNCHES = 0
+    chunked.CHUNKED_SHADE_LAUNCHES = 0
 
 
 def build_scenes(dev) -> dict:
@@ -160,7 +190,48 @@ def build_scenes(dev) -> dict:
         print(f"built {name}: {out[name].triangles.count} triangles in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
     out["optional_far_light"] = far_light(out["optional"])
+    t0 = time.perf_counter()
+    out["optional_l12"] = nine_lights(out["optional"])
+    out["bunny18k_l12"] = nine_lights(scenes.scene_bunny_subdiv(3, device=dev))
+    out["reference_s106"] = sphere_grid(out["reference"])
+    print(f"built the chunked fixtures in {time.perf_counter() - t0:.2f}s", flush=True)
     return out
+
+
+def _appended(scene, rows: dict):
+    """``scene`` carried across with ``convert`` and rebuilt on its device,
+    with ``rows[leaf]`` appended to each leaf named ``"group.field"``."""
+    from raytpu_torch.core import convert
+
+    arrays = convert.scene_to_arrays(scene)
+    for key, new in rows.items():
+        arrays[key] = np.concatenate([arrays[key], np.asarray(new, arrays[key].dtype)])
+    return convert.scene_from_arrays(arrays, scene.device)
+
+
+def add_point_lights(scene, positions, intensity: float):
+    """``scene`` with white point lights of ``intensity`` appended at
+    ``positions``."""
+    n = len(positions)
+    return _appended(scene, {"lights.position": positions,
+                             "lights.direction": [(0.0, 0.0, 1.0)] * n,
+                             "lights.color": [(1.0, 1.0, 1.0)] * n,
+                             "lights.intensity": [intensity] * n, "lights.kind": [0] * n})
+
+
+def nine_lights(scene):
+    """The chunked fixtures' lights: nine white point lights of intensity
+    15 at y = 8, x in {-3, 0, 3} (outer), z in {0, 3, 6} (inner)."""
+    return add_point_lights(scene, [(x, 8.0, z) for x in (-3.0, 0.0, 3.0) for z in (0.0, 3.0, 6.0)],
+                            15.0)
+
+
+def sphere_grid(scene):
+    """reference_s106: 100 Lambert spheres of radius 0.2 in the scene's
+    white material (id 2) at x = -4.05 + 0.9 i, y = 0.5, z = 1.5 + 0.8 j."""
+    centers = [(-4.05 + 0.9 * i, 0.5, 1.5 + 0.8 * j) for i in range(10) for j in range(10)]
+    return _appended(scene, {"spheres.center": centers, "spheres.radius": [0.2] * 100,
+                             "spheres.material": [2] * 100})
 
 
 def far_light(scene):
@@ -518,6 +589,121 @@ def _function_vs_autograd(dev, built: dict) -> float:
     return worst
 
 
+def _first_hit_diff(t, tp, idx=None, idxp=None):
+    """(share of rays whose winner agrees, max |t diff| and max relative t
+    diff where they agree): winners by index when given, else by whether
+    the ray hits."""
+    same = (idx == idxp) if idx is not None else (torch.isfinite(t) == torch.isfinite(tp))
+    both = same & torch.isfinite(tp)
+    t_diff = float((t - tp).abs()[both].max()) if both.any() else 0.0
+    t_rel = float(((t - tp).abs() / tp.abs())[both].max()) if both.any() else 0.0
+    return float(same.float().mean()), t_diff, t_rel, same
+
+
+def phase_compare_chunked(dev, built: dict) -> dict:
+    """K8, K9 and K10 against their plain versions on optional_l12 at 640x480
+    (the main path's shapes; every CMP_TILE_STRIDE-th tile checked) and on
+    bunny18k_l12 and reference_s106 at 160x128.  K8's closest mode on the
+    camera rays: the winner on >= 99.99% of rays, with t within 1e-6
+    relative and the same material and normal (within 1e-6) where it
+    agrees; its shadow mode on every light's shadow queries of those hits,
+    flattened into one batch: the same first occluder on >= 99.99% of
+    queries.  K9 on the same queries: >= 99.9% of (light, ray) pairs equal.
+    K10 on K8's records: the megakernel budget.  Then the route's light cap:
+    optional with 24 lights renders, with 25 the route and K9 raise."""
+    from raytpu_torch.core import math3d
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import chunked, cuda_kernel, packed, plain, renderer
+
+    out = {k: {"max_abs_diff": 0.0, "flip_frac": 0.0} for k in ("K8", "K9", "K10")}
+    for name, _, (w, h), _ in CHUNKED_PATHS:
+        scene = built[name]
+        cfg = RenderConfig(width=w, height=h)
+        tmin = cfg.ray_min
+        if cuda_kernel.route_kind(scene, cfg) != "chunked":
+            raise AssertionError(f"{name} does not take the chunked route")
+        blobs = packed.soft_packs(scene)
+        ro, rd = _folded_rays(scene, cfg)
+        R, L = rd.shape[0], scene.lights.count
+        sub = _cmp_rays(R, dev)
+        t, idx, normal, mat = chunked.scene_min_t(scene, ro, rd, tmin)
+        tp, idxp, normalp, matp = plain.chunked_min_t_plain(ro[sub], rd[sub], None, *blobs, tmin,
+                                                            False)
+        torch.cuda.synchronize()
+        agree, t_diff, t_rel, same = _first_hit_diff(t[sub], tp, idx[sub], idxp)
+        n_diff = float((normal[sub] - normalp).abs()[same].max()) if same.any() else 0.0
+        if (agree < 0.9999 or t_rel > 1e-6 or n_diff > 1e-6
+                or not torch.equal(mat[sub][same], matp[same])):
+            raise AssertionError(f"K8 {name} {w}x{h}: winners agree on {agree:.6f} of rays, t "
+                                 f"within {t_rel:.3e} relative, normals within {n_diff:.3e}, or "
+                                 f"the materials differ")
+        # the shadow queries of K8's hits, every light's flattened into one batch
+        rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
+        p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+        t_s, *_ = chunked.scene_min_t(scene, p_off.repeat(L, 1), dirs.reshape(-1, 3), tmin,
+                                      mags.reshape(-1), shadow=True)
+        sub_s = (torch.arange(L, device=dev)[:, None] * R + sub[None, :]).reshape(-1)
+        tp_s, *_ = plain.chunked_min_t_plain(p_off.repeat(L, 1)[sub_s], dirs.reshape(-1, 3)[sub_s],
+                                             mags.reshape(-1)[sub_s], *blobs, tmin, True)
+        occ = chunked.any_hit_lights_chunked(scene, p_off, dirs, mags, tmin)
+        occp = packed.any_hit_lights_plain(p_off[sub].contiguous(), dirs[:, sub].contiguous(),
+                                           mags[:, sub].contiguous(), *blobs, tmin)
+        torch.cuda.synchronize()
+        s_agree, s_diff, s_rel, _ = _first_hit_diff(t_s[sub_s], tp_s)
+        k9_flip = float((occ[:, sub] != occp).float().mean())
+        if s_agree < 0.9999 or s_rel > 1e-6:
+            raise AssertionError(f"K8 shadow mode {name}: {s_agree:.6f} of queries agree, first "
+                                 f"occluder's t within {s_rel:.3e}")
+        if k9_flip > 0.001:
+            raise AssertionError(f"K9 {name}: {k9_flip:.5f} of (light, ray) pairs differ")
+        # K10 on K8's records, launched on the whole frame
+        colors = chunked.shadow_shade_chunked(scene, rec, rd, cfg)
+        colors_p = plain.shadow_shade_plain(
+            rec.hit[sub], rec.normal[sub], rec.point[sub], rec.material[sub], rd[sub], p_off[sub],
+            dirs[:, sub], mags[:, sub], plain.pack_lights(scene.lights),
+            plain.material_table(scene.materials), *blobs, cfg)
+        torch.cuda.synchronize()
+        if not torch.isfinite(colors).all():
+            raise AssertionError(f"K10 {name}: colors are not finite")
+        k10_diff = float((colors[sub] - colors_p).abs().max())
+        flips, mean = close_u8(math3d.quantize_u8(colors[sub]).cpu().numpy()[None],
+                               math3d.quantize_u8(colors_p).cpu().numpy()[None], 0.01, 0.5)
+        print(f"phase 2: K8 {name} {w}x{h} ({sub.numel()} of {R} rays checked): winners agree "
+              f"{agree:.6f}, max|t diff| {t_diff:.3e} (rel {t_rel:.3e}), max|normal diff| "
+              f"{n_diff:.3e}; shadow mode on {L} x {sub.numel()} queries: first occluders agree "
+              f"{s_agree:.6f} (max|t diff| {s_diff:.3e}); K9 on {tuple(occ.shape)} (L, R): "
+              f"{k9_flip:.6f} of pairs differ, occluded share {float(occp.float().mean()):.4f}; "
+              f"K10 max|f32 diff| {k10_diff:.3e} flips {flips:.5f} mean {mean:.5f}", flush=True)
+        _worst(out["K8"], max(t_diff, n_diff, s_diff), max(1.0 - agree, 1.0 - s_agree))
+        _worst(out["K9"], float((occ[:, sub] != occp).any()), k9_flip)
+        _worst(out["K10"], k10_diff, flips)
+    # the light cap: 24 lights render through the route, 25 raise
+    cfg = RenderConfig(width=CHUNKED_PLAIN_SIZE[0], height=CHUNKED_PLAIN_SIZE[1])
+    more = [(-3.0 + 1.5 * (k % 5), 8.0, float(k // 5)) for k in range(22)]
+    l24, l25 = (add_point_lights(built["optional"], more[:n], 5.0) for n in (21, 22))
+    img = cuda_kernel.render_image(l24, cfg)
+    torch.cuda.synchronize()
+    if l24.lights.count != 24 or cuda_kernel.route_kind(l24, cfg) != "chunked" or not img.any():
+        raise AssertionError("optional with 24 lights did not render through the chunked route")
+    queries = (torch.zeros((8, 3), device=dev), torch.ones((25, 8, 3), device=dev),
+               torch.ones((25, 8), device=dev))
+    reset_launch_counts()
+    refused = []
+    for fn in (lambda: cuda_kernel.render_image(l25, cfg),
+               lambda: chunked.any_hit_lights_chunked(l25, *queries, cfg.ray_min)):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(str(e))
+    if len(refused) != 2 or any(launch_counts().values()):
+        raise AssertionError(f"25 lights did not raise before a launch: {refused}, "
+                             f"{launch_counts()}")
+    print(f"phase 2: chunked route with 24 lights: {tuple(img.shape)} frame, mean "
+          f"{float(img.float().mean()):.2f}; with 25: ValueError ({refused[0]}; {refused[1]})",
+          flush=True)
+    return out
+
+
 def _check_counts(name: str, route: str, frames: int, counts: dict) -> None:
     """Each kernel of the route launched once per frame, no other kernel."""
     want = {k: 0 for k in counts}
@@ -560,6 +746,85 @@ def phase_main_path(dev, built: dict) -> dict:
           f"{g0[0]:.5f} mean {g0[1]:.5f}; t=1.25 flips {g1[0]:.5f} mean {g1[1]:.5f}", flush=True)
     _run_cli("reference")
     return {"frames": FRAMES, "launches": counts["K1"], "golden_t0": g0, "golden_t1.25": g1}
+
+
+def phase_chunked_paths(dev, built: dict) -> dict:
+    """The chunked route at 640x480 on its fixtures (CHUNKED_PATHS), each
+    with the launch counts set to 0 just before its frames and read just
+    after: one K8 and one K10 a frame, no other kernel; every frame a
+    finite (H, W, 3) uint8 image that is not black; frame 0 against the
+    eager path at 160x128 (the pixels that differ counted, the megakernel
+    budget held).  Then chunked.shade_rays (one K8, one K9) on
+    optional_l12's camera rays against the route's image, and the per-stage
+    profiler on STAGE_SCENES with each prefix's launches."""
+    from raytpu_torch.core import math3d, scenes
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import chunked, cuda_kernel, render_image, renderer
+    from raytpu_torch.utils import stage_profile
+
+    config = RenderConfig(width=W, height=H)
+    small = RenderConfig(width=CHUNKED_PLAIN_SIZE[0], height=CHUNKED_PLAIN_SIZE[1])
+    out = {}
+    for name, frames, _, base in CHUNKED_PATHS:
+        spec, scene = scenes.get(base), built[name]
+        if cuda_kernel.route_kind(scene, config) != "chunked":
+            raise AssertionError(f"{name} routes to {cuda_kernel.route_kind(scene, config)}")
+        ts = torch.linspace(0.0, 2.0 * np.pi, frames, device=dev)  # as bench.py:92
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        imgs = [render_image(spec.animate(scene, ts[i]), config) for i in range(frames)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        seconds = time.perf_counter() - t0
+        _check_counts(name, "chunked", frames, counts)
+        for img in imgs:
+            if img.shape != (H, W, 3) or img.dtype != torch.uint8 or not bool(img.any()):
+                raise AssertionError(f"{name}: frame is {tuple(img.shape)} {img.dtype} or black")
+        first = spec.animate(scene, ts[0])
+        a = render_image(first, small).cpu().numpy()
+        b = renderer.render_image(first, small).cpu().numpy()
+        differ = int((a != b).any(axis=-1).sum())
+        flips, mean = close_u8(a, b, 0.01, 0.5)
+        print(f"phase 3: {name}: {frames} frames through chunked in {seconds:.2f}s, launches "
+              f"{counts}; frame 0 vs the eager path at {small.width}x{small.height}: {differ} "
+              f"pixels differ (flips {flips:.5f}, mean {mean:.5f})", flush=True)
+        out[name] = {"frames": frames, "route": "chunked", "launches": counts,
+                     "pixels_differing_vs_eager": differ}
+    # chunked.shade_rays: K8 for the closest hit, K9 for every light's shadows
+    scene = built["optional_l12"]
+    ro, rd = renderer.generate_rays(scene.camera, config)
+    reset_launch_counts()
+    colors = chunked.shade_rays(scene, ro, rd, config)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: int(k in ("K8", "K9")) for k in counts}
+    if counts != want:
+        raise AssertionError(f"chunked.shade_rays launched {counts}, expected {want}")
+    a = math3d.quantize_u8(colors.reshape(H, W, 3)).cpu().numpy()
+    b = render_image(scene, config).cpu().numpy()
+    flips, mean = close_u8(a, b, 0.01, 0.5)
+    print(f"phase 3: chunked.shade_rays optional_l12 {W}x{H}: launches {counts}; vs the route: "
+          f"{int((a != b).any(axis=-1).sum())} pixels differ (flips {flips:.5f}, mean "
+          f"{mean:.5f})", flush=True)
+    out["shade_rays"] = {"launches": counts}
+    # the per-stage profiler, each prefix's launches counted on one frame
+    out["stages"] = {}
+    for name in STAGE_SCENES:
+        spec = scenes.get(ANIMATED_BY.get(name, name))
+        scene = built[name]
+        prefix = {}
+        for stage, fn in stage_profile.prefix_fns(config, kernels=True).items():
+            reset_launch_counts()
+            float(fn(scene))
+            prefix[stage] = {k: v for k, v in launch_counts().items() if v}
+        if prefix["closest_hit"] != {"K8": 1} or prefix["shadow"] != {"K8": 1, "K9": 1}:
+            raise AssertionError(f"stage prefixes of {name} launched {prefix}")
+        report = stage_profile.profile_stages(spec, scene, config, kernels=True, frames=16)
+        print(f"phase 3: stages of {name} at {W}x{H} (kernels=True, 16 frames, best of 3), "
+              f"launches per prefix {json.dumps(prefix)}:\n"
+              + stage_profile.format_report(report), flush=True)
+        out["stages"][name] = {"launches_per_prefix": prefix, "report": report}
+    return out
 
 
 def _run_cli(scene: str) -> None:
@@ -931,16 +1196,16 @@ def time_k1(dev, env: dict, built: dict, worst: dict, main: dict):
     return kernel, line
 
 
-def _group_tris(T: int, dev):
-    """Triangles in each 8-triangle group (the last one may hold fewer)."""
-    ng = -(-T // 8)
-    return torch.clamp(T - 8 * torch.arange(ng, device=dev), max=8).to(torch.float64)
+def _group_tris(T: int, dev, group: int = 8):
+    """Triangles in each group of ``group`` (the last one may hold fewer)."""
+    ng = -(-T // group)
+    return torch.clamp(T - group * torch.arange(ng, device=dev), max=group).to(torch.float64)
 
 
-def _worklist_tris(wl, cnt, T: int):
+def _worklist_tris(wl, cnt, T: int, group: int = 8):
     """Triangles each worklist row walks: its passing groups' sizes summed."""
     used = torch.arange(wl.shape[-1], device=wl.device) < cnt[..., None]
-    return torch.where(used, _group_tris(T, wl.device)[wl.long()], 0.0).sum(dim=-1)
+    return torch.where(used, _group_tris(T, wl.device, group)[wl.long()], 0.0).sum(dim=-1)
 
 
 def _shade_ops(config, is_point: bool, kind, metal):
@@ -1165,6 +1430,99 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     return out
 
 
+def _tile_rays(R: int, dev):
+    """Rays in each 1024-ray tile (the last one may hold fewer)."""
+    nt = -(-R // 1024)
+    tile_rays = torch.full((nt,), 1024.0, dtype=torch.float64, device=dev)
+    tile_rays[-1] = R - 1024 * (nt - 1)
+    return tile_rays
+
+
+OPS_K10_TAIL = 5  # the shadow factor's three multiplies and MaxToOne's two max
+
+
+def time_chunked(dev, built: dict, name: str):
+    """K8's (closest mode), K9's and K10's times at 640x480 on the route's
+    camera rays and their shadow queries, beside their bounds, counted from
+    this frame's worklists as for K3 and K4 (a shadow query that finds an
+    occluder counts one plane test: a lower bound); the plain versions'
+    times on the whole frame at CHUNKED_PLAIN_SIZE."""
+    from raytpu_torch.core.types import LightKind, RenderConfig
+    from raytpu_torch.render import chunked, packed, plain, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    scene = built[name]
+    S, P, T, L = (scene.spheres.count, scene.planes.count, scene.triangles.count,
+                  scene.lights.count)
+    blobs = packed.soft_packs(scene)
+    lights, mats = plain.pack_lights(scene.lights), plain.material_table(scene.materials)
+    out = {}
+    for w, h in ((W, H), CHUNKED_PLAIN_SIZE):
+        cfg = RenderConfig(width=w, height=h)
+        tmin = cfg.ray_min
+        ro, rd = _folded_rays(scene, cfg)
+        R = rd.shape[0]
+        rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
+        p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+        k10_args = (rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd,
+                    p_off, dirs, mags, lights, mats, *blobs)
+        if (w, h) == CHUNKED_PLAIN_SIZE:
+            out["K8"]["plain_ms"] = device_ms(
+                lambda: plain.chunked_min_t_plain(ro, rd, None, *blobs, tmin, False), 1, 0)
+            out["K9"]["plain_ms"] = device_ms(
+                lambda: packed.any_hit_lights_plain(p_off, dirs, mags, *blobs, tmin), 1, 0)
+            out["K10"]["plain_ms"] = device_ms(
+                lambda: plain.shadow_shade_plain(*k10_args, cfg), 1, 0)
+            continue
+        wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group=chunked.CHUNK)
+        wl_s, cnt_s = packed.shadow_worklists(scene, p_off, dirs, mags, tmin, group=chunked.CHUNK)
+        ms8 = device_ms(lambda: chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False),
+                        iters=20, warmup=2)
+        occ = chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s, tmin)
+        ms9 = device_ms(lambda: chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s,
+                                                       tmin), iters=20, warmup=2)
+        ms10 = device_ms(lambda: chunked.shadow_shade(*k10_args, wl_s, cnt_s, cfg), iters=20,
+                         warmup=2)
+        tile_rays = _tile_rays(R, dev)
+        tris8 = _worklist_tris(wl, cnt, T, chunked.CHUNK)
+        n_hit = float(rec.hit.sum())
+        # the tests only: the winner's payload is not counted (a lower bound)
+        ops8 = R * (S * OPS_SPHERE + P * OPS_PLANE) + float((tile_rays * tris8).sum()) * OPS_TRI
+        blob_bytes = sum(b.numel() for b in blobs) * 4
+        bytes8 = R * 24 + blob_bytes + (int(cnt.sum()) + cnt.numel()) * 4 + R * 24
+        tris_s = _worklist_tris(wl_s, cnt_s, T, chunked.CHUNK)
+        every = torch.ones((R,), dtype=torch.bool, device=dev)
+        ops9 = sum(_shadow_ops(S, P, occ[li], every, tris_s[:, li], len(tile_rays))
+                   for li in range(L))
+        wl_s_bytes = (int(cnt_s.sum()) + cnt_s.numel()) * 4
+        bytes9 = R * 12 + L * R * 16 + blob_bytes + wl_s_bytes + L * R
+        kind = mats[rec.material.long(), 0]
+        metal = mats[rec.material.long(), 4] != 0.0
+        ops10 = n_hit * OPS_K10_TAIL
+        for li in range(L):
+            is_point = int(scene.lights.kind[li]) == int(LightKind.POINT)
+            ops10 += _shadow_ops(S, P, occ[li], rec.hit, tris_s[:, li], len(tile_rays))
+            ops10 += float(_shade_ops(cfg, is_point, kind, metal)[rec.hit & ~occ[li]].sum())
+        bytes10 = (R * (1 + 12 + 12 + 4 + 12 + 12) + L * R * 16 + lights.numel() * 4
+                   + mats.numel() * 4 + blob_bytes + wl_s_bytes + R * 12)
+        size = f"{CHUNKED_PLAIN_SIZE[0]}x{CHUNKED_PLAIN_SIZE[1]}"
+        for key, ms, ops, nbytes in (("K8", ms8, ops8, bytes8), ("K9", ms9, ops9, bytes9),
+                                     ("K10", ms10, ops10, bytes10)):
+            out[key] = {"ms": ms, "plain_size": size, **_bound(ops, nbytes)}
+        out["tests_per_ray"] = float((tile_rays * tris8).sum()) / R
+        out["shadow_tests_per_query"] = float((tile_rays[:, None] * tris_s).sum()) / (L * R)
+        out["occluded_share"] = float((occ & rec.hit[None]).sum()) / max(n_hit * L, 1.0)
+    for key in ("K8", "K9", "K10"):
+        e = out[key]
+        print(f"phase 4: {key} {name}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B), plain "
+              f"{e['plain_ms']:.2f} ms at {e['plain_size']}", flush=True)
+    print(f"phase 4: {name}: {out['tests_per_ray']:.1f} triangle tests per camera ray, "
+          f"{out['shadow_tests_per_query']:.1f} per (shadow ray, light) before any stop, "
+          f"occluded share {out['occluded_share']:.4f}", flush=True)
+    return out
+
+
 KERNEL_INFO = {
     "K2a": ("mega2_closest", "raytpu_torch/render/csrc/mega2.cu", "raytpu/render/pallas_kernel.py:1192"),
     "K2b": ("mega2_shade", "raytpu_torch/render/csrc/mega2.cu", "raytpu/render/pallas_kernel.py:1300"),
@@ -1173,17 +1531,24 @@ KERNEL_INFO = {
     "K5": ("soft_trans", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:598"),
     "K6": ("soft_dray", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:1351"),
     "K7": ("soft_dprim", "raytpu_torch/render/csrc/soft.cu", "raytpu/render/pallas_soft.py:1584"),
+    "K8": ("chunked_min_t", "raytpu_torch/render/csrc/chunked.cu",
+           "raytpu/render/pallas_kernel.py:230"),
+    "K9": ("chunked_anyhit_lights", "raytpu_torch/render/csrc/chunked.cu",
+           "raytpu/render/pallas_kernel.py:338"),
+    "K10": ("chunked_shadow_shade", "raytpu_torch/render/csrc/chunked.cu",
+            "raytpu/render/pallas_kernel.py:476"),
 }
 #: the scene whose numbers head each kernel's entry: the largest it serves on
 #: the forward routes, the slice's scene for the soft kernels
 HEADLINE = {"K2a": "optional", "K2b": "optional", "K3": "bunny300k", "K4": "bunny300k",
-            "K5": "optional", "K6": "optional", "K7": "optional"}
+            "K5": "optional", "K6": "optional", "K7": "optional", "K8": "bunny18k_l12",
+            "K9": "bunny18k_l12", "K10": "bunny18k_l12"}
 #: the scenes whose soft kernels are timed; the plain versions on the first
 SOFT_TIMED = ("optional", "bunny50k", "bunny300k")
 
 
 def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
-                grad: list) -> None:
+                grad: list, chunked_paths: dict) -> None:
     from raytpu_torch.core import scenes
     from raytpu_torch.core.types import RenderConfig
 
@@ -1211,9 +1576,31 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
         timed = time_soft(dev, built, name, plain=name == SOFT_TIMED[0])
         for key in ("K5", "K6", "K7"):
             per_scene.setdefault(name, {})[key] = timed[key]
+    for name, frames, _, base in CHUNKED_PATHS:
+        timed = time_chunked(dev, built, name)
+        per_scene[name] = timed
+        frame_ms, rays_per_s, acts, busy_ms, idle = time_frames(scenes.get(base), built[name],
+                                                                config, frames, dev)
+        launches = chunked_paths[name]["launches"]
+        lines.append({"scene": name, "size": f"{W}x{H}", "frames": frames, "route": "chunked",
+                      "launches": {k: launches[k] for k in ROUTE_KERNELS["chunked"]},
+                      "launches_per_frame": {k: launches[k] / frames
+                                             for k in ROUTE_KERNELS["chunked"]},
+                      "kernel_ms": {k: timed[k]["ms"] for k in ("K8", "K9", "K10")},
+                      "bound_ms": {k: timed[k]["bound_ms"] for k in ("K8", "K9", "K10")},
+                      "triangle_tests_per_ray": timed["tests_per_ray"],
+                      "shadow_tests_per_query": timed["shadow_tests_per_query"],
+                      "occluded_share": timed["occluded_share"],
+                      "frame_ms": frame_ms, "primary_rays_per_s": rays_per_s,
+                      "frame_device_activities": acts, "frame_device_busy_ms": busy_ms,
+                      "device_idle_share": idle, "card": env["nvidia_smi"]})
+        print(f"phase 4: {name}: frame {frame_ms:.4f} ms ({rays_per_s:.4e} primary rays/s); per "
+              f"frame {acts} device activities, busy {busy_ms} ms, idle share {idle}", flush=True)
     for line in grad:
         lines.append({"grad_path": line, "card": env["nvidia_smi"]})
-    main_launches = [v["launches"] for v in big.values()] + [v["launches"] for v in grad]
+    main_launches = ([v["launches"] for v in big.values()] + [v["launches"] for v in grad]
+                     + [chunked_paths[n]["launches"] for n, _, _, _ in CHUNKED_PATHS]
+                     + [chunked_paths["shade_rays"]["launches"]])
     entries = [k1]
     for key, (kname, source, replaces) in KERNEL_INFO.items():
         head = per_scene[HEADLINE[key]][key]
@@ -1251,20 +1638,27 @@ def main() -> int:
     mega2_worst = timed("phase 2 (K2a, K2b)", phase_compare_mega2, dev, built)
     packed_cmp = timed("phase 2 (K3, K4)", phase_compare_packed, dev, built)
     soft_cmp = timed("phase 2 (K5, K6, K7)", phase_compare_soft, dev, built)
+    chunked_cmp = timed("phase 2 (K8, K9, K10)", phase_compare_chunked, dev, built)
     worst.update({"K2a": mega2_worst["K2a"], "K2b": mega2_worst["K2b"], "K3": packed_cmp["K3"],
                   "K4": packed_cmp["K4"], "K5": soft_cmp["K5"], "K6": soft_cmp["K6"],
-                  "K7": soft_cmp["K7"]})
+                  "K7": soft_cmp["K7"], **chunked_cmp})
     main_path = timed("phase 3 (reference)", phase_main_path, dev, built)
     big = timed("phase 3 (big meshes)", phase_big_paths, dev, built)
     grad = timed("phase 3 (grad)", phase_grad_paths, dev, built)
     vs_eager = timed("phase 3 (grad vs eager)", phase_grad_vs_eager, dev, built)
-    timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad)
+    chunked_paths = timed("phase 3 (chunked)", phase_chunked_paths, dev, built)
+    timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad,
+          chunked_paths)
     print(json.dumps({"phase_seconds": seconds,
                       "packed_vs_eager_160x128": packed_cmp["packed_vs_eager"],
                       "mega2_route_vs_plain": mega2_worst["route"],
                       "k7_run_to_run_max_abs": soft_cmp["K7_run_to_run"],
                       "soft_function_vs_autograd": soft_cmp["function_vs_autograd"],
-                      "grad_kernel_vs_eager_160x128": vs_eager}))
+                      "grad_kernel_vs_eager_160x128": vs_eager,
+                      "chunked_vs_eager_160x128": {
+                          n: chunked_paths[n]["pixels_differing_vs_eager"]
+                          for n, _, _, _ in CHUNKED_PATHS},
+                      "stage_reports": chunked_paths["stages"]}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
           f"on {env['nvidia_smi']}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

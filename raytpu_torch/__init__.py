@@ -5,17 +5,19 @@ with the same layout:
   raytpu_torch.core    — math conventions, scene schema and builder, the OBJ
                          loader, scenes, the carry-across from raytpu's
                          scene arrays
-  raytpu_torch.native  — the host library (OBJ parser, SAH and Morton
-                         orders), a copy of raytpu's, built with g++
+  raytpu_torch.native  — the host library (OBJ parser, SAH order), a copy
+                         of raytpu's, built with g++
   raytpu_torch.ops     — batched intersection and shading on tensors, and
                          the triangle order and cull glue (accel)
   raytpu_torch.render  — the eager renderer; the router and the hand-written
                          CUDA kernels (csrc/: K1 mega.cu, K2a/K2b mega2.cu,
-                         K3/K4 packed.cu, K5/K6/K7 soft.cu) with their plain
-                         versions, built by render/build.py
+                         K3/K4 packed.cu, K5/K6/K7 soft.cu, K8/K9/K10
+                         chunked.cu) with their plain versions, built by
+                         render/build.py
   raytpu_torch.grad    — the differentiable soft-shadow renderer and its
                          train step
-  raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers and ray stats
+  raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers, ray stats
+                         and the per-stage profiler
   raytpu_torch.app     — the command line
 
 It imports torch, numpy and the standard library, never jax or raytpu.

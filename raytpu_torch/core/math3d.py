@@ -142,7 +142,14 @@ def as_divisor(x, like):
     """A Python number as a 0-dim float32 tensor on ``like``'s device.  On
     CUDA, PyTorch divides by a Python number as a multiply by its rounded
     reciprocal, which is not IEEE division; by a tensor, it divides."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return scalar(x, like.device)
+
+
+def scalar(x, device):
+    """A Python number as a 0-dim float32 tensor on ``device``, filled there:
+    ``torch.tensor(x, device=...)`` copies from pageable host memory, which
+    waits for every kernel queued on the card before it."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def quantize_u8(rgb):

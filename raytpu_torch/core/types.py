@@ -90,7 +90,7 @@ class Camera(_Tensors):
     def onb(self):
         """Camera-to-world basis: ``right = normalize(UnitY x fwd)``,
         ``up = normalize(fwd x right)`` (reference: source/Camera.h:43-53)."""
-        unit_y = torch.tensor(math3d.UNIT_Y, dtype=torch.float32, device=self.forward.device)
+        unit_y = (torch.arange(3, device=self.forward.device) == 1).to(torch.float32)  # UNIT_Y
         right = math3d.normalize(math3d.cross(unit_y, self.forward))
         up = math3d.normalize(math3d.cross(self.forward, right))
         return right, up, self.forward

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytpu_torch.core import math3d
 from raytpu_torch.core.types import Scene, Triangles
 
 CHUNK = 128  # raytpu's default cull-chunk size
@@ -220,8 +221,8 @@ def camera_tile_bounds(camera, W: int, H: int, tiled: bool, tile: int = 1024):
         py1 = torch.div(rid1, W, rounding_mode="floor")
 
     fov = camera.fov_scale
-    aspect = torch.tensor(np.float32(W / H), device=dev)
-    w_, h_ = torch.tensor(float(W), device=dev), torch.tensor(float(H), device=dev)
+    aspect = math3d.scalar(np.float32(W / H), dev)
+    w_, h_ = math3d.scalar(W, dev), math3d.scalar(H, dev)
     cx0 = (2.0 * (px0 + 0.5) / w_ - 1.0) * aspect * fov
     cx1 = (2.0 * (px1 + 0.5) / w_ - 1.0) * aspect * fov
     cy1 = (1.0 - 2.0 * (py0 + 0.5) / h_) * fov  # py0 -> larger cy
@@ -320,7 +321,8 @@ def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
         return torch.nn.functional.pad(x, (0, 0, 0, pad), value=v).reshape(nr, tile, 3)
 
     ro_b = ro.expand_as(rd)
-    tmax_b = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(R)
+    tmax_b = (tmax.to(torch.float32) if isinstance(tmax, torch.Tensor)
+              else math3d.scalar(tmax, dev)).expand(R)
     omin = p3(ro_b, float("inf")).amin(dim=1)
     omax = p3(ro_b, float("-inf")).amax(dim=1)
     dmin = p3(rd, float("inf")).amin(dim=1)
@@ -335,15 +337,16 @@ def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
                       emin, emax], dim=1)
 
 
-def culls_groups(tris: Triangles) -> bool:
-    """raytpu culls from two groups on; below that every tile takes every group."""
-    return tris.count >= 2 * GROUP
+def culls_groups(tris: Triangles, group: int = GROUP) -> bool:
+    """raytpu culls from two groups on (``CULL_MIN_TRIS`` is two 128-triangle
+    chunks); below that every tile takes every group."""
+    return tris.count >= 2 * group
 
 
-def full_worklist(rows: int, tris: Triangles):
-    """The worklists of no cull: every group of ``tris`` for each of
-    ``rows`` rows, as ``chunk_worklist`` lays them out."""
-    ng = -(-tris.count // GROUP)
+def full_worklist(rows: int, tris: Triangles, group: int = GROUP):
+    """The worklists of no cull: every group of ``group`` triangles of
+    ``tris`` for each of ``rows`` rows, as ``chunk_worklist`` lays them out."""
+    ng = -(-tris.count // group)
     wl = torch.arange(ng, dtype=torch.int32, device=tris.v0.device).expand(rows, ng).contiguous()
     return wl, torch.full((rows,), ng, dtype=torch.int32, device=tris.v0.device)
 

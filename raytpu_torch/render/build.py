@@ -121,6 +121,16 @@ def load():
         lib.raytpu_soft_dray.restype = c_int
         lib.raytpu_soft_dprim.argtypes = soft_in + [c_ptr, c_int] + soft_wl + [c_ptr] * 4
         lib.raytpu_soft_dprim.restype = c_int
+        lib.raytpu_chunked_min_t.argtypes = ([c_ptr, c_ptr, c_ptr, c_int] + sp_tri
+                                             + [c_ptr, c_ptr, c_int, c_float, c_int] + [c_ptr] * 5)
+        lib.raytpu_chunked_min_t.restype = c_int
+        lib.raytpu_chunked_anyhit_lights.argtypes = (soft_in + sp_tri
+                                                     + [c_ptr, c_ptr, c_int, c_float, c_ptr, c_ptr])
+        lib.raytpu_chunked_anyhit_lights.restype = c_int
+        lib.raytpu_chunked_shadow_shade.argtypes = (
+            [c_ptr] * 8 + [c_int, c_int, c_ptr, c_ptr, c_int] + sp_tri
+            + [c_ptr, c_ptr, c_int, c_float, c_int, c_int, c_float, c_ptr, c_ptr])
+        lib.raytpu_chunked_shadow_shade.restype = c_int
         lib.raytpu_cuda_error_string.argtypes = [c_int]
         lib.raytpu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

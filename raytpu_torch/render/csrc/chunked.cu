@@ -1,0 +1,338 @@
+// K8, K9 and K10: the chunked route's closest hit, all-lights any-hit and
+// fused shadow + shade for Hopper (sm_90a), for scenes past the other
+// routes' caps (more than 16 spheres or planes, or more than 8 lights) with
+// at most 32,768 triangles.
+//
+// K8 replaces raytpu/render/pallas_kernel.py:_make_scene_kernel, reached
+// through scene_min_t, closest_hit_pallas and any_hit_pallas: for arbitrary
+// rays (ro, rd) and an optional per-ray tmax, the minimum t over every
+// sphere and plane and the triangles of the ray tile's worklist of
+// 128-triangle chunks.  The closest mode writes t (inf on a miss), the
+// winner's global index (spheres -> planes -> triangles; 2^30 on a miss),
+// its normal (a sphere's unnormalized: hit point minus center; the wrapper
+// normalizes it) and its material id.  The shadow mode inverts the triangle
+// cull, takes t in [tmin, tmax) and stops at the first occluder: it writes
+// that occluder's t, the first in primitive order, or inf.
+// K9 replaces _make_shadow_kernel (any_hit_lights_pallas): for shadow
+// origins p and per-light directions and distances, whether anything lies
+// on each light's segment -> (L, R) bytes 0/1.  raytpu packs the answers
+// into one f32 bitmask, hence its 24-light cap, which the wrapper keeps.
+// K10 replaces _make_shadow_shade_kernel (shadow_shade_pallas): from K8's
+// hit records, every light's shadow any-hit (when shadows are on), the
+// shading of the lit lights in the four lighting modes, the dim per
+// occluded light and MaxToOne -> (R, 3) colors, black on a miss.  It
+// takes the material row by index from the material table (M, 7): raytpu's
+// one-hot matmul is a TPU gather; on this card its analog would be a TF32
+// product.
+//
+// Records (pallas_soft.py:_soft_packs): sphere center(3) radius^2
+// material_id, plane normal(3) dot(origin, normal) material_id, triangle
+// v0(3) e1(3) e2(3) normal(3) cull material_id; light pos-or-dir(3) rgb(3)
+// intensity kind; material kind rgb(3) p0 p1 p2.  Eager torch glue
+// (raytpu_torch/render/chunked.py) builds the worklists from the port's
+// ops/accel.py: a tile walks its passing chunks in ascending order, and a
+// scene under 256 triangles walks every chunk (raytpu's CULL_MIN_TRIS).
+//
+// A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
+// pixel blocks, raytpu in 512-ray 16x32 blocks).  One block of 1024
+// threads per tile, one thread per ray.  With the strict < update a tie
+// goes to the first primitive in sphere -> plane -> triangle order.
+//
+// What bounds it.  The work is FP32 arithmetic: ~50 operations for each
+// ray-triangle test that a worklist passes, ~15 for each sphere and plane,
+// which every ray tests, and ~100 of shading per lit light.  The bytes are
+// the rays (28-52 B each way), the per-light directions and distances
+// (16 B per ray and light), the worklist entries and a scene of at most
+// ~1.9 MB.  So the bound is the card's FP32 rate (chip_smoke.py counts the
+// tests from this run's worklists).
+//
+// What the design does about it.  The TPU kernels keep every primitive in
+// VMEM and fold (512 x 128) t-matrices; here each thread folds its own ray
+// over the primitives, with the culls skipping most chunks.  Spheres and
+// planes sit in shared memory when they fit in 48 KB (2,457 of them), else
+// the threads read them from device memory; triangles stay in device
+// memory, and all threads of a block read the same chunk at the same time,
+// which the cache serves as a broadcast.  A shadow query stops at its
+// first occluder.  The arithmetic is common.cuh's, so the kernels agree
+// with their plain versions (raytpu_torch/render/plain.py) up to powf's
+// last bit.
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace raytpu_dev;
+
+constexpr int kTile = 1024;
+constexpr int kChunk = 128;
+constexpr int kSp = 5;    // sphere / plane record
+constexpr int kTr = 14;   // triangle record
+constexpr int kMat = 7;   // material row
+constexpr int kMiss = 1 << 30;  // raytpu's BIG_I: the index of a miss
+constexpr int kSmemFloats = 48 * 1024 / 4;
+
+// Stages spheres then planes into shared memory when they fit; returns the
+// table to read (shared or device memory) through *sph and *pln.
+__device__ __forceinline__ void stage_sp(float* sm, const float* sph_g, int S, const float* pln_g,
+                                         int P, const float** sph, const float** pln) {
+  if ((S + P) * kSp <= kSmemFloats) {
+    for (int k = threadIdx.x; k < S * kSp; k += blockDim.x) sm[k] = sph_g[k];
+    for (int k = threadIdx.x; k < P * kSp; k += blockDim.x) sm[S * kSp + k] = pln_g[k];
+    __syncthreads();
+    *sph = sm;
+    *pln = sm + S * kSp;
+  } else {
+    *sph = sph_g;
+    *pln = pln_g;
+  }
+}
+
+// Shadow any-hit of one query against every sphere and plane and the
+// chunks of worklist row `w` (`c` entries), triangle culling inverted,
+// stopping at the first occluder.
+__device__ __forceinline__ bool occluded(const float* sph, int S, const float* pln, int P,
+                                         const float* __restrict__ tri, int T,
+                                         const int* __restrict__ w, int c, float ox, float oy,
+                                         float oz, float dx, float dy, float dz, float tmin,
+                                         float mag) {
+  for (int s = 0; s < S; ++s)
+    if (sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY) return true;
+  for (int q = 0; q < P; ++q)
+    if (plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY) return true;
+  for (int e = 0; e < c; ++e) {
+    const int ch = w[e];
+    if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+    const int k1 = min(ch * kChunk + kChunk, T);
+    for (int k = ch * kChunk; k < k1; ++k)
+      if (tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY)
+        return true;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(kTile) chunked_min_t_kernel(
+    const float* __restrict__ ro, const float* __restrict__ rd, const float* __restrict__ tmax,
+    int R, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
+    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
+    int wl_cols, float tmin, int shadow, float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ n_out, int* __restrict__ mat_out) {
+  extern __shared__ float sm[];
+  const float *sph, *pln;
+  stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
+  const int tile = blockIdx.x;
+  const int rid = tile * kTile + threadIdx.x;
+  if (rid >= R) return;
+  const float ox = ro[3 * rid], oy = ro[3 * rid + 1], oz = ro[3 * rid + 2];
+  const float dx = rd[3 * rid], dy = rd[3 * rid + 1], dz = rd[3 * rid + 2];
+  const float hi = tmax ? tmax[rid] : INFINITY;
+  const int* w = wl + (size_t)tile * wl_cols;
+  const int c = min(cnt[tile], wl_cols);
+
+  if (shadow) {  // the first occluder's t in primitive order, or inf
+    float t = INFINITY;
+    for (int s = 0; s < S && t == INFINITY; ++s)
+      t = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+    for (int q = 0; q < P && t == INFINITY; ++q)
+      t = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+    for (int e = 0; e < c && t == INFINITY; ++e) {
+      const int ch = w[e];
+      if (ch < 0 || ch > (T - 1) / kChunk) continue;
+      const int k1 = min(ch * kChunk + kChunk, T);
+      for (int k = ch * kChunk; k < k1 && t == INFINITY; ++k)
+        t = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, hi, true);
+    }
+    t_out[rid] = t;
+    return;
+  }
+
+  // strict < keeps the first primitive on ties
+  float t = INFINITY;
+  int idx = kMiss;
+  for (int s = 0; s < S; ++s) {
+    const float tc = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+    if (tc < t) {
+      t = tc;
+      idx = s;
+    }
+  }
+  for (int q = 0; q < P; ++q) {
+    const float tc = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+    if (tc < t) {
+      t = tc;
+      idx = S + q;
+    }
+  }
+  for (int e = 0; e < c; ++e) {
+    const int ch = w[e];
+    if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+    const int k1 = min(ch * kChunk + kChunk, T);
+    for (int k = ch * kChunk; k < k1; ++k) {
+      const float tc = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, hi, false);
+      if (tc < t) {
+        t = tc;
+        idx = S + P + k;
+      }
+    }
+  }
+
+  // the winner's payload (pallas_kernel.py:_sphere_t_matrix and its kin)
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, mat = 0.0f;
+  if (idx < S) {  // hit point minus center, normalized by the wrapper
+    const float* r = sph + idx * kSp;
+    nx = fmaf(t, dx, ox) - r[0];
+    ny = fmaf(t, dy, oy) - r[1];
+    nz = fmaf(t, dz, oz) - r[2];
+    mat = r[4];
+  } else if (idx < S + P) {
+    const float* r = pln + (idx - S) * kSp;
+    nx = r[0];
+    ny = r[1];
+    nz = r[2];
+    mat = r[4];
+  } else if (idx != kMiss) {
+    const float* r = tri + (size_t)(idx - S - P) * kTr;
+    nx = r[9];
+    ny = r[10];
+    nz = r[11];
+    mat = r[13];
+  }
+  t_out[rid] = t;
+  idx_out[rid] = idx;
+  n_out[3 * rid] = nx;
+  n_out[3 * rid + 1] = ny;
+  n_out[3 * rid + 2] = nz;
+  mat_out[rid] = (int)mat;
+}
+
+__global__ void __launch_bounds__(kTile) chunked_anyhit_kernel(
+    const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
+    int R, int L, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
+    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
+    int wl_cols, float tmin, uint8_t* __restrict__ occ) {
+  extern __shared__ float sm[];
+  const float *sph, *pln;
+  stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
+  const int tile = blockIdx.x;
+  const int rid = tile * kTile + threadIdx.x;
+  if (rid >= R) return;
+  const float ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
+  for (int l = 0; l < L; ++l) {
+    const size_t lr = (size_t)l * R + rid;
+    const int row = tile * L + l;
+    occ[lr] = occluded(sph, S, pln, P, tri, T, wl + (size_t)row * wl_cols,
+                       min(cnt[row], wl_cols), ox, oy, oz, dirs[3 * lr], dirs[3 * lr + 1],
+                       dirs[3 * lr + 2], tmin, mags[lr]) ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kTile) chunked_shadow_shade_kernel(
+    const uint8_t* __restrict__ hit, const float* __restrict__ normal,
+    const float* __restrict__ point, const int* __restrict__ mat_id, const float* __restrict__ rd,
+    const float* __restrict__ p_off, const float* __restrict__ dirs,
+    const float* __restrict__ mags, int R, int L, const float* __restrict__ lights,
+    const float* __restrict__ mats, int M, const float* __restrict__ sph_g, int S,
+    const float* __restrict__ pln_g, int P, const float* __restrict__ tri, int T,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin, int mode,
+    int shadows, float shadow_dim, float* __restrict__ out) {
+  extern __shared__ float sm[];
+  const float *sph, *pln;
+  stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
+  const int tile = blockIdx.x;
+  const int rid = tile * kTile + threadIdx.x;
+  if (rid >= R) return;
+  float rgb[3] = {0.0f, 0.0f, 0.0f};
+  if (hit[rid]) {
+    const float nx = normal[3 * rid], ny = normal[3 * rid + 1], nz = normal[3 * rid + 2];
+    const float px = point[3 * rid], py = point[3 * rid + 1], pz = point[3 * rid + 2];
+    const float ox = p_off[3 * rid], oy = p_off[3 * rid + 1], oz = p_off[3 * rid + 2];
+    const float vx = -rd[3 * rid], vy = -rd[3 * rid + 1], vz = -rd[3 * rid + 2];
+    const float* m = mats + min(max(mat_id[rid], 0), M - 1) * kMat;
+    float sf = 1.0f;
+    for (int l = 0; l < L; ++l) {
+      const size_t lr = (size_t)l * R + rid;
+      const float lx = dirs[3 * lr], ly = dirs[3 * lr + 1], lz = dirs[3 * lr + 2];
+      if (shadows) {
+        const int row = tile * L + l;
+        if (occluded(sph, S, pln, P, tri, T, wl + (size_t)row * wl_cols,
+                     min(cnt[row], wl_cols), ox, oy, oz, lx, ly, lz, tmin, mags[lr])) {
+          sf = sf * shadow_dim;
+          continue;
+        }
+      }
+      const float* li = lights + l * kLight;
+      float w[3];
+      shade_one_light(mode, li[7] == 0.0f, li, px, py, pz, nx, ny, nz, lx, ly, lz, vx, vy, vz, m,
+                      w);
+      rgb[0] = rgb[0] + w[0];
+      rgb[1] = rgb[1] + w[1];
+      rgb[2] = rgb[2] + w[2];
+    }
+    dim_and_tonemap(sf, rgb);
+  }
+  out[3 * rid] = rgb[0];
+  out[3 * rid + 1] = rgb[1];
+  out[3 * rid + 2] = rgb[2];
+}
+
+size_t sp_smem(int S, int P) {
+  return (S + P) * kSp <= kSmemFloats ? sizeof(float) * (S + P) * kSp : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K8 on `stream` over ceil(R/1024) tiles.  ro, rd (R, 3) float32;
+// `tmax` (R,) float32 or null for no bound; `wl` (nt, wl_cols) and `cnt`
+// (nt,) the tiles' chunk worklists; `shadow` selects the shadow mode, which
+// writes t_out (R,) only.  The closest mode writes t_out, idx_out (R,)
+// int32, n_out (R, 3) float32 and mat_out (R,) int32.  Returns
+// cudaGetLastError() after the launch.
+int raytpu_chunked_min_t(const float* ro, const float* rd, const float* tmax, int R,
+                         const float* sph, int S, const float* pln, int P, const float* tri, int T,
+                         const int* wl, const int* cnt, int wl_cols, float ray_min, int shadow,
+                         float* t_out, int* idx_out, float* n_out, int* mat_out, void* stream) {
+  const int tiles = (R + kTile - 1) / kTile;
+  chunked_min_t_kernel<<<tiles, kTile, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
+      ro, rd, tmax, R, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, shadow, t_out, idx_out,
+      n_out, mat_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K9 on `stream`.  p (R, 3), dirs (L, R, 3), mags (L, R) float32;
+// `wl` (nt, L, wl_cols) and `cnt` (nt, L) the per-light chunk worklists;
+// `occ` (L, R) bytes.  Returns cudaGetLastError() after the launch.
+int raytpu_chunked_anyhit_lights(const float* p, const float* dirs, const float* mags, int R,
+                                 int L, const float* sph, int S, const float* pln, int P,
+                                 const float* tri, int T, const int* wl, const int* cnt,
+                                 int wl_cols, float ray_min, uint8_t* occ, void* stream) {
+  const int tiles = (R + kTile - 1) / kTile;
+  chunked_anyhit_kernel<<<tiles, kTile, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
+      p, dirs, mags, R, L, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, occ);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K10 on `stream`.  hit (R,) bytes; normal, point, rd, p_off (R, 3)
+// and dirs (L, R, 3), mags (L, R) float32; mat_id (R,) int32; lights (L, 8)
+// and mats (M, 7) float32; `wl` (nt, L, wl_cols) and `cnt` (nt, L) the
+// per-light chunk worklists, read only when `shadows`; out (R, 3) float32.
+// Returns cudaGetLastError() after the launch.
+int raytpu_chunked_shadow_shade(const uint8_t* hit, const float* normal, const float* point,
+                                const int* mat_id, const float* rd, const float* p_off,
+                                const float* dirs, const float* mags, int R, int L,
+                                const float* lights, const float* mats, int M, const float* sph,
+                                int S, const float* pln, int P, const float* tri, int T,
+                                const int* wl, const int* cnt, int wl_cols, float ray_min,
+                                int mode, int shadows, float shadow_dim, float* out,
+                                void* stream) {
+  const int tiles = (R + kTile - 1) / kTile;
+  chunked_shadow_shade_kernel<<<tiles, kTile, sp_smem(S, P),
+                                static_cast<cudaStream_t>(stream)>>>(
+      hit, normal, point, mat_id, rd, p_off, dirs, mags, R, L, lights, mats, M, sph, S, pln, P,
+      tri, T, wl, cnt, wl_cols, ray_min, mode, shadows, shadow_dim, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

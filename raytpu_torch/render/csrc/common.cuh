@@ -1,6 +1,6 @@
 // Device arithmetic shared by the kernels (K1 mega.cu, K2a/K2b mega2.cu,
-// K3/K4 packed.cu): the primitive tests, camera raygen and the shading of a
-// hit.  Each function follows the Pallas kernels' op order and rounds where
+// K3/K4 packed.cu, K5-K7 soft.cu, K8-K10 chunked.cu): the primitive tests,
+// camera raygen and the shading of a hit.  Each function follows the Pallas kernels' op order and rounds where
 // the plain versions (raytpu_torch/render/plain.py) round: dot and cross
 // products and the points o + t*d are explicit fmaf calls, as XLA contracts
 // them on the CPU where raytpu's goldens were rendered
@@ -174,6 +174,16 @@ __device__ __forceinline__ void shade_one_light(
   for (int c = 0; c < 3; ++c) w[c] = oa * (li[3 + c] * rad_scale) * b[c];
 }
 
+// A hit's summed color rgb[3] times its shadow factor, then MaxToOne as a
+// division (reference: source/ColorRGB.h:12-17), in place.
+__device__ __forceinline__ void dim_and_tonemap(float sf, float* rgb) {
+  for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] * sf;
+  const float mx = fmaxf(rgb[0], fmaxf(rgb[1], rgb[2]));
+  if (mx > 1.0f) {
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] / mx;
+  }
+}
+
 // The whole RenderPixel tail of a hit at distance t along (ro, rd) with unit
 // normal n and material m: one shadow ray per light from the offset point,
 // shading, the shadow dim per occluded light, MaxToOne.  `occluded(l, ox,
@@ -220,19 +230,10 @@ __device__ __forceinline__ void shade_hit(const float* lit, int L, int mode, boo
       cb = cb + w[2];
     }
   }
-  cr = cr * sf;
-  cg = cg * sf;
-  cb = cb * sf;
-  // MaxToOne as a division (reference: source/ColorRGB.h:12-17)
-  const float mx = fmaxf(cr, fmaxf(cg, cb));
-  if (mx > 1.0f) {
-    cr = cr / mx;
-    cg = cg / mx;
-    cb = cb / mx;
-  }
   rgb[0] = cr;
   rgb[1] = cg;
   rgb[2] = cb;
+  dim_and_tonemap(sf, rgb);
 }
 
 }  // namespace raytpu_dev

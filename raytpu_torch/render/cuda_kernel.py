@@ -4,7 +4,8 @@ Counterpart of the megakernel part of ``raytpu/render/pallas_kernel.py``
 (``_mega_pack``, ``render_image_mega_f32``), of ``route_kind`` and of
 ``render_image_f32`` / ``render_image``.  The kernel itself is
 ``csrc/mega.cu``; it replaces ``pallas_kernel.py:_mega_kernel``.  The other
-routes live in ``mega2.py`` (K2a, K2b) and ``packed.py`` (K3, K4).
+routes live in ``mega2.py`` (K2a, K2b), ``packed.py`` (K3, K4) and
+``chunked.py`` (K8, K10).
 
 ``render_image_mega_f32`` takes the plain version below only for a scene on
 the CPU.  For a scene on CUDA it launches the kernel or raises.  The scene
@@ -19,7 +20,7 @@ import torch
 
 from raytpu_torch.core import math3d
 from raytpu_torch.core.types import RenderConfig, Scene
-from raytpu_torch.render import build, mega2, packed, plain, renderer
+from raytpu_torch.render import build, chunked, mega2, packed, plain, renderer
 from raytpu_torch.render.plain import (  # noqa: F401  (mega_pack: K1's buffer, public here)
     CAM_COLS,
     LIGHT_COLS,
@@ -41,7 +42,6 @@ _MEGA2_MAX_UNROLL = 16
 _MEGA2_MAX_LIGHTS = 8
 _MEGA3_MAX_TRIS = 1048576
 _MEGA3_WL_SMEM_ENTRIES = 8192
-_MAX_VMEM_TRIS = 32768
 
 
 def _check_mega(scene: Scene, config: RenderConfig):
@@ -112,11 +112,6 @@ def render_image_mega_f32_plain(scene: Scene, config: RenderConfig):
 # Routing
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = {
-    "chunked": "K8-K10, the chunked min-t, shadow and shadow+shade kernels (pallas_kernel.py)",
-}
-
-
 def route_kind(scene: Scene, config: RenderConfig) -> str:
     """The route raytpu's ``route_kind`` takes for this scene, with its
     thresholds unchanged: "mega" | "mega2" | "packed" | "jnp" | "chunked"."""
@@ -132,7 +127,7 @@ def route_kind(scene: Scene, config: RenderConfig) -> str:
     if (T <= _MEGA3_MAX_TRIS and small_caps
             and L * -(-T // 512) <= _MEGA3_WL_SMEM_ENTRIES):
         return "packed"
-    if T > _MAX_VMEM_TRIS:
+    if T > chunked.MAX_TRIS:
         return "jnp"
     return "chunked"
 
@@ -140,10 +135,10 @@ def route_kind(scene: Scene, config: RenderConfig) -> str:
 def render_image_f32(scene: Scene, config: RenderConfig):
     """(H, W, 3) float32 image through the route raytpu would take: K1 for
     small scenes, K2a + K2b up to 9,600 triangles, K3 + K4 and the eager
-    shade tail up to 1M, and raytpu's jnp route (the eager path) for soft
+    shade tail up to 1M, K8 + K10 past their sphere, plane and light caps up
+    to 32,768 triangles, and raytpu's jnp route (the eager path) for soft
     shadows and for hard shadows past that (pallas_kernel.py:2291; the
-    differentiable renderer with its kernels is ``raytpu_torch.grad``).
-    The chunked route raises, naming the kernels it waits for."""
+    differentiable renderer with its kernels is ``raytpu_torch.grad``)."""
     kind = route_kind(scene, config)
     if kind == "mega":
         return render_image_mega_f32(scene, config)
@@ -155,7 +150,7 @@ def render_image_f32(scene: Scene, config: RenderConfig):
         # soft shadows, and hard shadows past the packed band over 32k
         # triangles: raytpu's plain jnp ops, here the eager path
         return renderer.render_image_f32(scene, config)
-    raise NotImplementedError(f"route {kind!r} needs {_NOT_PORTED[kind]}, not ported yet")
+    return chunked.render_image_chunked_f32(scene, config)
 
 
 def render_image(scene: Scene, config: RenderConfig):

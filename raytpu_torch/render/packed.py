@@ -66,32 +66,34 @@ def mega2_unfold_rows(x, h: int, w: int):
     return x.reshape(h // 32, w // 32, 32, 32, c).permute(0, 2, 1, 3, 4).reshape(h * w, c)
 
 
-def closest_worklists(scene: Scene, ro, rd, tmin):
+def closest_worklists(scene: Scene, ro, rd, tmin, tmax=float("inf"), group=accel.GROUP):
     """K3's worklists ``(wl (nt, ng) int32, cnt (nt,) int32)`` for rays
-    ``ro``, ``rd`` (R,3): each 1024-ray tile's groups that its rays may hit,
-    in ascending order."""
+    ``ro``, ``rd`` (R,3) up to ``tmax`` (a number or (R,)): each 1024-ray
+    tile's groups of ``group`` triangles that its rays may hit, in
+    ascending order.  K8 takes 128-triangle chunks."""
     nt = -(-rd.shape[0] // TILE)
-    if not accel.culls_groups(scene.triangles):
-        return accel.full_worklist(nt, scene.triangles)
-    glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
-    rb = accel.ray_tile_bounds(ro, rd, float("inf"), tile=TILE)
+    if not accel.culls_groups(scene.triangles, group):
+        return accel.full_worklist(nt, scene.triangles, group)
+    glo, ghi = accel.chunk_bounds(scene.triangles, group)
+    rb = accel.ray_tile_bounds(ro, rd, tmax, tile=TILE)
     return accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi, float(tmin)))
 
 
-def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None):
+def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None, group=accel.GROUP):
     """The shadow rays' worklists ``(wl (nt, L, ng) int32, cnt (nt, L)
-    int32)``: each light's groups that a shadow ray of the tile may hit,
-    from the shadow rays themselves (``accel.shadow_cull_matrix``).  K4
-    passes no ``soft_beta``; the soft kernels K5-K7 pass theirs, which
-    widens every group's box by ``accel.chunk_soft_slack``
-    (pallas_soft.py:_padded_group_bounds)."""
+    int32)``: each light's groups of ``group`` triangles that a shadow ray
+    of the tile may hit, from the shadow rays themselves
+    (``accel.shadow_cull_matrix``).  K4 passes no ``soft_beta``; the soft
+    kernels K5-K7 pass theirs, which widens every group's box by
+    ``accel.chunk_soft_slack`` (pallas_soft.py:_padded_group_bounds).  K9
+    and K10 take 128-triangle chunks."""
     L, nt = dirs.shape[0], -(-p.shape[0] // TILE)
-    if not accel.culls_groups(scene.triangles):
-        wl, cnt = accel.full_worklist(nt * L, scene.triangles)
+    if not accel.culls_groups(scene.triangles, group):
+        wl, cnt = accel.full_worklist(nt * L, scene.triangles, group)
         return wl.reshape(nt, L, -1), cnt.reshape(nt, L)
-    glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
+    glo, ghi = accel.chunk_bounds(scene.triangles, group)
     if soft_beta is not None:
-        slack = accel.chunk_soft_slack(scene.triangles, float(soft_beta), accel.GROUP)[:, None]
+        slack = accel.chunk_soft_slack(scene.triangles, float(soft_beta), group)[:, None]
         glo, ghi = glo - slack, ghi + slack
     lights = scene.lights
     per_light = [accel.chunk_worklist(accel.shadow_cull_matrix(

@@ -53,16 +53,20 @@ def pack_lights(lights):
                       lights.kind.to(torch.float32)[:, None]], dim=1)
 
 
+def material_table(mats):
+    """(M, 7): [kind, rgb, p0 p1 p2] per material."""
+    return torch.cat([mats.kind.to(torch.float32)[:, None], mats.color, mats.params], dim=1)
+
+
 def mega_pack(scene: Scene, config: RenderConfig):
     """The whole-frame kernels' scene buffer (1-D float32, contiguous, on the
     scene's device) and the counts (S, P, T, L)."""
-    mats = scene.materials
-    mat_table = torch.cat([mats.kind.to(torch.float32)[:, None], mats.color, mats.params], dim=1)
+    mat_table = material_table(scene.materials)
     dev = scene.device
     right, up, fwd = scene.camera.onb()
     cam = torch.cat([
         scene.camera.origin, right, up, fwd, scene.camera.fov_scale[None],
-        torch.tensor([config.aspect_ratio, 0.0, 0.0], dtype=torch.float32, device=dev),
+        math3d.scalar(config.aspect_ratio, dev)[None], torch.zeros(2, device=dev),
     ])
     sph, pln, tr = scene.spheres, scene.planes, scene.triangles
     sph_blob = torch.cat([sph.center, (sph.radius * sph.radius)[:, None],
@@ -315,9 +319,94 @@ def shade_records(sph, pln, tri, lit, config: RenderConfig, ro, rd, t, n, mat):
             lit_mask = torch.ones_like(hit)
         w = _shade_one_light(config.lighting_mode, is_point, lp, lcol, lint, pt, n, l, view, mat)
         color = [c + torch.where(lit_mask, wc, 0.0) for c, wc in zip(color, w)]
+    return dim_and_tonemap(color, sf, hit)
+
+
+def dim_and_tonemap(color, sf, hit):
+    """The kernels' tail (common.cuh:dim_and_tonemap): the summed color (a
+    3-sequence of (R,)) times the shadow factor ``sf`` where ``hit``, black
+    elsewhere, then MaxToOne -> (R, 3)."""
     color = [torch.where(hit, c * sf, 0.0) for c in color]
     mx = torch.maximum(color[0], torch.maximum(color[1], color[2]))
     over = mx > 1.0
     # a division, not a multiply by the reciprocal
     color = [torch.where(over, c / mx, c) for c in color]
     return torch.stack(color, dim=-1)
+
+
+# -- the chunked route's kernels (csrc/chunked.cu) -----------------------------
+
+#: raytpu's index of a miss (pallas_kernel.py:BIG_I), K8's too
+BIG_I = 2 ** 30
+
+
+def chunked_min_t_plain(ro, rd, tmax, sph, pln, tri, tmin, shadow: bool):
+    """What K8 computes, over every primitive, for rays ``ro``, ``rd`` (R,3)
+    bounded by ``tmax`` (R,) or, when None, unbounded; tables as
+    ``packed.soft_packs`` lays them out.
+
+    Closest mode (``tmax`` None): ``(t, idx, normal, material)``: t = inf, idx = ``BIG_I``,
+    normal and material 0 on a miss; a sphere's normal is the hit point
+    minus the center, unnormalized (pallas_kernel.py:_sphere_t_matrix).
+    Shadow mode (triangle culling inverted, t in [tmin, tmax)): ``(t, None,
+    None, None)``, t the first occluder's in primitive order, as the kernel
+    stops there, or inf."""
+    R = rd.shape[0]
+    o, d = tuple(_col(x) for x in ro.unbind(1)), tuple(_col(x) for x in rd.unbind(1))
+    hi = INF if tmax is None else _col(tmax)
+    if shadow:
+        t = torch.full((R,), INF, dtype=torch.float32, device=rd.device)
+
+        def first(tmat):  # the first finite column where no occluder was found yet
+            nonlocal t
+            found = tmat < INF
+            k = found.to(torch.uint8).argmax(dim=1, keepdim=True)
+            t = torch.where((t == INF) & found.any(dim=1), tmat.gather(1, k)[:, 0], t)
+
+        if sph.shape[0]:
+            first(sphere_t(_rows(sph, 4), o, d, tmin, hi))
+        if pln.shape[0]:
+            first(plane_t(_rows(pln, 4), o, d, tmin, hi))
+        for a, b in _tri_chunks(tri.shape[0], R, rd.device):
+            first(tri_t(_rows(tri[a:b], 13), o, d, tmin, hi, shadow=True))
+        return t, None, None, None
+    t, idx = closest_plain(sph, pln, tri, ro.unbind(1), rd.unbind(1), tmin)
+    hit = t < INF
+    pay = torch.cat([sph[:, [0, 1, 2, 4]], pln[:, [0, 1, 2, 4]], tri[:, [9, 10, 11, 13]]])
+    if pay.shape[0] == 0:
+        pay = torch.zeros((1, 4), dtype=torch.float32, device=rd.device)
+    g = torch.where(hit[:, None], pay[idx], 0.0)
+    is_sph = hit & (idx < sph.shape[0])
+    ts = torch.where(hit, t, 0.0)
+    normal = torch.stack([torch.where(is_sph, _fma(ts, rd[:, i], ro[:, i]) - g[:, i], g[:, i])
+                          for i in range(3)], dim=1)
+    return (t, torch.where(hit, idx, BIG_I).to(torch.int32), normal,
+            g[:, 3].to(torch.int32))
+
+
+def shadow_shade_plain(hit, normal, point, mat, rd, p_off, dirs, mags, lights, mats, sph, pln,
+                       tri, config: RenderConfig):
+    """What K10 computes, over every primitive: for the hit records ``hit``
+    (R,) bool, ``normal``, ``point`` (R,3) and ``mat`` (R,) material ids of
+    rays ``rd`` (R,3), every light's shadow query from ``p_off`` (R,3) along
+    ``dirs`` (L,R,3) up to ``mags`` (L,R) when ``config.shadows``, the
+    shading of the lit lights (``lights`` (L,8) as ``pack_lights``, ``mats``
+    (M,7) as ``material_table``), the dim per occluded light and MaxToOne
+    -> (R,3) colors, rounded as ``shade_records`` rounds K1's."""
+    tmin = float(config.ray_min)
+    m = tuple(mats[mat.long()].unbind(1))
+    n, pt, po = normal.unbind(1), point.unbind(1), p_off.unbind(1)
+    view = tuple(-x for x in rd.unbind(1))
+    zero = torch.zeros_like(rd[:, 0])
+    color, sf = [zero, zero, zero], torch.ones_like(zero)
+    for li in range(lights.shape[0]):
+        row = lights[li]
+        l = dirs[li].unbind(1)
+        lit_mask = torch.ones_like(hit)
+        if config.shadows:
+            lit_mask = ~(any_hit_plain(sph, pln, tri, po, l, tmin, mags[li]) & hit)
+            sf = sf * torch.where(lit_mask, 1.0, float(config.shadow_dim))
+        w = _shade_one_light(config.lighting_mode, row[7] == 0.0, row[0:3], row[3:6], row[6], pt,
+                             n, l, view, m)
+        color = [c + torch.where(lit_mask, wc, 0.0) for c, wc in zip(color, w)]
+    return dim_and_tonemap(color, sf, hit)

@@ -34,27 +34,30 @@ def generate_rays(camera, config: RenderConfig):
     right, up, fwd = camera.onb()
     px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / math3d.as_divisor(W, camera.origin)
     py = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / math3d.as_divisor(H, camera.origin)
-    aspect = torch.tensor(config.aspect_ratio, dtype=torch.float32, device=dev)
+    aspect = math3d.scalar(config.aspect_ratio, dev)
     cx = (2.0 * px - 1.0) * aspect * camera.fov_scale  # (W,)
     cy = (1.0 - 2.0 * py) * camera.fov_scale  # (H,)
     d = cx[None, :, None] * right + cy[:, None, None] * up + fwd  # (H,W,3)
     return camera.origin, math3d.normalize(d).reshape(-1, 3)
 
 
-def shade_rays(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None, soft_multi_fn=None):
+def shade_rays(scene: Scene, ro, rd, config: RenderConfig, closest_fn=None, any_fn=None,
+               any_multi_fn=None, soft_multi_fn=None):
     """Closest hit, per-light shadows and shading, shadow dim and tone map
     for a batch of rays.  ``ro`` is (3,) or (N,3).  Returns (N,3) in [0,1].
     One shared origin stays (1,3), so the primary pass's origin-to-primitive
     terms are computed once per primitive rather than once per ray.
 
     ``closest_fn(scene, ro (N,3), rd, tmin) -> HitRecords`` replaces the
-    eager closest hit (the differentiable path's detached winner search);
-    ``soft_multi_fn`` goes to ``shade_from_records``."""
+    eager closest hit (the differentiable path's detached winner search, the
+    chunked route's K8); ``any_fn``, ``any_multi_fn`` and ``soft_multi_fn``
+    go to ``shade_from_records``."""
     if closest_fn is None:
         rec = intersect.closest_hit(scene, ro.reshape(-1, 3), rd, config.ray_min)
     else:
         rec = closest_fn(scene, ro.reshape(-1, 3).expand_as(rd), rd, config.ray_min)
-    return shade_from_records(scene, rec, rd, config, soft_multi_fn=soft_multi_fn)
+    return shade_from_records(scene, rec, rd, config, any_fn=any_fn, any_multi_fn=any_multi_fn,
+                              soft_multi_fn=soft_multi_fn)
 
 
 def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
@@ -68,15 +71,16 @@ def shadow_query_inputs(scene: Scene, rec, config: RenderConfig):
     return p_off, torch.stack([l for l, _ in lds]), torch.stack([m for _, m in lds])
 
 
-def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn=None,
-                       soft_multi_fn=None):
+def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_fn=None,
+                       any_multi_fn=None, soft_multi_fn=None):
     """The shading tail of ``shade_rays`` given the closest hit's records:
     shadows, the shadow dim, MaxToOne.
 
     Hard shadows dim a pixel by ``shadow_dim`` per occluded light.
     ``any_multi_fn(scene, p_off (R,3), dirs (L,R,3), mags (L,R), tmin) ->
-    (L,R) bool`` answers every light's occlusion in one call (the packed
-    route's all-lights any-hit kernel); without it each light takes
+    (L,R) bool`` answers every light's occlusion in one call (the all-lights
+    any-hit kernels K4 and K9); without it each light takes ``any_fn(scene,
+    p_off, dir (R,3), tmin, mag (R,)) -> (R,) bool``, by default
     ``intersect.any_hit``.
 
     Soft shadows (``config.soft_shadows``) weight each light by its
@@ -97,7 +101,7 @@ def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn
     if soft_multi_fn is not None and soft and dirs is not None:
         trans_multi = soft_multi_fn(scene, p_off, dirs, mags)
     # float32 arithmetic on the dim, as raytpu's jnp.float32(shadow_dim)
-    dim = torch.tensor(config.shadow_dim, dtype=torch.float32, device=rd.device)
+    dim = math3d.scalar(config.shadow_dim, rd.device)
     for li in range(scene.lights.count):
         l, mag = dirs[li], mags[li]
         if soft:
@@ -109,7 +113,7 @@ def shade_from_records(scene: Scene, rec, rd, config: RenderConfig, any_multi_fn
             shadow_factor = shadow_factor * (dim + (1.0 - dim) * trans)
         elif config.shadows:
             occluded = (occ_multi[li] if occ_multi is not None
-                        else intersect.any_hit(scene, p_off, l, config.ray_min, mag))
+                        else (any_fn or intersect.any_hit)(scene, p_off, l, config.ray_min, mag))
             trans = torch.where(occluded & rec.hit, 0.0, 1.0)
             # each occluded light dims the whole pixel (reference: source/Renderer.cpp:139)
             shadow_factor = shadow_factor * torch.where(trans == 0.0, config.shadow_dim, 1.0)
@@ -138,8 +142,8 @@ def render_pixels_f32(scene: Scene, ro, rd, config: RenderConfig, closest_fn=Non
     primitives) t-matrix within ``CHUNK_ELEMS`` elements."""
     n = rd.shape[0]
     chunk = config.ray_chunk or max(1024, CHUNK_ELEMS // max(scene.num_primitives, 1))
-    return torch.cat([shade_rays(scene, ro, rd[i:i + chunk], config, closest_fn, soft_multi_fn)
-                      for i in range(0, n, chunk)])
+    return torch.cat([shade_rays(scene, ro, rd[i:i + chunk], config, closest_fn=closest_fn,
+                                 soft_multi_fn=soft_multi_fn) for i in range(0, n, chunk)])
 
 
 def render_image_f32(scene: Scene, config: RenderConfig):

@@ -286,7 +286,11 @@ def test_no_fallback_to_the_cpu():
     assert cuda_kernel.MEGA_LAUNCHES == 0
 
 
-def test_routes_the_port_lacks_raise():
+def test_chunked_route_renders():
+    """Every route renders: soft shadows through the eager path, and a scene
+    past the megakernel's 72 primitives and mega2's 16 spheres through the
+    chunked route (K8 and K10, here their plain versions), within the
+    megakernel budget of the eager path."""
     scene = scenes.get("reference").build("cpu")
     assert cuda_kernel.route_kind(scene, RenderConfig()) == "mega"
     soft = RenderConfig(width=8, height=6, soft_shadows=True)
@@ -300,8 +304,9 @@ def test_routes_the_port_lacks_raise():
     arrays["spheres.material"] = np.zeros((n,), np.int32)
     big = convert.scene_from_arrays(arrays, "cpu")
     assert cuda_kernel.route_kind(big, RenderConfig()) == "chunked"
-    with pytest.raises(NotImplementedError, match="K8"):
-        cuda_kernel.render_image(big, RenderConfig(width=8, height=6))
+    cfg = RenderConfig(width=8, height=6)
+    _close(cuda_kernel.render_image(big, cfg).numpy(), renderer.render_image(big, cfg).numpy(),
+           0.01, 0.5)
 
 
 @pytest.mark.cuda
