@@ -17,7 +17,11 @@ Phases (each passes or raises; nothing is caught):
      cotangents, against plain autograd on reference at 160x128; K8 (both
      modes), K9 and K10 (the chunked route) on optional_l12 at 640x480 and
      on bunny18k_l12 and reference_s106 at 160x128, and the route's 24-light
-     boundary (24 render, 25 raise);
+     boundary (24 render, 25 raise); K11a and K11b (the streamed whole-frame
+     route) on optional, bunny50k and bunny300k at 640x480 (every 10th tile)
+     and 160x128, and against K2a and K2b on the same frames (buffer, boxes
+     and image equal, bit for bit); the tile ranges of K1, K2 and K11 (the
+     px-sharded render's per-rank bodies) against their whole frames;
   3. the main paths, each with the launch counts set to 0 just before it and
      read just after: 64 animated frames of the reference scene at 640x480
      (K1) with frames t=0 and t=1.25 against the committed goldens, 16 of
@@ -32,10 +36,20 @@ Phases (each passes or raises; nothing is caught):
      (16 frames) and bunny18k_l12 (4), frame 0 of each against the eager
      path, chunked.shade_rays (K8, K9) against the route on optional_l12, and
      the per-stage profiler on reference and optional_l12;
+     render_image_mega3_f32 (K11a, K11b) over 16 frames of optional, 4 of
+     bunny50k and 2 of bunny300k, frame 0 against K2's; the sharded paths
+     on two gloo ranks sharing the card (raytpu_torch/parallel/launch.py):
+     (px, prim) = (2, 1) on reference (K1 tiles), bunny (K2 tiles) and
+     bunny50k (K11 tiles, by name), (1, 2) on bunny50k (K3 and K4 on each
+     triangle shard, merged) and on optional_l12 (K9 on each shard), and a
+     sharded train step on optional's materials, each against the
+     single-process render or step;
   4. times on the card (CUDA events) of every kernel beside its bound, and
      of each scene's frame, with the device's idle share from torch.profiler;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
-     share and peak memory; K8, K9 and K10 and the chunked fixtures' frames.
+     share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
+     K11a and K11b beside K2a's and K2b's times on the same frames, and the
+     mega3 frames with their idle share.
 
 The chunked route's fixtures are registry scenes carried across with
 ``convert`` and edited (raytpu's registry has no scene past its caps):
@@ -79,7 +93,39 @@ CMP_TILE_STRIDE = 10
 PACKED_PLAIN_SIZE = PACKED_CMP_SIZES[1]
 #: the kernels each route launches once per frame
 ROUTE_KERNELS = {"mega": ["K1"], "mega2": ["K2a", "K2b"], "packed": ["K3", "K4"],
-                 "chunked": ["K8", "K10"]}
+                 "chunked": ["K8", "K10"], "mega3": ["K11a", "K11b"]}
+#: the streamed whole-frame route (K11a, K11b), reached by name: scene and
+#: frames, bench.py's counts for the scene; K11 is held against its plain
+#: versions and against K2 on each, and timed beside K2 on the same frames
+MEGA3_PATHS = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
+#: the size at which K11's plain versions see the whole frame, and are
+#: timed, on the stress meshes
+MEGA3_PLAIN_SIZE = (160, 128)
+#: the chunked fixtures' nine extra lights (``nine_lights``)
+NINE_LIGHTS = [[x, 8.0, z] for x in (-3.0, 0.0, 3.0) for z in (0.0, 3.0, 6.0)]
+#: the sharded paths, two gloo ranks on the one card at 640x480 (the cases
+#: of raytpu_torch/parallel/launch.py): the fused tile ranges of K1, K2 and
+#: K11 (px = 2), the prim-sharded K3 and K4 with the merge (prim = 2), the
+#: prim-sharded K9 past K4's 8 lights (optional_l12: the closest hit takes
+#: the eager t-matrix there, as in raytpu) and a sharded train step; each
+#: against the single-process render or step (optional_l12 against the
+#: sharded path on one rank, which runs K9 on every triangle)
+SHARDED_CASES = (
+    {"name": "reference_px", "scene": "reference", "size": [W, H], "mesh": "px"},
+    {"name": "bunny_px", "scene": "bunny", "size": [W, H], "mesh": "px"},
+    {"name": "bunny50k_mega3_px", "scene": "bunny50k", "size": [W, H], "mesh": "px",
+     "kind": "mega3"},
+    {"name": "bunny50k_prim", "scene": "bunny50k", "size": [W, H], "mesh": "prim", "ref": "route"},
+    {"name": "optional_l12_prim", "scene": "optional", "lights": NINE_LIGHTS, "size": [W, H],
+     "mesh": "prim", "ref": "single"},
+    {"name": "optional_train", "scene": "optional", "size": [W, H], "mesh": "px",
+     "train": "material"},
+)
+#: the kernels each sharded case launches once on each rank
+SHARDED_KERNELS = {"reference_px": ["K1"], "bunny_px": ["K2a", "K2b"],
+                   "bunny50k_mega3_px": ["K11a", "K11b"], "bunny50k_prim": ["K3", "K4"],
+                   "optional_l12_prim": ["K9"],
+                   "optional_train": ["K3", "K5"]}
 #: the soft kernels' comparison cases: the main path's frame, optional
 #: with a light just above its ceiling (``far_light``), and the stress
 #: mesh's band, at sizes whose plain versions take seconds
@@ -153,30 +199,16 @@ def phase_build() -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    from raytpu_torch.render import cuda_kernel as ck
-    from raytpu_torch.render import mega2, packed
+    """Every kernel wrapper's launch count, K1 to K11b."""
+    from raytpu_torch import render
 
-    from raytpu_torch.render import chunked, soft
-
-    return {"K1": ck.MEGA_LAUNCHES, "K2a": mega2.MEGA2_CLOSEST_LAUNCHES,
-            "K2b": mega2.MEGA2_SHADE_LAUNCHES, "K3": packed.PACKED_CLOSEST_LAUNCHES,
-            "K4": packed.PACKED_ANYHIT_LAUNCHES, "K5": soft.SOFT_TRANS_LAUNCHES,
-            "K6": soft.SOFT_DRAY_LAUNCHES, "K7": soft.SOFT_DPRIM_LAUNCHES,
-            "K8": chunked.CHUNKED_MIN_T_LAUNCHES, "K9": chunked.CHUNKED_ANYHIT_LAUNCHES,
-            "K10": chunked.CHUNKED_SHADE_LAUNCHES}
+    return render.launch_counts()
 
 
 def reset_launch_counts() -> None:
-    from raytpu_torch.render import chunked, mega2, packed, soft
-    from raytpu_torch.render import cuda_kernel as ck
+    from raytpu_torch import render
 
-    ck.MEGA_LAUNCHES = 0
-    mega2.MEGA2_CLOSEST_LAUNCHES = mega2.MEGA2_SHADE_LAUNCHES = 0
-    packed.PACKED_CLOSEST_LAUNCHES = packed.PACKED_ANYHIT_LAUNCHES = 0
-    soft.SOFT_TRANS_LAUNCHES = soft.SOFT_DRAY_LAUNCHES = soft.SOFT_DPRIM_LAUNCHES = 0
-    chunked.CHUNKED_MIN_T_LAUNCHES = chunked.CHUNKED_ANYHIT_LAUNCHES = 0
-    chunked.CHUNKED_SHADE_LAUNCHES = 0
+    render.reset_launch_counts()
 
 
 def build_scenes(dev) -> dict:
@@ -209,21 +241,12 @@ def _appended(scene, rows: dict):
     return convert.scene_from_arrays(arrays, scene.device)
 
 
-def add_point_lights(scene, positions, intensity: float):
-    """``scene`` with white point lights of ``intensity`` appended at
-    ``positions``."""
-    n = len(positions)
-    return _appended(scene, {"lights.position": positions,
-                             "lights.direction": [(0.0, 0.0, 1.0)] * n,
-                             "lights.color": [(1.0, 1.0, 1.0)] * n,
-                             "lights.intensity": [intensity] * n, "lights.kind": [0] * n})
-
-
 def nine_lights(scene):
     """The chunked fixtures' lights: nine white point lights of intensity
     15 at y = 8, x in {-3, 0, 3} (outer), z in {0, 3, 6} (inner)."""
-    return add_point_lights(scene, [(x, 8.0, z) for x in (-3.0, 0.0, 3.0) for z in (0.0, 3.0, 6.0)],
-                            15.0)
+    from raytpu_torch.core import convert
+
+    return convert.with_point_lights(scene, NINE_LIGHTS, 15.0)
 
 
 def sphere_grid(scene):
@@ -364,6 +387,90 @@ def phase_compare_mega2(dev, built: dict) -> dict:
             print(f"phase 2: K2 {name} {case:11s} K2a max|diff| {a_diff:.3e} (row {a_row}), boxes "
                   f"{box_diff:.3e}, rays differing {a_flips:.5f}; K2b {got['K2b']}; route "
                   f"{got['route']}", flush=True)
+    return worst
+
+
+def phase_compare_mega3(dev, built: dict) -> dict:
+    """K11a and K11b against their plain versions (K2's) and against K2a and
+    K2b on optional, bunny50k and bunny300k: at 640x480 (the main path's
+    shapes) every CMP_TILE_STRIDE-th tile, through the plain versions' tile
+    ranges, and at MEGA3_PLAIN_SIZE whole; K11's buffer, boxes and image
+    must equal K2's bit for bit.  Then the tile ranges of K1 (reference),
+    K2 (bunny) and K11 (bunny50k), two ranges and a padded tile past the
+    frame, against their whole frames at 640x480, bit for bit."""
+    from raytpu_torch.core import math3d
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import cuda_kernel as ck
+    from raytpu_torch.render import mega2, mega3, packed, plain
+
+    worst = {k: {"max_abs_diff": 0.0, "flip_frac": 0.0} for k in ("K11a", "K11b")}
+    for name, _ in MEGA3_PATHS:
+        scene = built[name]
+        for w, h in ((W, H), MEGA3_PLAIN_SIZE):
+            cfg = RenderConfig(width=w, height=h)
+            buf, counts = plain.mega_pack(scene, cfg)
+            blob = mega3.pack_groups(buf, counts)
+            wl, cnt = mega2.primary_worklists(scene, cfg)
+            acc, bounds = mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg)
+            wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
+            img = mega3.mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, cfg)
+            acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+            img2 = mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc2, cfg)
+            torch.cuda.synchronize()
+            if img.shape != (h, w, 3) or not torch.isfinite(img).all():
+                raise AssertionError(f"K11 {name} {w}x{h}: output {tuple(img.shape)} not finite")
+            differ = int((img != img2).any(dim=-1).sum())
+            if not (torch.equal(acc, acc2) and torch.equal(bounds, bounds2)) or differ:
+                raise AssertionError(f"K11 {name} {w}x{h}: not K2's buffer, boxes or image "
+                                     f"({differ} pixels differ)")
+            nt = mega2.num_tiles(cfg)
+            tiles = range(0, nt, CMP_TILE_STRIDE) if w * h > CMP_MAX_RAYS else range(nt)
+            step = CMP_TILE_STRIDE if w * h > CMP_MAX_RAYS else nt
+            px, py, valid = accel.tile_pixels(w, h, mega2.is_tiled(cfg), dev)
+            a_worst = b_worst = flips_worst = 0.0
+            for t0 in range(0, nt, step):
+                k = 1 if step != nt else nt
+                sl = slice(t0 * 1024, (t0 + k) * 1024)
+                acc_p, bounds_p = mega2.mega2_closest_plain(buf, counts, cfg, t0, k)
+                a_diff, _, a_flips = _acc_diff(acc[:, sl], acc_p)
+                box_diff, _, _ = _acc_diff(bounds[t0:t0 + k].T, bounds_p.T)
+                if a_flips > 1e-4:
+                    raise AssertionError(f"K11a {name} {w}x{h} tile {t0}: {a_flips:.5f} of rays "
+                                         f"differ")
+                # K11b's plain version on K11a's buffer, at the tiles' pixels
+                cols = mega2.mega2_shade_plain(buf, counts, acc[:, sl].contiguous(), cfg, t0, k)
+                v = valid[sl]
+                got = img[py[sl][v], px[sl][v]]
+                b_diff = float((got - cols[v]).abs().max())
+                flips, _ = close_u8(math3d.quantize_u8(got).cpu().numpy()[None],
+                                    math3d.quantize_u8(cols[v]).cpu().numpy()[None], 0.01, 0.5)
+                a_worst = max(a_worst, a_diff, box_diff)
+                b_worst, flips_worst = max(b_worst, b_diff), max(flips_worst, flips)
+            _worst(worst["K11a"], a_worst, 0.0)
+            _worst(worst["K11b"], b_worst, flips_worst)
+            print(f"phase 2: K11 {name} {w}x{h} ({len(tiles)} of {nt} tiles checked): K11a vs "
+                  f"plain max|diff| {a_worst:.3e}, K11b vs plain {b_worst:.3e} (flips "
+                  f"{flips_worst:.5f}); vs K2: buffer, boxes and image equal (0 pixels differ)",
+                  flush=True)
+    cfg = RenderConfig(width=W, height=H)
+    nt = mega2.num_tiles(cfg)
+    for key, name, fn in (("K1", "reference", ck.render_image_mega_f32),
+                          ("K2", "bunny", mega2.render_image_mega2_f32),
+                          ("K11", "bunny50k", mega3.render_image_mega3_f32)):
+        whole = fn(built[name], cfg)
+        split = nt // 3
+        flat = torch.cat([fn(built[name], cfg, tile0=0, tiles=split),
+                          fn(built[name], cfg, tile0=split, tiles=nt + 1 - split)])
+        if flat[W * H:].any():
+            raise AssertionError(f"{key} tile range: rays past the frame are not black")
+        flat = flat[:W * H]
+        if key != "K1":
+            flat = packed.mega2_unfold_rows(flat, H, W)
+        if not torch.equal(flat.reshape(H, W, 3), whole):
+            raise AssertionError(f"{key} tile ranges on {name} differ from the whole frame")
+        print(f"phase 2: {key} tile ranges [0, {split}) + [{split}, {nt + 1}) on {name} {W}x{H}: "
+              f"equal to the whole frame, bit for bit", flush=True)
     return worst
 
 
@@ -611,7 +718,7 @@ def phase_compare_chunked(dev, built: dict) -> dict:
     queries.  K9 on the same queries: >= 99.9% of (light, ray) pairs equal.
     K10 on K8's records: the megakernel budget.  Then the route's light cap:
     optional with 24 lights renders, with 25 the route and K9 raise."""
-    from raytpu_torch.core import math3d
+    from raytpu_torch.core import convert, math3d
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.render import chunked, cuda_kernel, packed, plain, renderer
 
@@ -680,7 +787,7 @@ def phase_compare_chunked(dev, built: dict) -> dict:
     # the light cap: 24 lights render through the route, 25 raise
     cfg = RenderConfig(width=CHUNKED_PLAIN_SIZE[0], height=CHUNKED_PLAIN_SIZE[1])
     more = [(-3.0 + 1.5 * (k % 5), 8.0, float(k // 5)) for k in range(22)]
-    l24, l25 = (add_point_lights(built["optional"], more[:n], 5.0) for n in (21, 22))
+    l24, l25 = (convert.with_point_lights(built["optional"], more[:n], 5.0) for n in (21, 22))
     img = cuda_kernel.render_image(l24, cfg)
     torch.cuda.synchronize()
     if l24.lights.count != 24 or cuda_kernel.route_kind(l24, cfg) != "chunked" or not img.any():
@@ -878,6 +985,121 @@ def phase_big_paths(dev, built: dict) -> dict:
         out[name] = {"frames": frames, "route": route, "launches": counts}
     _run_cli("optional")
     return out
+
+
+def phase_mega3_paths(dev, built: dict) -> dict:
+    """``render_image_mega3_f32`` over MEGA3_PATHS' animated frames at
+    640x480, the launch counts set to 0 just before each scene's frames and
+    read just after: one K11a and one K11b a frame, no other kernel; every
+    frame a finite, not black image, and frame 0 equal to the mega2 route's
+    (K2) frame, bit for bit."""
+    from raytpu_torch.core import math3d, scenes
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import mega2, mega3
+
+    config = RenderConfig(width=W, height=H)
+    out = {}
+    for name, frames in MEGA3_PATHS:
+        spec, scene = scenes.get(name), built[name]
+        ts = torch.linspace(0.0, 2.0 * np.pi, frames, device=dev)  # as bench.py:92
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        imgs = [math3d.quantize_u8(mega3.render_image_mega3_f32(spec.animate(scene, ts[i]),
+                                                                config)) for i in range(frames)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        seconds = time.perf_counter() - t0
+        _check_counts(name, "mega3", frames, counts)
+        for img in imgs:
+            if img.shape != (H, W, 3) or not bool(img.any()):
+                raise AssertionError(f"{name}: mega3 frame is {tuple(img.shape)} or black")
+        k2 = math3d.quantize_u8(mega2.render_image_mega2_f32(spec.animate(scene, ts[0]), config))
+        differ = int((imgs[0] != k2).any(dim=-1).sum())
+        if differ:
+            raise AssertionError(f"{name}: mega3 frame 0 differs from K2's in {differ} pixels")
+        print(f"phase 3: {name}: {frames} frames through mega3 in {seconds:.2f}s, launches "
+              f"{counts}; frame 0 vs K2's: 0 pixels differ", flush=True)
+        out[name] = {"frames": frames, "route": "mega3", "launches": counts}
+    return out
+
+
+def _gloo_cuda_collectives() -> dict:
+    """Which collectives gloo takes on CUDA tensors, two ranks on the card."""
+    from raytpu_torch.parallel import launch
+
+    code = (
+        "import json, sys, torch, torch.distributed as dist\n"
+        "r = int(sys.argv[1]); dist.init_process_group('gloo', init_method=sys.argv[2], "
+        "world_size=2, rank=r)\n"
+        "x = torch.full((4,), float(r + 1), device='cuda'); out = {}\n"
+        "for name, fn in (('all_reduce', lambda: dist.all_reduce(x.clone())),\n"
+        "                 ('broadcast', lambda: dist.broadcast(x.clone(), 0)),\n"
+        "                 ('all_gather', lambda: dist.all_gather(\n"
+        "                     [torch.empty_like(x) for _ in range(2)], x))):\n"
+        "    try:\n"
+        "        fn(); out[name] = 'taken'\n"
+        "    except Exception as e:\n"
+        "        out[name] = 'refused: ' + str(e).splitlines()[0][:100]\n"
+        "print(json.dumps(out)); dist.destroy_process_group()\n")
+    url = f"tcp://127.0.0.1:{launch.free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), url], stdout=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"gloo collective probe failed: {outs}")
+    return json.loads(outs[0].strip().splitlines()[-1])
+
+
+def phase_sharded(dev, built: dict) -> dict:
+    """The sharded paths: SHARDED_CASES on two gloo ranks sharing the card
+    (``parallel.launch.spawn``), each rank's launches counted around each
+    sharded call.  Every image must equal the single-process render bit for
+    bit, every kernel of the case launch once on each rank, and the
+    sharded train step match the single-process step (loss rtol 2e-2, every
+    parameter change within 3e-3 of the largest, the grad tests' rule) with the
+    parameters equal on both ranks.  Times show function on one card, not
+    scaling."""
+    from raytpu_torch.parallel import launch
+
+    taken = _gloo_cuda_collectives()
+    print(f"phase 3: gloo on CUDA tensors: {taken}", flush=True)
+    outdir = tempfile.mkdtemp(prefix="raytpu_torch_ranks_")
+    t0 = time.perf_counter()
+    results = launch.spawn(2, outdir, "cuda", SHARDED_CASES, timeout=600.0)
+    seconds = time.perf_counter() - t0
+    totals = {}
+    for case in SHARDED_CASES:
+        name = case["name"]
+        for r in results:
+            res = r["cases"][name]
+            want = {k: 1 for k in SHARDED_KERNELS[name]}
+            if res["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: launches {res['launches']}, "
+                                     f"expected {want}")
+            for k, n in res["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+            if case.get("train"):
+                if not (res["params_equal_on_ranks"] and res["delta_diff_over_largest"] <= 3e-3
+                        and math.isclose(res["loss_sharded"], res["loss_single"], rel_tol=2e-2)):
+                    raise AssertionError(f"{name} rank {r['rank']}: {res}")
+            elif not res["identical"]:
+                raise AssertionError(f"{name} rank {r['rank']}: {res['pixels_differ']} pixels "
+                                     f"differ from the single-process render")
+        res = results[0]["cases"][name]
+        what = (f"loss {res['loss_sharded']:.6f} vs {res['loss_single']:.6f} single, parameter "
+                f"changes within {res['delta_diff_over_largest']:.2e} of the largest"
+                if case.get("train") else f"0 pixels differ from the {res['reference']} render")
+        print(f"phase 3: sharded {name} {res['mesh']} on 2 gloo ranks, one card: launches per "
+              f"rank {res['launches']}, {what}; {res['seconds'] * 1e3:.2f} ms (function, not "
+              f"scaling)", flush=True)
+    print(f"phase 3: the two ranks took {seconds:.2f}s in all", flush=True)
+    return {"launches": totals, "gloo_cuda": taken,
+            "cases": {c["name"]: results[0]["cases"][c["name"]] for c in SHARDED_CASES}}
 
 
 def _fit(fit: str):
@@ -1140,17 +1362,19 @@ def _bound(ops: float, nbytes: float) -> dict:
             "ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def time_frames(spec, scene, config, frames: int, dev):
+def time_frames(spec, scene, config, frames: int, dev, render=None):
     """(frame ms, primary rays/s, device activities and busy ms per frame,
-    idle share): animated frames through render_image, as a user's loop."""
+    idle share): animated frames through ``render`` (default render_image),
+    as a user's loop."""
     from raytpu_torch.render import render_image
     from raytpu_torch.utils.profiling import device_ms
 
+    render = render or render_image
     ts = torch.linspace(0.0, 2.0 * np.pi, frames, device=dev)
     frame_i = [0]
 
     def frame():
-        render_image(spec.animate(scene, ts[frame_i[0] % frames]), config)
+        render(spec.animate(scene, ts[frame_i[0] % frames]), config)
         frame_i[0] += 1
 
     frame_ms = device_ms(frame, iters=frames, warmup=1)
@@ -1236,14 +1460,15 @@ def _shadow_ops(S: int, P: int, occ, hit, tris, tiles: int):
     return ops + float((hit & occ).sum()) * OPS_PLANE
 
 
-def time_mega2(dev, built: dict, name: str):
+def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)):
     """K2a's and K2b's times at 640x480 beside their bounds, counted from
-    this frame's worklists; the plain versions' times at the size they were
-    compared at (640x480)."""
+    this frame's worklists, and with ``k11`` K11a's and K11b's on the same
+    frame (the same work, so the same bounds); the plain versions' times at
+    ``plain_size``, the size they see whole."""
     from raytpu_torch.core import math3d
     from raytpu_torch.core.types import LightKind, RenderConfig
     from raytpu_torch.ops import accel, shading
-    from raytpu_torch.render import mega2, packed, plain
+    from raytpu_torch.render import mega2, mega3, packed, plain
     from raytpu_torch.utils.profiling import device_ms
 
     scene = built[name]
@@ -1253,11 +1478,24 @@ def time_mega2(dev, built: dict, name: str):
     wl, cnt = mega2.primary_worklists(scene, cfg)
     acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
     wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
-    ms_a = device_ms(lambda: mega2.mega2_closest(buf, counts, wl, cnt, cfg), iters=50, warmup=3)
-    ms_b = device_ms(lambda: mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg), iters=50,
-                     warmup=3)
-    plain_a = device_ms(lambda: mega2.mega2_closest_plain(buf, counts, cfg), iters=1, warmup=0)
-    plain_b = device_ms(lambda: mega2.mega2_shade_plain(buf, counts, acc, cfg), iters=1, warmup=0)
+    iters = 50 if T < 10000 else 5
+    ms = {"K2a": device_ms(lambda: mega2.mega2_closest(buf, counts, wl, cnt, cfg), iters=iters,
+                           warmup=3),
+          "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg),
+                           iters=iters, warmup=3)}
+    if k11:
+        blob = mega3.pack_groups(buf, counts)
+        ms["K11a"] = device_ms(lambda: mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg),
+                               iters=iters, warmup=3)
+        ms["K11b"] = device_ms(lambda: mega3.mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, cfg),
+                               iters=iters, warmup=3)
+    cfg_p = RenderConfig(width=plain_size[0], height=plain_size[1])
+    buf_p, counts_p = plain.mega_pack(scene, cfg_p)
+    acc_p = acc if cfg_p == cfg else mega2.mega2_closest_plain(buf_p, counts_p, cfg_p)[0]
+    plain_a = device_ms(lambda: mega2.mega2_closest_plain(buf_p, counts_p, cfg_p), iters=1,
+                        warmup=0)
+    plain_b = device_ms(lambda: mega2.mega2_shade_plain(buf_p, counts_p, acc_p, cfg_p), iters=1,
+                        warmup=0)
 
     nt = mega2.num_tiles(cfg)
     px, py, valid = accel.tile_pixels(W, H, mega2.is_tiled(cfg), dev)
@@ -1292,12 +1530,18 @@ def time_mega2(dev, built: dict, name: str):
         ops_b += float(_shade_ops(cfg, is_point, kind, metal)[hit & ~occ[li]].sum())
     bytes_b = (buf.numel() + int(cnt_s.sum()) + cnt_s.numel() + acc.numel() + H * W * 3) * 4
     out = {}
-    for key, ms, plain_ms, bound in (("K2a", ms_a, plain_a, _bound(ops_a, bytes_a)),
-                                     ("K2b", ms_b, plain_b, _bound(ops_b, bytes_b))):
-        out[key] = {"ms": ms, "plain_ms": plain_ms, "plain_size": f"{W}x{H}", **bound}
-        print(f"phase 4: {key} {name}: {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
-              f"{bound['bound_by']} ({bound['ops']:.4e} FP32 ops, {bound['bytes']} B), "
-              f"plain {plain_ms:.2f} ms at {W}x{H}", flush=True)
+    bounds_of = {"a": _bound(ops_a, bytes_a), "b": _bound(ops_b, bytes_b)}
+    for key in ms:
+        plain_ms, bound = (plain_a if key.endswith("a") else plain_b), bounds_of[key[-1]]
+        out[key] = {"ms": ms[key], "plain_ms": plain_ms,
+                    "plain_size": f"{plain_size[0]}x{plain_size[1]}", **bound}
+        if key.startswith("K11"):
+            out[key]["k2_ms"] = ms["K2" + key[-1]]
+        print(f"phase 4: {key} {name}: {ms[key]:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+              f"{bound['bound_by']} ({bound['ops']:.4e} FP32 ops, {bound['bytes']} B), plain "
+              f"{plain_ms:.2f} ms at {plain_size[0]}x{plain_size[1]}"
+              + (f"; K2{key[-1]} on the same frame {ms['K2' + key[-1]]:.4f} ms"
+                 if key.startswith("K11") else ""), flush=True)
     out["tests_per_ray"] = float((tile_rays * _worklist_tris(wl, cnt, T)).sum()) / rays
     out["occluded_share"] = float((occ & hit[None]).sum()) / max(n_hit * L, 1.0)
     return out
@@ -1537,26 +1781,36 @@ KERNEL_INFO = {
            "raytpu/render/pallas_kernel.py:338"),
     "K10": ("chunked_shadow_shade", "raytpu_torch/render/csrc/chunked.cu",
             "raytpu/render/pallas_kernel.py:476"),
+    "K11a": ("mega3_closest", "raytpu_torch/render/csrc/mega3.cu",
+             "raytpu/render/pallas_kernel.py:1911"),
+    "K11b": ("mega3_shade", "raytpu_torch/render/csrc/mega3.cu",
+             "raytpu/render/pallas_kernel.py:1986"),
 }
 #: the scene whose numbers head each kernel's entry: the largest it serves on
 #: the forward routes, the slice's scene for the soft kernels
 HEADLINE = {"K2a": "optional", "K2b": "optional", "K3": "bunny300k", "K4": "bunny300k",
             "K5": "optional", "K6": "optional", "K7": "optional", "K8": "bunny18k_l12",
-            "K9": "bunny18k_l12", "K10": "bunny18k_l12"}
+            "K9": "bunny18k_l12", "K10": "bunny18k_l12", "K11a": "bunny300k",
+            "K11b": "bunny300k"}
 #: the scenes whose soft kernels are timed; the plain versions on the first
 SOFT_TIMED = ("optional", "bunny50k", "bunny300k")
 
 
 def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
-                grad: list, chunked_paths: dict) -> None:
-    from raytpu_torch.core import scenes
+                grad: list, chunked_paths: dict, mega3_paths: dict, sharded: dict) -> None:
+    from raytpu_torch.core import math3d, scenes
     from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import mega3
 
     k1, k1_line = time_k1(dev, env, built, worst["K1"], main)
     config = RenderConfig(width=W, height=H)
     per_scene, lines = {}, [k1_line]
+    mega3_names = [n for n, _ in MEGA3_PATHS]
     for name, frames, route in BIG_PATHS:
-        timed = (time_mega2 if route == "mega2" else time_packed)(dev, built, name)
+        if route == "mega2":
+            timed = time_mega2(dev, built, name, k11=name in mega3_names)
+        else:
+            timed = time_packed(dev, built, name)
         per_scene[name] = timed
         frame_ms, rays_per_s, acts, busy_ms, idle = time_frames(scenes.get(name), built[name],
                                                                 config, frames, dev)
@@ -1572,6 +1826,30 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
                       "device_idle_share": idle, "card": env["nvidia_smi"]})
         print(f"phase 4: {name}: frame {frame_ms:.4f} ms ({rays_per_s:.4e} primary rays/s); per "
               f"frame {acts} device activities, busy {busy_ms} ms, idle share {idle}", flush=True)
+    for name, frames in MEGA3_PATHS:
+        if "K11a" not in per_scene[name]:  # on the packed route: K2 and K11 timed here
+            timed = time_mega2(dev, built, name, k11=True, plain_size=MEGA3_PLAIN_SIZE)
+            per_scene[name].update({k: timed[k] for k in ("K2a", "K2b", "K11a", "K11b")})
+        frame_ms, rays_per_s, acts, busy_ms, idle = time_frames(
+            scenes.get(name), built[name], config, frames, dev,
+            render=lambda s, c: math3d.quantize_u8(mega3.render_image_mega3_f32(s, c)))
+        kernels = ROUTE_KERNELS["mega3"]
+        lines.append({"scene": name, "size": f"{W}x{H}", "frames": frames, "route": "mega3",
+                      "launches": {k: mega3_paths[name]["launches"][k] for k in kernels},
+                      "kernel_ms": {k: per_scene[name][k]["ms"] for k in kernels},
+                      "k2_ms_same_frame": {k: per_scene[name][k]["k2_ms"] for k in kernels},
+                      "bound_ms": {k: per_scene[name][k]["bound_ms"] for k in kernels},
+                      "frame_ms": frame_ms, "primary_rays_per_s": rays_per_s,
+                      "frame_device_activities": acts, "frame_device_busy_ms": busy_ms,
+                      "device_idle_share": idle, "card": env["nvidia_smi"]})
+        print(f"phase 4: {name} through mega3: frame {frame_ms:.4f} ms ({rays_per_s:.4e} primary "
+              f"rays/s); per frame {acts} device activities, busy {busy_ms} ms, idle share "
+              f"{idle}", flush=True)
+    for name, res in sharded["cases"].items():
+        lines.append({"sharded": name, "mesh": res["mesh"], "ranks_on_one_card": 2,
+                      "seconds": res["seconds"], "launches_per_rank": res["launches"],
+                      "note": "two gloo ranks share one card: function, not scaling",
+                      "card": env["nvidia_smi"]})
     for name in SOFT_TIMED:
         timed = time_soft(dev, built, name, plain=name == SOFT_TIMED[0])
         for key in ("K5", "K6", "K7"):
@@ -1600,21 +1878,25 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
         lines.append({"grad_path": line, "card": env["nvidia_smi"]})
     main_launches = ([v["launches"] for v in big.values()] + [v["launches"] for v in grad]
                      + [chunked_paths[n]["launches"] for n, _, _, _ in CHUNKED_PATHS]
-                     + [chunked_paths["shade_rays"]["launches"]])
+                     + [chunked_paths["shade_rays"]["launches"]]
+                     + [v["launches"] for v in mega3_paths.values()])
+    k1["launches"] += sharded["launches"].get("K1", 0)
     entries = [k1]
     for key, (kname, source, replaces) in KERNEL_INFO.items():
         head = per_scene[HEADLINE[key]][key]
         cmp = worst[key]
         entries.append({
             "name": kname, "id": key, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(c[key] for c in main_launches),
+            "launches": (sum(c[key] for c in main_launches)
+                         + sharded["launches"].get(key, 0)),
             "max_abs_err": cmp["max_abs_diff"], "max_abs_diff": cmp["max_abs_diff"],
             "flip_frac": cmp.get("flip_frac"), "max_rel_err": cmp.get("max_rel_err"),
             "scene": HEADLINE[key], "library_ms": None,
             **head,
             "per_scene": {n: v[key] for n, v in per_scene.items() if key in v}})
     for line in lines:
-        print(json.dumps(line if "grad_path" in line else {"main_path": line}))
+        print(json.dumps(line if "grad_path" in line or "sharded" in line
+                         else {"main_path": line}))
     print(json.dumps({"kernels": entries}))
 
 
@@ -1639,16 +1921,19 @@ def main() -> int:
     packed_cmp = timed("phase 2 (K3, K4)", phase_compare_packed, dev, built)
     soft_cmp = timed("phase 2 (K5, K6, K7)", phase_compare_soft, dev, built)
     chunked_cmp = timed("phase 2 (K8, K9, K10)", phase_compare_chunked, dev, built)
+    mega3_cmp = timed("phase 2 (K11a, K11b, tile ranges)", phase_compare_mega3, dev, built)
     worst.update({"K2a": mega2_worst["K2a"], "K2b": mega2_worst["K2b"], "K3": packed_cmp["K3"],
                   "K4": packed_cmp["K4"], "K5": soft_cmp["K5"], "K6": soft_cmp["K6"],
-                  "K7": soft_cmp["K7"], **chunked_cmp})
+                  "K7": soft_cmp["K7"], **chunked_cmp, **mega3_cmp})
     main_path = timed("phase 3 (reference)", phase_main_path, dev, built)
     big = timed("phase 3 (big meshes)", phase_big_paths, dev, built)
     grad = timed("phase 3 (grad)", phase_grad_paths, dev, built)
     vs_eager = timed("phase 3 (grad vs eager)", phase_grad_vs_eager, dev, built)
     chunked_paths = timed("phase 3 (chunked)", phase_chunked_paths, dev, built)
+    mega3_paths = timed("phase 3 (mega3)", phase_mega3_paths, dev, built)
+    sharded = timed("phase 3 (sharded)", phase_sharded, dev, built)
     timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad,
-          chunked_paths)
+          chunked_paths, mega3_paths, sharded)
     print(json.dumps({"phase_seconds": seconds,
                       "packed_vs_eager_160x128": packed_cmp["packed_vs_eager"],
                       "mega2_route_vs_plain": mega2_worst["route"],
@@ -1658,7 +1943,8 @@ def main() -> int:
                       "chunked_vs_eager_160x128": {
                           n: chunked_paths[n]["pixels_differing_vs_eager"]
                           for n, _, _, _ in CHUNKED_PATHS},
-                      "stage_reports": chunked_paths["stages"]}))
+                      "stage_reports": chunked_paths["stages"],
+                      "gloo_on_cuda_tensors": sharded["gloo_cuda"]}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
           f"on {env['nvidia_smi']}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,10 @@ become flags:
   --frames N    run N animated frames
   --watch       print FPS once per second  (was: main.cpp:95-100)
   --device      cuda (default) or cpu
+  --shard PXxPRIM  render on a (px, prim) mesh of ranks: rays over px,
+                triangles over prim; one process per rank, each given
+                --dist-init and --rank (parallel/launch.py spawns them);
+                rank r renders on card r modulo the host's cards
 
 Usage: python -m raytpu_torch.app.cli --scene reference --size 640x480 --frames 64
 """
@@ -20,6 +24,8 @@ Usage: python -m raytpu_torch.app.cli --scene reference --size 640x480 --frames 
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import sys
 import time
 
@@ -60,6 +66,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--time", type=float, default=0.0, help="animation start time (seconds)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="render on the CUDA card (default) or, asked for, the CPU")
+    p.add_argument("--shard", metavar="PXxPRIM", default=None,
+                   help="render on a (px, prim) mesh of PX*PRIM ranks (e.g. 2x1: rays over 2 "
+                        "ranks); the analog of the reference's CPU-thread pixel fan-out "
+                        "(source/Renderer.cpp:42-92)")
+    p.add_argument("--dist-init", metavar="URL", default=None,
+                   help="with --shard over several ranks: the group's address, "
+                        "e.g. tcp://127.0.0.1:29500")
+    p.add_argument("--rank", type=int, default=0, help="with --shard: this process's rank")
     return p
 
 
@@ -84,14 +98,31 @@ def main(argv=None) -> int:
             soft_kw["soft_beta"] = float(args.soft_beta)
     config = RenderConfig(width=w, height=h, lighting_mode=_MODES[args.mode],
                           shadows=not args.no_shadows, **soft_kw)
+    render_fn, backend = render_image, "route"
+    if args.shard:
+        from raytpu_torch.parallel import multihost, render_image_sharded
+
+        try:
+            px, prim = (int(x) for x in args.shard.lower().split("x"))
+            multihost.initialize(args.dist_init, px * prim, args.rank)
+            if args.device == "cpu":  # ranks on one host split its cores
+                torch.set_num_threads(max(1, (os.cpu_count() or 1) // (px * prim)))
+            mesh = multihost.pod_mesh(prim)
+        except ValueError as e:
+            print(f"error: --shard must be PXxPRIM over PX*PRIM ranks, each given --dist-init "
+                  f"and --rank ({e})", file=sys.stderr)
+            return 2
+        render_fn = functools.partial(render_image_sharded, mesh=mesh)
+        backend = f"shard({px}x{prim})"
     spec = scenes.get(args.scene)
     scene = spec.build(args.device)
     print(f"raytpu_torch: scene={args.scene} {w}x{h} mode={args.mode} "
-          f"shadows={config.shadows} soft={config.soft_shadows} device={args.device}")
+          f"shadows={config.shadows} soft={config.soft_shadows} device={args.device} "
+          f"backend={backend}")
 
     # warm-up: builds the kernel on first use; .cpu() waits for the frame
     t0 = time.perf_counter()
-    img = render_image(spec.animate(scene, args.time), config).cpu().numpy()
+    img = render_fn(spec.animate(scene, args.time), config).cpu().numpy()
     print(f"build+first frame: {time.perf_counter() - t0:.2f}s")
 
     timer = FrameTimer()
@@ -104,7 +135,7 @@ def main(argv=None) -> int:
     while True:
         t = args.time + timer.total
         ft0 = time.perf_counter()
-        img = render_image(spec.animate(scene, t), config).cpu().numpy()
+        img = render_fn(spec.animate(scene, t), config).cpu().numpy()
         stats.add_frame(w, h, scene.lights.count, time.perf_counter() - ft0, config.shadows)
         timer.tick()
         if timer.fps_window_closed:
@@ -120,7 +151,7 @@ def main(argv=None) -> int:
 
     print(f"frames={stats.frames} avg_ms={1e3 * stats.seconds / max(stats.frames, 1):.2f} "
           f"primary_rays/s={stats.primary_rays_per_s:.3e} total_rays/s={stats.total_rays_per_s:.3e}")
-    if args.screenshot:
+    if args.screenshot and (not args.shard or args.rank == 0):
         image_io.write_image(args.screenshot, img)
         print(f"screenshot saved: {args.screenshot}")
     return 0

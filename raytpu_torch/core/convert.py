@@ -61,3 +61,16 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
         x = getattr(getattr(scene, g), f)
         out[key] = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return out
+
+
+def with_point_lights(scene, positions, intensity: float = 15.0):
+    """``scene`` with white point lights of ``intensity`` appended at
+    ``positions``, rebuilt on its device."""
+    n = len(positions)
+    arrays = scene_to_arrays(scene)
+    rows = {"lights.position": positions, "lights.direction": [(0.0, 0.0, 1.0)] * n,
+            "lights.color": [(1.0, 1.0, 1.0)] * n, "lights.intensity": [intensity] * n,
+            "lights.kind": [0] * n}
+    for key, new in rows.items():
+        arrays[key] = np.concatenate([arrays[key], np.asarray(new, arrays[key].dtype)])
+    return scene_from_arrays(arrays, scene.device)

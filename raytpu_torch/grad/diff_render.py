@@ -34,7 +34,7 @@ KERNEL_MIN_TRIS = 256
 KERNEL_MAX_TRIS = 1 << 20
 KERNEL_MAX_UNROLL = 16
 KERNEL_MAX_LIGHTS = 8
-_WL_ENTRIES = 8192  # raytpu's worklist budget, L * ceil(T / 512)
+WL_ENTRIES = 8192  # raytpu's worklist budget, L * ceil(T / 512)
 
 
 def _kernel_min_t(scene: Scene, ro, rd, tmin):
@@ -62,7 +62,7 @@ def kernels_fit(scene: Scene) -> bool:
                   scene.lights.count)
     return (scene.device.type == "cuda" and KERNEL_MIN_TRIS <= T <= KERNEL_MAX_TRIS
             and S <= KERNEL_MAX_UNROLL and P <= KERNEL_MAX_UNROLL and L <= KERNEL_MAX_LIGHTS
-            and L * -(-T // 512) <= _WL_ENTRIES)
+            and L * -(-T // 512) <= WL_ENTRIES)
 
 
 def soft_backends(scene: Scene, cfg: RenderConfig, kernels: bool | None = None,

@@ -95,15 +95,24 @@ def load():
         lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
         c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         lib.raytpu_mega_render.argtypes = [c_ptr, c_int, c_int, c_int, c_int, c_int, c_int,
-                                           c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr]
+                                           c_int, c_int, c_float, c_float, c_float, c_int, c_int,
+                                           c_ptr, c_ptr]
         lib.raytpu_mega_render.restype = c_int
-        lib.raytpu_mega2_closest.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_int, c_int,
-                                             c_int, c_int, c_float, c_float, c_ptr, c_ptr, c_ptr]
+        # scene, S, P, T | wl, cnt, wl_cols, W, H, tiled, tile0, tiles
+        tiles_in = [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int, c_int]
+        closest_out = [c_float, c_float, c_ptr, c_ptr, c_ptr]  # tmin, offset, acc, bounds, stream
+        # feed, mode, shadows, tmin, offset, shadow_dim, acc, out, stream
+        shade_out = [c_int, c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr, c_ptr]
+        lib.raytpu_mega2_closest.argtypes = [c_ptr, c_int, c_int, c_int] + tiles_in + closest_out
         lib.raytpu_mega2_closest.restype = c_int
-        lib.raytpu_mega2_shade.argtypes = [c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr, c_int,
-                                           c_int, c_int, c_int, c_int, c_int, c_float, c_float,
-                                           c_float, c_ptr, c_ptr, c_ptr]
+        lib.raytpu_mega2_shade.argtypes = [c_ptr, c_int, c_int, c_int, c_int] + tiles_in + shade_out
         lib.raytpu_mega2_shade.restype = c_int
+        lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr] + tiles_in
+                                             + closest_out)
+        lib.raytpu_mega3_closest.restype = c_int
+        lib.raytpu_mega3_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr] + tiles_in
+                                           + shade_out)
+        lib.raytpu_mega3_shade.restype = c_int
         lib.raytpu_packed_closest.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_int, c_ptr, c_int,
                                               c_ptr, c_int, c_ptr, c_ptr, c_int, c_float, c_ptr,
                                               c_ptr, c_ptr, c_ptr, c_ptr]

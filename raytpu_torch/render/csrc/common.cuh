@@ -1,6 +1,7 @@
 // Device arithmetic shared by the kernels (K1 mega.cu, K2a/K2b mega2.cu,
-// K3/K4 packed.cu, K5-K7 soft.cu, K8-K10 chunked.cu): the primitive tests,
-// camera raygen and the shading of a hit.  Each function follows the Pallas kernels' op order and rounds where
+// K3/K4 packed.cu, K5-K7 soft.cu, K8-K10 chunked.cu, K11a/K11b mega3.cu):
+// the primitive tests, camera raygen, the tile layout and the shading of a
+// hit.  Each function follows the Pallas kernels' op order and rounds where
 // the plain versions (raytpu_torch/render/plain.py) round: dot and cross
 // products and the points o + t*d are explicit fmaf calls, as XLA contracts
 // them on the CPU where raytpu's goldens were rendered
@@ -85,6 +86,26 @@ __device__ __forceinline__ float tri_t(const float* k, float ox, float oy, float
   const float tc = inv_a * dot3(e2x, e2y, e2z, qx, qy, qz);
   const bool ok = u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
   return (not_par && !culled && det_ok && ok && tc >= lo && tc < hi) ? tc : INFINITY;
+}
+
+// The pixel of slot j of 1024-ray tile i of a W x H frame (K2a/K2b, K11a/
+// K11b): a 32x32 pixel block in row-major block order when `tiled` (W and H
+// multiples of 32), else rays [1024 i, 1024 i + 1024) of the row-major frame.
+// False for a slot past the frame: the ragged end of an untiled frame, and
+// every slot of a tile past the last (a px-sharded rank's padded tiles).
+__device__ __forceinline__ bool tile_pixel(int i, int j, int W, int H, int tiled, int* pxi,
+                                           int* pyi) {
+  if (tiled) {
+    const int TX = W / 32;
+    *pxi = (i % TX) * 32 + j % 32;
+    *pyi = (i / TX) * 32 + j / 32;
+    return *pyi < H;
+  }
+  const long long rid = (long long)i * 1024 + j;
+  if (rid >= (long long)W * H) return false;
+  *pxi = (int)(rid % W);
+  *pyi = (int)(rid / W);
+  return true;
 }
 
 // Camera ray through pixel (pxi, pyi) (reference: source/Renderer.cpp:104-114);
@@ -184,6 +205,25 @@ __device__ __forceinline__ void dim_and_tonemap(float sf, float* rgb) {
   }
 }
 
+// The shadow ray from the offset hit point (ox, oy, oz) towards light li:
+// unit direction and length, kFltMax for a directional light, whose
+// direction sits in the position slot.
+__device__ __forceinline__ void light_dir(const float* li, float ox, float oy, float oz,
+                                          float* lx, float* ly, float* lz, float* mag) {
+  if (li[7] == 0.0f) {
+    const float ldx = li[0] - ox, ldy = li[1] - oy, ldz = li[2] - oz;
+    *mag = sqrtf(sqn(ldx, ldy, ldz));
+    *lx = ldx / *mag;
+    *ly = ldy / *mag;
+    *lz = ldz / *mag;
+  } else {
+    *mag = kFltMax;
+    *lx = -li[0];
+    *ly = -li[1];
+    *lz = -li[2];
+  }
+}
+
 // The whole RenderPixel tail of a hit at distance t along (ro, rd) with unit
 // normal n and material m: one shadow ray per light from the offset point,
 // shading, the shadow dim per occluded light, MaxToOne.  `occluded(l, ox,
@@ -203,19 +243,8 @@ __device__ __forceinline__ void shade_hit(const float* lit, int L, int mode, boo
   for (int l = 0; l < L; ++l) {
     const float* li = lit + l * kLight;
     const bool is_point = li[7] == 0.0f;
-    const float ldx = li[0] - ox, ldy = li[1] - oy, ldz = li[2] - oz;
     float lx, ly, lz, mag;
-    if (is_point) {
-      mag = sqrtf(sqn(ldx, ldy, ldz));
-      lx = ldx / mag;
-      ly = ldy / mag;
-      lz = ldz / mag;
-    } else {  // directional: the direction sits in the position slot
-      mag = kFltMax;
-      lx = -li[0];
-      ly = -li[1];
-      lz = -li[2];
-    }
+    light_dir(li, ox, oy, oz, &lx, &ly, &lz, &mag);
     bool lit_here = true;
     if (shadows) {
       lit_here = !occluded(l, ox, oy, oz, lx, ly, lz, mag);

@@ -6,7 +6,10 @@
 // (triangle culling inverted) -> shading (4 lighting modes x 4 material
 // kinds) -> 0.95 dim per occluded light -> MaxToOne.  It writes (H, W, 3)
 // float32, row-major, into a tensor the wrapper allocated; it allocates
-// nothing itself.
+// nothing itself.  Given a tile range (the per-rank body of the px-sharded
+// render, pallas_kernel.py:render_image_mega_f32's tile0/tiles), it renders
+// rays [1024 tile0, 1024 (tile0 + tiles)) of the row-major frame into
+// (tiles * 1024, 3), black past the frame's last ray.
 //
 // What bounds it.  It reads a scene of at most ~6 KB and writes 12 B per
 // ray (3.7 MB for 640x480): on an H100 at 3.35 TB/s that is about 1 us.
@@ -53,24 +56,30 @@ __device__ bool occluded(const float* sph, int S, const float* pln, int P, const
 
 __global__ void __launch_bounds__(256) mega_kernel(
     const float* __restrict__ scene, int S, int P, int T, int L, int W, int H, int mode,
-    int shadows, float tmin, float normal_offset, float shadow_dim, float* __restrict__ out) {
+    int shadows, float tmin, float normal_offset, float shadow_dim, int tile0, int n_out,
+    float* __restrict__ out) {
   extern __shared__ float sm[];
   const int n = kCam + S * kSph + P * kPln + T * kTri + L * kLight;
   for (int i = threadIdx.x; i < n; i += blockDim.x) sm[i] = scene[i];
   __syncthreads();
 
-  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (rid >= W * H) return;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;  // the ray's row of `out`
+  if (slot >= n_out) return;
+  const long long rid = (long long)tile0 * 1024 + slot;  // its ray of the frame
+  float* o = out + 3 * (size_t)slot;
+  if (rid >= (long long)W * H) {  // a padded ray past the frame
+    o[0] = o[1] = o[2] = 0.0f;
+    return;
+  }
   const float* cam = sm;
   const float* sph = cam + kCam;
   const float* pln = sph + S * kSph;
   const float* tri = pln + P * kPln;
   const float* lit = tri + T * kTri;
-  float* o = out + 3 * rid;
 
   const float rox = cam[0], roy = cam[1], roz = cam[2];
   float rdx, rdy, rdz;
-  raygen(cam, rid % W, rid / W, W, H, &rdx, &rdy, &rdz);
+  raygen(cam, (int)(rid % W), (int)(rid / W), W, H, &rdx, &rdy, &rdz);
 
   // closest hit; strict < keeps the first primitive on ties
   float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
@@ -135,15 +144,18 @@ __global__ void __launch_bounds__(256) mega_kernel(
 
 extern "C" {
 
-// Launches K1 on `stream`.  Returns cudaGetLastError() after the launch.
+// Launches K1 on `stream` over `n_out` rays from ray 1024 * tile0 of the
+// frame (the whole frame: tile0 0, n_out W * H).  Returns
+// cudaGetLastError() after the launch.
 int raytpu_mega_render(const float* scene, int S, int P, int T, int L, int W, int H, int mode,
                        int shadows, float ray_min, float normal_offset, float shadow_dim,
-                       float* out, void* stream) {
+                       int tile0, int n_out, float* out, void* stream) {
   const int threads = 256;
-  const int blocks = (W * H + threads - 1) / threads;
+  const int blocks = (n_out + threads - 1) / threads;
   const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln + T * kTri + L * kLight);
   mega_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, L, W, H, mode, shadows, ray_min, normal_offset, shadow_dim, out);
+      scene, S, P, T, L, W, H, mode, shadows, ray_min, normal_offset, shadow_dim, tile0, n_out,
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,10 @@
 //
 // A tile is 1024 rays: a 32x32 pixel block when W and H are multiples of 32
 // (a tight cone of directions, which culls well), else 1024 consecutive
-// row-major pixels with the ragged end masked.  One block of 1024 threads
+// row-major pixels with the ragged end masked (common.cuh:tile_pixel).
+// Both passes take a range of the frame's tiles [tile0, tile0 + tiles), the
+// per-rank body of the px-sharded render (render_image_mega2_f32's
+// tile0/tiles); K2b then writes the range's rays in feed order.  One block of 1024 threads
 // per tile, one thread per ray.  Worklists hold each tile's passing groups
 // in ascending order; with the strict < update a tie goes to the first
 // primitive in sphere -> plane -> triangle order, as in the eager argmin.
@@ -55,25 +58,9 @@ constexpr int kTile = 1024;
 constexpr int kGroup = 8;
 constexpr int kAccRows = 11;  // t, normal(3), material(7)
 
-// The pixel of slot j of tile i; false past the end of an untiled frame.
-__device__ __forceinline__ bool tile_pixel(int i, int j, int W, int H, int tiled, int* pxi,
-                                           int* pyi) {
-  if (tiled) {
-    const int TX = W / 32;
-    *pxi = (i % TX) * 32 + j % 32;
-    *pyi = (i / TX) * 32 + j / 32;
-    return true;
-  }
-  const int rid = i * kTile + j;
-  if (rid >= W * H) return false;
-  *pxi = rid % W;
-  *pyi = rid / W;
-  return true;
-}
-
 __global__ void __launch_bounds__(kTile) mega2_closest_kernel(
     const float* __restrict__ scene, int S, int P, int T, const int* __restrict__ wl,
-    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, float tmin,
+    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, int tile0, float tmin,
     float normal_offset, float* __restrict__ acc, float* __restrict__ bounds) {
   extern __shared__ float sm[];  // cam | spheres | planes
   __shared__ float part[6][32];
@@ -88,7 +75,7 @@ __global__ void __launch_bounds__(kTile) mega2_closest_kernel(
   const int slots = gridDim.x * kTile;
 
   int pxi = 0, pyi = 0;
-  const bool valid = tile_pixel(tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
+  const bool valid = tile_pixel(tile0 + tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
   const float rox = cam[0], roy = cam[1], roz = cam[2];
   float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
   float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
@@ -189,9 +176,9 @@ __global__ void __launch_bounds__(kTile) mega2_closest_kernel(
 
 __global__ void __launch_bounds__(kTile) mega2_shade_kernel(
     const float* __restrict__ scene, int S, int P, int T, int L, const int* __restrict__ wl,
-    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, int mode, int shadows,
-    float tmin, float normal_offset, float shadow_dim, const float* __restrict__ acc,
-    float* __restrict__ out) {
+    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, int tile0, int feed,
+    int mode, int shadows, float tmin, float normal_offset, float shadow_dim,
+    const float* __restrict__ acc, float* __restrict__ out) {
   extern __shared__ float sm[];  // cam | spheres | planes | lights
   const int n = kCam + S * kSph + P * kPln;
   const float* lit_g = scene + n + (size_t)T * kTri;
@@ -207,8 +194,15 @@ __global__ void __launch_bounds__(kTile) mega2_shade_kernel(
   const int slots = gridDim.x * kTile;
 
   int pxi, pyi;
-  if (!tile_pixel(tile, threadIdx.x, W, H, tiled, &pxi, &pyi)) return;
-  float* o = out + 3 * ((size_t)pyi * W + pxi);
+  const bool valid = tile_pixel(tile0 + tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
+  // `feed`: the tile range's rays in feed order, (tiles * 1024, 3), black
+  // past the frame; else the (H, W, 3) image
+  float* o = feed ? out + 3 * ((size_t)tile * kTile + threadIdx.x)
+                  : out + 3 * ((size_t)pyi * W + pxi);
+  if (!valid) {
+    if (feed) o[0] = o[1] = o[2] = 0.0f;
+    return;
+  }
   const float* a = acc + (size_t)tile * kTile + threadIdx.x;
   const float t = a[0];
   if (!(t < INFINITY)) {  // miss: black, whatever the lights
@@ -250,31 +244,34 @@ __global__ void __launch_bounds__(kTile) mega2_shade_kernel(
 
 extern "C" {
 
-// Launches K2a on `stream` over ceil(W*H/1024) tiles.  `wl` (nt, wl_cols)
-// and `cnt` (nt,) are the tiles' group worklists; `acc` is 11 x nt*1024
-// float32 and `bounds` nt x 6.  Returns cudaGetLastError() after the launch.
+// Launches K2a on `stream` over the frame's tiles [tile0, tile0 + tiles)
+// (the whole frame: 0 and ceil(W*H/1024)).  `wl` (tiles, wl_cols) and `cnt`
+// (tiles,) are the tiles' group worklists; `acc` is 11 x tiles*1024
+// float32 and `bounds` tiles x 6.  Returns cudaGetLastError() after the
+// launch.
 int raytpu_mega2_closest(const float* scene, int S, int P, int T, const int* wl, const int* cnt,
-                         int wl_cols, int W, int H, int tiled, float ray_min, float normal_offset,
-                         float* acc, float* bounds, void* stream) {
-  const int tiles = (W * H + kTile - 1) / kTile;
+                         int wl_cols, int W, int H, int tiled, int tile0, int tiles,
+                         float ray_min, float normal_offset, float* acc, float* bounds,
+                         void* stream) {
   const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln);
   mega2_closest_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, wl, cnt, wl_cols, W, H, tiled, ray_min, normal_offset, acc, bounds);
+      scene, S, P, T, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset, acc, bounds);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K2b on `stream`.  `wl` (nt, L, wl_cols) and `cnt` (nt, L) are the
-// per-light shadow worklists (read only when `shadows`); `acc` is K2a's;
-// `out` is (H, W, 3) float32.  Returns cudaGetLastError() after the launch.
+// Launches K2b on `stream` over tiles [tile0, tile0 + tiles), as K2a.
+// `wl` (tiles, L, wl_cols) and `cnt` (tiles, L) are the per-light shadow
+// worklists (read only when `shadows`); `acc` is K2a's; `out` is (H, W, 3)
+// float32, or with `feed` (tiles * 1024, 3) in feed order.  Returns
+// cudaGetLastError() after the launch.
 int raytpu_mega2_shade(const float* scene, int S, int P, int T, int L, const int* wl,
-                       const int* cnt, int wl_cols, int W, int H, int tiled, int mode, int shadows,
-                       float ray_min, float normal_offset, float shadow_dim, const float* acc,
-                       float* out, void* stream) {
-  const int tiles = (W * H + kTile - 1) / kTile;
+                       const int* cnt, int wl_cols, int W, int H, int tiled, int tile0, int tiles,
+                       int feed, int mode, int shadows, float ray_min, float normal_offset,
+                       float shadow_dim, const float* acc, float* out, void* stream) {
   const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln + L * kLight);
   mega2_shade_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, L, wl, cnt, wl_cols, W, H, tiled, mode, shadows, ray_min, normal_offset,
-      shadow_dim, acc, out);
+      scene, S, P, T, L, wl, cnt, wl_cols, W, H, tiled, tile0, feed, mode, shadows, ray_min,
+      normal_offset, shadow_dim, acc, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,22 +55,29 @@ def _check_mega(scene: Scene, config: RenderConfig):
         raise ValueError("the megakernel renders hard shadows only")
 
 
-def render_image_mega_f32(scene: Scene, config: RenderConfig):
+def render_image_mega_f32(scene: Scene, config: RenderConfig, tile0: int | None = None,
+                          tiles: int | None = None):
     """Whole-frame megakernel render -> (H, W, 3) float32 on the scene's
-    device.  The CPU takes the plain version; CUDA launches ``mega.cu``."""
+    device.  The CPU takes the plain version; CUDA launches ``mega.cu``.
+
+    With ``tile0``/``tiles`` set it renders only the 1024-ray tiles
+    [tile0, tile0 + tiles) of the row-major frame and returns their
+    (tiles * 1024, 3) colors, black past the frame: the per-rank body of
+    the px-sharded render."""
     _check_mega(scene, config)
     if scene.device.type == "cpu":
-        return render_image_mega_f32_plain(scene, config)
+        return render_image_mega_f32_plain(scene, config, tile0, tiles)
     if scene.device.type != "cuda":
         raise ValueError(f"megakernel runs on cuda or (plain) cpu, not {scene.device}")
     buf, counts = mega_pack(scene, config)
-    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=buf.device)
-    return launch_mega(buf, counts, config, out)
+    out = torch.empty(mega2.frame_shape(config, tiles), dtype=torch.float32, device=buf.device)
+    return launch_mega(buf, counts, config, out, tile0 or 0)
 
 
-def launch_mega(buf, counts, config: RenderConfig, out):
+def launch_mega(buf, counts, config: RenderConfig, out, tile0: int = 0):
     """Launch ``mega.cu`` on the current stream: ``buf`` and ``counts`` from
-    ``mega_pack``, ``out`` an (H, W, 3) float32 CUDA tensor it overwrites."""
+    ``mega_pack``, ``out`` a float32 CUDA tensor it overwrites, the
+    (H, W, 3) frame or, from ray ``1024 * tile0``, (n, 3) rays of it."""
     global MEGA_LAUNCHES
     S, P, T, L = counts
     W, H = config.width, config.height
@@ -79,8 +86,10 @@ def launch_mega(buf, counts, config: RenderConfig, out):
     if buf.dtype != torch.float32 or not buf.is_contiguous() or buf.numel() != (
             CAM_COLS + SPH_COLS * S + PLN_COLS * P + TRI_COLS * T + LIGHT_COLS * L):
         raise ValueError("megakernel scene buffer is malformed")
-    if out.dtype != torch.float32 or not out.is_contiguous() or tuple(out.shape) != (H, W, 3):
-        raise ValueError(f"megakernel output must be contiguous float32 ({H}, {W}, 3)")
+    whole = tuple(out.shape) == (H, W, 3) and tile0 == 0
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or not (whole or (out.ndim == 2 and out.shape[1] == 3)) or tile0 < 0):
+        raise ValueError(f"megakernel output must be contiguous float32 ({H}, {W}, 3) or (n, 3)")
     if S + P + T > MEGA_MAX_PRIMS or L > MEGA_MAX_LIGHTS or W <= 0 or H <= 0:
         raise ValueError(f"megakernel cannot take S+P+T={S + P + T}, L={L}, {W}x{H}")
     lib = build.load()
@@ -88,24 +97,34 @@ def launch_mega(buf, counts, config: RenderConfig, out):
         err = lib.raytpu_mega_render(
             buf.data_ptr(), S, P, T, L, W, H, int(config.lighting_mode), int(bool(config.shadows)),
             float(config.ray_min), float(config.normal_offset), float(config.shadow_dim),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            tile0, out.numel() // 3, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: {build.cuda_error_name(lib, err)}")
     MEGA_LAUNCHES += 1
     return out
 
 
-def render_image_mega_f32_plain(scene: Scene, config: RenderConfig):
+def render_image_mega_f32_plain(scene: Scene, config: RenderConfig, tile0: int | None = None,
+                                tiles: int | None = None):
     """What ``mega.cu`` computes, in plain tensor ops on the scene's device
-    (``plain``'s docstring says how they round)."""
+    (``plain``'s docstring says how they round): the frame, or the tiles
+    [tile0, tile0 + tiles) as ``render_image_mega_f32`` returns them."""
     _check_mega(scene, config)
     buf, counts = mega_pack(scene, config)
     W, H = config.width, config.height
     cam, sph, pln, tri, lit = plain.mega_unpack(buf, counts)
-    rid = torch.arange(W * H, device=buf.device)
+    if tiles is None:
+        rid = torch.arange(W * H, device=buf.device)
+    else:
+        rid = torch.arange(tile0 * mega2.TILE, (tile0 + tiles) * mega2.TILE, device=buf.device)
+    valid = rid < W * H
+    rid = torch.where(valid, rid, 0)
     ro, rd = plain.camera_rays(cam, rid % W, rid // W, W, H)
     t, n, mat = plain.closest_records(sph, pln, tri, ro, rd, float(config.ray_min))
-    return plain.shade_records(sph, pln, tri, lit, config, ro, rd, t, n, mat).reshape(H, W, 3)
+    colors = plain.shade_records(sph, pln, tri, lit, config, ro, rd, t, n, mat)
+    if tiles is None:
+        return colors.reshape(H, W, 3)
+    return torch.where(valid[:, None], colors, 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,13 @@ The kernels are ``csrc/mega2.cu``:
     shadow dim and tone map, into the (H, W, 3) image.
 
 A tile is 1024 rays: a 32x32 pixel block when W and H are multiples of 32,
-else 1024 consecutive row-major pixels (``accel.tile_pixels``).  The
-kernels read the scene buffer that ``plain.mega_pack`` packs for K1.  Each
-wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises.
+else 1024 consecutive row-major pixels (``accel.tile_pixels``).  Given
+``tile0``/``tiles``, the route renders only the frame's tiles [tile0,
+tile0 + tiles) and returns their rays' colors in feed order, black past the
+frame: the per-rank body of the px-sharded render.  The kernels read the
+scene buffer that ``plain.mega_pack`` packs for K1.  Each wrapper takes its
+plain version only for tensors on the CPU; for CUDA tensors it launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,35 +54,66 @@ def _check(config: RenderConfig):
         raise ValueError("mega2 renders hard shadows only")
 
 
-def render_image_mega2_f32(scene: Scene, config: RenderConfig):
+def frame_shape(config: RenderConfig, tiles: int | None):
+    """(H, W, 3) for the frame, (tiles * 1024, 3) for a tile range."""
+    return (config.height, config.width, 3) if tiles is None else (tiles * TILE, 3)
+
+
+def black(config: RenderConfig, tiles: int | None, device):
+    """The frame of a scene without lights (W1), or a tile range's: zeros."""
+    return torch.zeros(frame_shape(config, tiles), dtype=torch.float32, device=device)
+
+
+def render_image_mega2_f32(scene: Scene, config: RenderConfig, tile0: int | None = None,
+                           tiles: int | None = None):
     """Whole-frame mega2 render -> (H, W, 3) float32 on the scene's device:
-    K2a, the shadow worklists, K2b."""
+    K2a, the shadow worklists, K2b.  With ``tile0``/``tiles`` set, the
+    tiles [tile0, tile0 + tiles) -> (tiles * 1024, 3) in feed order."""
     _check(config)
+    tile0 = tile0 or 0
     buf, counts = plain.mega_pack(scene, config)
-    wl, cnt = primary_worklists(scene, config)
-    acc, bounds = mega2_closest(buf, counts, wl, cnt, config)
+    wl, cnt = primary_worklists(scene, config, tile0, tiles)
+    acc, bounds = mega2_closest(buf, counts, wl, cnt, config, tile0, tiles)
     if counts[3] == 0:  # no lights: black (W1)
-        return torch.zeros((config.height, config.width, 3), dtype=torch.float32, device=buf.device)
+        return black(config, tiles, buf.device)
     wl_s, cnt_s = shadow_worklists(scene, config, bounds)
-    return mega2_shade(buf, counts, wl_s, cnt_s, acc, config)
+    return mega2_shade(buf, counts, wl_s, cnt_s, acc, config, tile0, tiles)
 
 
-def primary_worklists(scene: Scene, config: RenderConfig):
-    """K2a's worklists ``(wl (nt, ng) int32, cnt (nt,) int32)``: each
-    tile's groups that its camera rays may hit, in ascending order."""
+def take_tiles(wl, cnt, tile0: int, tiles: int | None):
+    """Rows [tile0, tile0 + tiles) of the frame's worklists ``wl`` (nt, n)
+    and ``cnt`` (nt,); rows past the frame are empty (raytpu: "padded tiles
+    past the frame cull everything").  ``tiles`` None: the frame's."""
+    if tiles is None:
+        return wl, cnt
+    pad = max(0, tile0 + tiles - wl.shape[0])
+    wl = torch.cat([wl, wl.new_zeros((pad, wl.shape[1]))])[tile0:tile0 + tiles]
+    cnt = torch.cat([cnt, cnt.new_zeros((pad,))])[tile0:tile0 + tiles]
+    return wl.contiguous(), cnt.contiguous()
+
+
+def primary_worklists(scene: Scene, config: RenderConfig, tile0: int = 0,
+                      tiles: int | None = None):
+    """K2a's (and K11a's) worklists ``(wl (nt, ng) int32, cnt (nt,) int32)``:
+    each tile's groups that its camera rays may hit, in ascending order; a
+    tile range's rows with ``tiles`` set."""
     if not accel.culls_groups(scene.triangles):
-        return accel.full_worklist(num_tiles(config), scene.triangles)
+        return take_tiles(*accel.full_worklist(num_tiles(config), scene.triangles), tile0, tiles)
     glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
     rb = accel.camera_tile_bounds(scene.camera, config.width, config.height, is_tiled(config),
                                   tile=TILE)
-    return accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi, float(config.ray_min)))
+    return take_tiles(*accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi,
+                                                              float(config.ray_min))),
+                      tile0, tiles)
 
 
 def shadow_worklists(scene: Scene, config: RenderConfig, bounds):
-    """K2b's worklists ``(wl (nt, L, n) int32, cnt (nt, L) int32)`` from
-    K2a's per-tile boxes of shadow origins: each light's groups that a
-    shadow ray of the tile may hit.  Without shadows they are empty."""
-    nt, L, dev = num_tiles(config), scene.lights.count, scene.device
+    """K2b's (and K11b's) worklists ``(wl (nt, L, n) int32, cnt (nt, L)
+    int32)`` from K2a's per-tile boxes of shadow origins ``bounds`` (nt, 6):
+    each light's groups that a shadow ray of the tile may hit; an empty box
+    (a tile whose rays all miss, or past the frame) culls every group.
+    Without shadows they are empty."""
+    nt, L, dev = bounds.shape[0], scene.lights.count, scene.device
     if not config.shadows:
         return (torch.zeros((nt, L, 0), dtype=torch.int32, device=dev),
                 torch.zeros((nt, L), dtype=torch.int32, device=dev))
@@ -101,15 +135,17 @@ def _buf_shape(counts):
             + plain.LIGHT_COLS * L,)
 
 
-def mega2_closest(buf, counts, wl, cnt, config: RenderConfig):
-    """K2a -> ``(acc (11, nt*1024) float32, bounds (nt, 6) float32)``.
-    ``wl`` (nt, n) int32 lists each tile's groups, ``cnt`` (nt,) int32 how
-    many of them to walk.  A CPU buffer takes ``mega2_closest_plain``."""
+def mega2_closest(buf, counts, wl, cnt, config: RenderConfig, tile0: int = 0,
+                  tiles: int | None = None):
+    """K2a -> ``(acc (11, nt*1024) float32, bounds (nt, 6) float32)`` over
+    the frame's tiles, or the ``tiles`` from ``tile0``.  ``wl`` (nt, n)
+    int32 lists each tile's groups, ``cnt`` (nt,) int32 how many of them to
+    walk.  A CPU buffer takes ``mega2_closest_plain``."""
     global MEGA2_CLOSEST_LAUNCHES
     if buf.device.type == "cpu":
-        return mega2_closest_plain(buf, counts, config)
+        return mega2_closest_plain(buf, counts, config, tile0, tiles)
     _check(config)
-    nt = num_tiles(config)
+    nt = num_tiles(config) if tiles is None else tiles
     build.check_tensors("K2a", buf.device, {
         "scene buffer": (buf, torch.float32, _buf_shape(counts)),
         "wl": (wl, torch.int32, (nt, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt,))})
@@ -120,7 +156,7 @@ def mega2_closest(buf, counts, wl, cnt, config: RenderConfig):
     with torch.cuda.device(buf.device):
         err = lib.raytpu_mega2_closest(
             buf.data_ptr(), S, P, T, wl.data_ptr(), cnt.data_ptr(), wl.shape[1], config.width,
-            config.height, int(is_tiled(config)), float(config.ray_min),
+            config.height, int(is_tiled(config)), tile0, nt, float(config.ray_min),
             float(config.normal_offset), acc.data_ptr(), bounds.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -129,26 +165,29 @@ def mega2_closest(buf, counts, wl, cnt, config: RenderConfig):
     return acc, bounds
 
 
-def mega2_shade(buf, counts, wl, cnt, acc, config: RenderConfig):
-    """K2b -> (H, W, 3) float32.  ``wl`` (nt, L, n) int32 and ``cnt``
+def mega2_shade(buf, counts, wl, cnt, acc, config: RenderConfig, tile0: int = 0,
+                tiles: int | None = None):
+    """K2b -> (H, W, 3) float32, or with ``tiles`` set the range's
+    (tiles * 1024, 3) in feed order.  ``wl`` (nt, L, n) int32 and ``cnt``
     (nt, L) int32 are the shadow worklists, ``acc`` is K2a's.  A CPU buffer
     takes ``mega2_shade_plain``."""
     global MEGA2_SHADE_LAUNCHES
     if buf.device.type == "cpu":
-        return mega2_shade_plain(buf, counts, acc, config)
+        return mega2_shade_plain(buf, counts, acc, config, tile0, tiles)
     _check(config)
     S, P, T, L = counts
-    nt = num_tiles(config)
+    nt = num_tiles(config) if tiles is None else tiles
     build.check_tensors("K2b", buf.device, {
         "scene buffer": (buf, torch.float32, _buf_shape(counts)),
         "wl": (wl, torch.int32, (nt, L, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt, L)),
         "acc": (acc, torch.float32, (ACC_ROWS, nt * TILE))})
-    out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=buf.device)
+    out = torch.empty(frame_shape(config, tiles), dtype=torch.float32, device=buf.device)
     lib = build.load()
     with torch.cuda.device(buf.device):
         err = lib.raytpu_mega2_shade(
             buf.data_ptr(), S, P, T, L, wl.data_ptr(), cnt.data_ptr(), wl.shape[2], config.width,
-            config.height, int(is_tiled(config)), int(config.lighting_mode),
+            config.height, int(is_tiled(config)), tile0, nt, int(tiles is not None),
+            int(config.lighting_mode),
             int(bool(config.shadows)), float(config.ray_min), float(config.normal_offset),
             float(config.shadow_dim), acc.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -162,17 +201,24 @@ def mega2_shade(buf, counts, wl, cnt, acc, config: RenderConfig):
 # Plain versions: what mega2.cu computes, tile for tile, with no cull
 # ---------------------------------------------------------------------------
 
-def _tile_rays(cam, config: RenderConfig):
+def _tile_rays(cam, config: RenderConfig, tile0: int = 0, tiles: int | None = None):
+    """Camera rays of the frame's slots in tile order (``accel.tile_pixels``),
+    or of the tiles [tile0, tile0 + tiles), slots past the frame not valid."""
     px, py, valid = accel.tile_pixels(config.width, config.height, is_tiled(config), cam.device,
                                       tile=TILE)
+    if tiles is not None:
+        n0, n1 = tile0 * TILE, (tile0 + tiles) * TILE
+        pad = max(0, n1 - px.shape[0])
+        px, py, valid = (torch.cat([x, x.new_zeros((pad,))])[n0:n1] for x in (px, py, valid))
     ro, rd = plain.camera_rays(cam, px, py, config.width, config.height)
     return ro, rd, px, py, valid
 
 
-def mega2_closest_plain(buf, counts, config: RenderConfig):
+def mega2_closest_plain(buf, counts, config: RenderConfig, tile0: int = 0,
+                        tiles: int | None = None):
     """What K2a computes: ``(acc, bounds)`` as ``mega2_closest`` returns them."""
     cam, sph, pln, tri, _ = plain.mega_unpack(buf, counts)
-    ro, rd, _, _, valid = _tile_rays(cam, config)
+    ro, rd, _, _, valid = _tile_rays(cam, config, tile0, tiles)
     t, n, mat = plain.closest_records(sph, pln, tri, ro, rd, float(config.ray_min))
     hit = valid & (t < plain.INF)
     t = torch.where(hit, t, plain.INF)
@@ -186,12 +232,16 @@ def mega2_closest_plain(buf, counts, config: RenderConfig):
     return acc, torch.cat([lo, hi], dim=1)
 
 
-def mega2_shade_plain(buf, counts, acc, config: RenderConfig):
-    """What K2b computes from K2a's ``acc``: the (H, W, 3) image."""
+def mega2_shade_plain(buf, counts, acc, config: RenderConfig, tile0: int = 0,
+                      tiles: int | None = None):
+    """What K2b computes from K2a's ``acc``: the (H, W, 3) image, or a tile
+    range's rays as ``mega2_shade`` returns them."""
     cam, sph, pln, tri, lit = plain.mega_unpack(buf, counts)
-    ro, rd, px, py, valid = _tile_rays(cam, config)
+    ro, rd, px, py, valid = _tile_rays(cam, config, tile0, tiles)
     colors = plain.shade_records(sph, pln, tri, lit, config, ro, rd, acc[0],
                                  tuple(acc[1:4]), tuple(acc[4:11]))
+    if tiles is not None:
+        return torch.where(valid[:, None], colors, 0.0)
     W, H = config.width, config.height
     out = torch.zeros((H * W, 3), dtype=torch.float32, device=buf.device)
     out[(py * W + px)[valid]] = colors[valid]
