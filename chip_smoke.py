@@ -21,7 +21,11 @@ Phases (each passes or raises; nothing is caught):
      route) on optional, bunny50k and bunny300k at 640x480 (every 10th tile)
      and 160x128, and against K2a and K2b on the same frames (buffer, boxes
      and image equal, bit for bit); the tile ranges of K1, K2 and K11 (the
-     px-sharded render's per-rank bodies) against their whole frames;
+     px-sharded render's per-rank bodies) against their whole frames; the
+     probes: P1 in its four variants at T = 64, 384, 1024 over 300 tiles on
+     raytpu's uniform triangles and on triangles in front of the rays, and
+     P2 at raytpu's shape (against numpy, cnt 37, 0, 3) and at its timed
+     shape, all bit for bit;
   3. the main paths, each with the launch counts set to 0 just before it and
      read just after: 64 animated frames of the reference scene at 640x480
      (K1) with frames t=0 and t=1.25 against the committed goldens, 16 of
@@ -43,13 +47,20 @@ Phases (each passes or raises; nothing is caught):
      bunny50k (K11 tiles, by name), (1, 2) on bunny50k (K3 and K4 on each
      triangle shard, merged) and on optional_l12 (K9 on each shard), and a
      sharded train step on optional's materials, each against the
-     single-process render or step;
+     single-process render or step; the probes' entry points (main() in
+     this process with the counts around it, then ``python -m`` of each);
+     the CLI's --ssaa 2 through K1 against the committed SSAA golden and
+     --frames-per-dispatch 4 over 10 frames (frames, K1 launches and
+     device-to-host copies counted); the viewer's FramePipeline over 16
+     frames of bunny with a moving fly camera against the synchronous loop;
   4. times on the card (CUDA events) of every kernel beside its bound, and
      of each scene's frame, with the device's idle share from torch.profiler;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
-     mega3 frames with their idle share.
+     mega3 frames with their idle share; P1 in each variant and T against
+     its operation bound (and the non-FMA issue rate), P2's bytes/s on a
+     155.7 MB blob against 3.35 TB/s.
 
 The chunked route's fixtures are registry scenes carried across with
 ``convert`` and edited (raytpu's registry has no scene past its caps):
@@ -156,9 +167,23 @@ CHUNKED_PLAIN_SIZE = (160, 128)
 #: the fixtures the per-stage profiler runs on
 STAGE_SCENES = ("reference", "optional_l12")
 
+#: the probes (raytpu_torch.probes): P1's triangle counts and tiles
+#: (probes/probe_smem.py's), and P2's timed shape: blocks (4 per SM) and the
+#: row-blocks each walks, 19,008 of 8 KB, 155.7 MB, past the 50 MB L2
+P1_TS = (64, 384, 1024)
+P1_TILES = 300
+P2_BLOCKS, P2_PER_BLOCK = 132 * 4, 36
+#: FP32 operations of one P1 test, counted from probes.cu (its source note)
+OPS_P1_TEST = 53
+#: the viewer's double-buffered pipeline: scene and frames
+PIPELINE_SCENE, PIPELINE_FRAMES = "bunny", 16
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: FP32 lanes of an H100 SXM: 132 SMs x 128; one add or multiply a lane a
+#: clock when nothing is fused (-fmad=false)
+FP32_LANES = 132 * 128
 
 
 def close_u8(a: np.ndarray, b: np.ndarray, budget: float, mean_max: float):
@@ -1797,7 +1822,8 @@ SOFT_TIMED = ("optional", "bunny50k", "bunny300k")
 
 
 def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
-                grad: list, chunked_paths: dict, mega3_paths: dict, sharded: dict) -> None:
+                grad: list, chunked_paths: dict, mega3_paths: dict, sharded: dict,
+                probes: list) -> None:
     from raytpu_torch.core import math3d, scenes
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.render import mega3
@@ -1894,10 +1920,285 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
             "scene": HEADLINE[key], "library_ms": None,
             **head,
             "per_scene": {n: v[key] for n, v in per_scene.items() if key in v}})
+    entries += probes
     for line in lines:
         print(json.dumps(line if "grad_path" in line or "sharded" in line
                          else {"main_path": line}))
     print(json.dumps({"kernels": entries}))
+
+
+def phase_compare_probes(dev) -> dict:
+    """P1 and P2 against their plain versions on the card.  P1: all four
+    variants at each of P1_TS over P1_TILES tiles, on raytpu's uniform
+    triangles (every ray misses) and on triangles placed in front of the
+    rays; bit-equal, since both sides round every operation on its own
+    (probes.cu -fmad=false, plain: one torch op each) and divide IEEE.  P2 at
+    raytpu's shape equal to numpy's float64 sum, at cnt 0 and 3 equal to the
+    plain version, and at the timed shape bit-equal to it (same additions in
+    the same order)."""
+    from raytpu_torch.probes import probe_dma_smem as pd
+    from raytpu_torch.probes import probe_smem as ps
+
+    worst = {"P1": {"max_abs_diff": 0.0, "differing": 0},
+             "P2": {"max_abs_diff": 0.0, "differing": 0}}
+    for T in P1_TS:
+        for front in (False, True):
+            tri = torch.from_numpy(ps.make_triangles(T, 0, front)).to(dev)
+            wl = torch.from_numpy(ps.make_worklist(T, 0)).to(dev)
+            for worklist in (False, True):
+                ref = ps.smem_fold_plain(tri, wl, P1_TILES, worklist)
+                hits = float((ref < 1e30).float().mean())
+                line = []
+                for staged in (True, False):
+                    got = ps.smem_fold(tri, wl, P1_TILES, worklist, staged)
+                    differ = int((got != ref).sum())
+                    diff = float((got - ref).abs().max())
+                    if differ or got.shape != (8 * P1_TILES, 128):
+                        raise AssertionError(f"P1 T={T} front={front} worklist={worklist} "
+                                             f"staged={staged}: {differ} rays differ, max {diff}")
+                    worst["P1"]["max_abs_diff"] = max(worst["P1"]["max_abs_diff"], diff)
+                    line.append(f"staged={int(staged)} {differ} differ")
+                print(f"phase 2: P1 T={T} {'front' if front else 'uniform'} worklist="
+                      f"{int(worklist)}: hit share {hits:.5f}; " + ", ".join(line), flush=True)
+    blob, wl, cnt, blocks = pd.raytpu_shape(dev)
+    for c in (pd.RAYTPU_CNT, 0, 3):
+        cnt_c = torch.full((1,), c, dtype=torch.int32, device=dev)
+        got = pd.dma_ring_sum(blob, wl, cnt_c, blocks)
+        ref = pd.dma_ring_sum_plain(blob, wl, cnt_c, blocks)
+        want = pd.expected(wl.cpu().numpy(), c)
+        if not (bool((got == ref).all()) and bool((got == want).all())):
+            raise AssertionError(f"P2 at raytpu's shape, cnt {c}: {float(got[0, 0])}, plain "
+                                 f"{float(ref[0, 0])}, numpy {want}")
+        print(f"phase 2: P2 raytpu's shape cnt={c}: {float(got[0, 0])} == numpy {want} == plain",
+              flush=True)
+    blob, wl, cnt = pd.timed_shape(dev, P2_BLOCKS, P2_PER_BLOCK)
+    got = pd.dma_ring_sum(blob, wl, cnt, P2_BLOCKS)
+    ref = pd.dma_ring_sum_plain(blob, wl, cnt, P2_BLOCKS)
+    differ = int((got != ref).sum())
+    if differ:
+        raise AssertionError(f"P2 timed shape: {differ} outputs differ from the plain version")
+    worst["P2"]["max_abs_diff"] = float((got - ref).abs().max())
+    print(f"phase 2: P2 timed shape {P2_BLOCKS} blocks x {P2_PER_BLOCK} row-blocks "
+          f"({blob.numel() * 4 / 1e6:.1f} MB): equal to the plain version", flush=True)
+    return worst
+
+
+def _quiet_main(fn, argv) -> tuple:
+    """(return code, standard output) of an entry point's ``main(argv)``
+    called in this process; its output is printed too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return rc, buf.getvalue()
+
+
+def phase_probe_paths(dev) -> dict:
+    """The probes' entry points: ``main()`` of each, in this process, with the
+    launch counts set to 0 just before and read just after (P1 12 variants x
+    (1 + 3 x 8) launches; P2 raytpu's shape once, the timed shape 1 + 3 x 20);
+    then ``python -m`` of each, as a user runs them, both at once."""
+    from raytpu_torch.probes import probe_dma_smem as pd
+    from raytpu_torch.probes import probe_smem as ps
+
+    out = {}
+    for key, mod, want in (("P1", ps, 12 * (1 + 3 * ps.DISPATCHES)), ("P2", pd, 1 + 1 + 3 * 20)):
+        reset_launch_counts()
+        rc, text = _quiet_main(mod.main, [])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {k: 0 for k in counts}
+        expect[key] = want
+        if rc != 0 or counts != expect or (key == "P2" and "match=True" not in text):
+            raise AssertionError(f"{key} main returned {rc}, launched {counts}, expected {expect}")
+        print(f"phase 3: {mod.__name__}.main(): launches {counts}", flush=True)
+        out[key] = {"launches": counts[key]}
+    procs = [subprocess.Popen([sys.executable, "-m", mod], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for mod in ("raytpu_torch.probes.probe_smem", "raytpu_torch.probes.probe_dma_smem")]
+    for proc in procs:
+        text = proc.communicate(timeout=300)[0]
+        if proc.returncode != 0 or "match=False" in text:
+            raise AssertionError(f"{proc.args}: rc {proc.returncode}\n{text[-2000:]}")
+        print(f"phase 3: {' '.join(proc.args[1:])}: rc 0, {len(text.splitlines())} lines, last: "
+              f"{text.splitlines()[-1]}", flush=True)
+    return out
+
+
+def _cli_run(argv, profile_copies: bool = False) -> tuple:
+    """(launch counts, stdout, device-to-host copies or None) of one CLI run,
+    counts set to 0 just before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytpu_torch.app import cli
+
+    reset_launch_counts()
+    if profile_copies:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rc, text = _quiet_main(cli.main, argv)
+            torch.cuda.synchronize()
+        d2h = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy DtoH"))
+    else:
+        rc, text = _quiet_main(cli.main, argv)
+        d2h = None
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"CLI {argv} returned {rc}")
+    return launch_counts(), text, d2h
+
+
+def phase_app_paths(dev, built: dict) -> dict:
+    """The app shell on the card: the CLI's --ssaa 2 through K1 on reference
+    at 320x240 against the committed golden (its one timed frame at t = 0;
+    one K1 a frame, the warm-up's included); --frames 10
+    --frames-per-dispatch 4 on reference at 640x480, exactly 10 frames
+    counted, 10 K1 launches and 3 device-to-host copies beside the warm-up's
+    one each; the viewer's FramePipeline over PIPELINE_FRAMES frames of
+    bunny with a moving fly camera, equal frame for frame to the
+    synchronous loop, one K2a and one K2b a frame."""
+    import re
+
+    from raytpu_torch.app.interactive import FramePipeline
+    from raytpu_torch.core import math3d, scenes
+    from raytpu_torch.core.camera import CameraInput, FlyCamera
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import render_image
+    from raytpu_torch.utils import image as image_io
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shot = Path(tmp) / "ssaa.png"
+        counts, _, _ = _cli_run(["--scene", "reference", "--size", "320x240", "--ssaa", "2",
+                                 "--frames", "1", "--screenshot", str(shot)])
+        want = {k: 0 for k in counts}
+        want["K1"] = 2
+        if counts != want:
+            raise AssertionError(f"--ssaa 2 launched {counts}, expected {want}")
+        g = close_u8(image_io.read_png(str(shot)),
+                     image_io.read_png(str(GOLDEN / "reference_ssaa2_320x240.png")), 0.002, 0.1)
+        print(f"phase 3: CLI --ssaa 2 reference 320x240 through K1: launches {counts}; golden "
+              f"flips {g[0]:.5f} mean {g[1]:.5f}", flush=True)
+        out["ssaa"] = {"launches": counts, "golden": g}
+    counts, text, d2h = _cli_run(["--scene", "reference", "--size", f"{W}x{H}", "--frames", "10",
+                                  "--frames-per-dispatch", "4"], profile_copies=True)
+    m = re.search(r"frames=(\d+) dispatches=(\d+) avg_ms=([\d.]+)", text)
+    want = {k: 0 for k in counts}
+    want["K1"] = 1 + 10
+    if not m or (int(m[1]), int(m[2])) != (10, 3) or counts != want or d2h != 1 + 3:
+        raise AssertionError(f"--frames 10 --frames-per-dispatch 4: {m and m[0]}, launches "
+                             f"{counts} (expected {want}), {d2h} device-to-host copies "
+                             "(expected 1 + 3)")
+    print(f"phase 3: CLI --frames 10 --frames-per-dispatch 4 reference {W}x{H}: {m[0]}; K1 "
+          f"launches 1 + 10, device-to-host copies 1 + 3 (warm-up + dispatches)", flush=True)
+    out["frames_per_dispatch"] = {"frames": 10, "dispatches": 3, "avg_ms": float(m[3]),
+                                  "launches": counts, "d2h": d2h}
+
+    spec, scene = scenes.get(PIPELINE_SCENE), built[PIPELINE_SCENE]
+    config = RenderConfig(width=W, height=H)
+    rng = np.random.default_rng(0)
+    fly = FlyCamera(origin=tuple(scene.camera.origin.tolist()),
+                    fov_degrees=float(np.degrees(2 * np.arctan(float(scene.camera.fov_scale)))))
+    scene_seq = []
+    for i in range(PIPELINE_FRAMES):
+        fly = fly.update(CameraInput(forward=bool(i % 3), right=i % 4 == 1, shift=i % 5 == 0,
+                                     mouse_dx=float(rng.normal(0, 3)), mouse_dy=float(rng.normal(0, 2)),
+                                     rmb=True), 1 / 60)
+        scene_seq.append((i / 60, fly))
+
+    def frame_scene(t, cam):
+        return spec.animate(scene, math3d.scalar(t, dev)).with_camera(cam.camera(dev))
+
+    t0 = time.perf_counter()
+    sync = [render_image(frame_scene(t, cam), config).cpu().numpy() for t, cam in scene_seq]
+    sync_ms = (time.perf_counter() - t0) * 1e3 / PIPELINE_FRAMES
+    pipe = FramePipeline(render_image)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    shown = [pipe.step(frame_scene(t, cam), config) for t, cam in scene_seq]
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / PIPELINE_FRAMES
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(K2a=PIPELINE_FRAMES, K2b=PIPELINE_FRAMES)
+    if counts != want:
+        raise AssertionError(f"FramePipeline launched {counts}, expected {want}")
+    # the pipeline shows frame N at step N + 1, and frame 0 at steps 0 and 1
+    pairs = [(shown[0], sync[0])] + list(zip(shown[1:], sync[:-1]))
+    differ = sum(int((a != b).any(axis=-1).sum()) for a, b in pairs)
+    if differ or any(not a.any() for a in shown):
+        raise AssertionError(f"FramePipeline: {differ} pixels differ from the synchronous loop")
+    print(f"phase 3: FramePipeline {PIPELINE_SCENE} {W}x{H}, {PIPELINE_FRAMES} frames with a "
+          f"moving fly camera: launches {counts}; equal to the synchronous loop frame for frame; "
+          f"wall {pipe_ms:.2f} ms a frame pipelined, {sync_ms:.2f} synchronous", flush=True)
+    out["pipeline"] = {"launches": counts, "pipelined_ms": pipe_ms, "sync_ms": sync_ms}
+    return out
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def time_probes(dev, env: dict, worst: dict, paths: dict) -> list:
+    """P1's and P2's entries of the kernels line, with their times: P1 in each
+    variant and T on raytpu's draw (ms per launch, ns per (tile, triangle),
+    tests/s), its bound the FP32 operations over 67 TFLOP/s, beside the same
+    count over the card's non-FMA issue rate; P2 at the timed shape in bytes/s
+    against 3.35 TB/s."""
+    from raytpu_torch.probes import probe_dma_smem as pd
+    from raytpu_torch.probes import probe_smem as ps
+    from raytpu_torch.utils.profiling import device_ms
+
+    issue_rate = FP32_LANES * _sm_clock_hz()
+    variants = {}
+    for T in P1_TS:
+        tri = torch.from_numpy(ps.make_triangles(T, 0)).to(dev)
+        wl = torch.from_numpy(ps.make_worklist(T, 0)).to(dev)
+        plain_ms = device_ms(lambda: ps.smem_fold_plain(tri, wl, P1_TILES), iters=1)
+        for worklist in (False, True):
+            for staged in (True, False):
+                r = ps.run(T, P1_TILES, worklist, staged, reps=3, device=dev)
+                ops = OPS_P1_TEST * P1_TILES * ps.TILE * T
+                bound = _bound(ops, 4 * T * (ps.TRI_COLS + int(worklist)) + 4 * ps.TILE * P1_TILES)
+                issue_ms = ops / issue_rate * 1e3
+                key = f"T={T} worklist={int(worklist)} staged={int(staged)}"
+                variants[key] = {"ms": r["ms"], "ns_per_tile_tri": r["ns_per_tile_tri"],
+                                 "tests_per_s": r["tests_per_s"], "plain_ms": plain_ms,
+                                 "issue_bound_ms": issue_ms, **bound}
+                print(f"phase 4: P1 {key}: {r['ms']:.4f} ms, {r['ns_per_tile_tri']:.3f} ns/(tile,"
+                      f"tri), {r['tests_per_s']:.4e} tests/s; bound {bound['bound_ms']:.4f} ms "
+                      f"({ops:.4e} FP32 ops at 67 TFLOP/s), {issue_ms:.4f} ms at the non-FMA "
+                      f"issue rate ({issue_rate:.4e} op/s); plain {plain_ms:.2f} ms; "
+                      f"{env['nvidia_smi']}", flush=True)
+    head = variants[f"T={P1_TS[-1]} worklist=1 staged=1"]
+    p1 = {"name": "probe_smem_fold", "id": "P1", "route": "cuda",
+          "source": "raytpu_torch/render/csrc/probes.cu", "replaces": "probes/probe_smem.py:17",
+          "launches": paths["P1"]["launches"], "max_abs_err": worst["P1"]["max_abs_diff"],
+          "max_abs_diff": worst["P1"]["max_abs_diff"], "library_ms": None,
+          "shape": f"T={P1_TS[-1]} worklist=1 staged=1, {P1_TILES} tiles", **head,
+          "variants": variants}
+    blob, wl, cnt = pd.timed_shape(dev, P2_BLOCKS, P2_PER_BLOCK)
+    ms = pd.time_ms(blob, wl, cnt, P2_BLOCKS)
+    plain_ms = device_ms(lambda: pd.dma_ring_sum_plain(blob, wl, cnt, P2_BLOCKS), iters=3)
+    nbytes = blob.numel() * 4 + wl.numel() * 4 + cnt.numel() * 4 + 4 * ps.TILE * P2_BLOCKS
+    bound = _bound(2 * wl.numel(), nbytes)
+    rate = nbytes / (ms / 1e3)
+    print(f"phase 4: P2 timed shape {P2_BLOCKS} blocks x {P2_PER_BLOCK} row-blocks: {ms:.4f} ms, "
+          f"{rate / 1e9:.1f} GB/s ({rate / PEAK_BYTES_PER_S:.4f} of 3.35 TB/s); bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}; plain {plain_ms:.3f} ms; "
+          f"{env['nvidia_smi']}", flush=True)
+    p2 = {"name": "probe_dma_ring", "id": "P2", "route": "cuda",
+          "source": "raytpu_torch/render/csrc/probes.cu", "replaces": "probes/probe_dma_smem.py:33",
+          "launches": paths["P2"]["launches"], "max_abs_err": worst["P2"]["max_abs_diff"],
+          "max_abs_diff": worst["P2"]["max_abs_diff"], "library_ms": None, "ms": ms,
+          "plain_ms": plain_ms, "bytes_per_s": rate,
+          "shape": f"{P2_BLOCKS} blocks x {P2_PER_BLOCK} row-blocks of 8 KB", **bound}
+    return [p1, p2]
 
 
 def main() -> int:
@@ -1922,6 +2223,7 @@ def main() -> int:
     soft_cmp = timed("phase 2 (K5, K6, K7)", phase_compare_soft, dev, built)
     chunked_cmp = timed("phase 2 (K8, K9, K10)", phase_compare_chunked, dev, built)
     mega3_cmp = timed("phase 2 (K11a, K11b, tile ranges)", phase_compare_mega3, dev, built)
+    probes_cmp = timed("phase 2 (P1, P2)", phase_compare_probes, dev)
     worst.update({"K2a": mega2_worst["K2a"], "K2b": mega2_worst["K2b"], "K3": packed_cmp["K3"],
                   "K4": packed_cmp["K4"], "K5": soft_cmp["K5"], "K6": soft_cmp["K6"],
                   "K7": soft_cmp["K7"], **chunked_cmp, **mega3_cmp})
@@ -1932,8 +2234,11 @@ def main() -> int:
     chunked_paths = timed("phase 3 (chunked)", phase_chunked_paths, dev, built)
     mega3_paths = timed("phase 3 (mega3)", phase_mega3_paths, dev, built)
     sharded = timed("phase 3 (sharded)", phase_sharded, dev, built)
+    probe_paths = timed("phase 3 (probes)", phase_probe_paths, dev)
+    app = timed("phase 3 (app shell)", phase_app_paths, dev, built)
+    probes = timed("phase 4 (probes)", time_probes, dev, env, probes_cmp, probe_paths)
     timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad,
-          chunked_paths, mega3_paths, sharded)
+          chunked_paths, mega3_paths, sharded, probes)
     print(json.dumps({"phase_seconds": seconds,
                       "packed_vs_eager_160x128": packed_cmp["packed_vs_eager"],
                       "mega2_route_vs_plain": mega2_worst["route"],
@@ -1944,7 +2249,8 @@ def main() -> int:
                           n: chunked_paths[n]["pixels_differing_vs_eager"]
                           for n, _, _, _ in CHUNKED_PATHS},
                       "stage_reports": chunked_paths["stages"],
-                      "gloo_on_cuda_tensors": sharded["gloo_cuda"]}))
+                      "gloo_on_cuda_tensors": sharded["gloo_cuda"],
+                      "app_shell": app, "card": env["nvidia_smi"]}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
           f"on {env['nvidia_smi']}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,13 +12,16 @@ with the same layout:
   raytpu_torch.render  — the eager renderer; the router and the hand-written
                          CUDA kernels (csrc/: K1 mega.cu, K2a/K2b mega2.cu,
                          K3/K4 packed.cu, K5/K6/K7 soft.cu, K8/K9/K10
-                         chunked.cu) with their plain versions, built by
-                         render/build.py
+                         chunked.cu, K11a/K11b mega3.cu, P1/P2 probes.cu)
+                         with their plain versions, built by render/build.py
   raytpu_torch.grad    — the differentiable soft-shadow renderer and its
                          train step
+  raytpu_torch.parallel — the (px, prim) sharded render and train step
+  raytpu_torch.probes  — the measurement probes P1 (the fold loop) and P2
+                         (the shared-memory copy ring)
   raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers, ray stats
                          and the per-stage profiler
-  raytpu_torch.app     — the command line
+  raytpu_torch.app     — the command line and the viewer
 
 It imports torch, numpy and the standard library, never jax or raytpu.
 Entry points run on CUDA unless the caller asks for the CPU.

@@ -11,6 +11,11 @@ become flags:
   --screenshot  save the last frame, BMP or PNG (was: X key)
   --benchmark N FPS benchmark -> file      (was: F6)
   --frames N    run N animated frames
+  --frames-per-dispatch K  enqueue K animated frames with no host read
+                between them and read back only the last (raytpu's lax.scan)
+  --renderer    kernel (default, "auto" too): the route through the CUDA
+                kernels; eager: plain tensor ops
+  --ssaa N      NxN supersampling per pixel, through the chosen renderer
   --watch       print FPS once per second  (was: main.cpp:95-100)
   --device      cuda (default) or cpu
   --shard PXxPRIM  render on a (px, prim) mesh of ranks: rays over px,
@@ -29,11 +34,12 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
-from raytpu_torch.core import scenes
+from raytpu_torch.core import math3d, scenes
 from raytpu_torch.core.types import LightingMode, RenderConfig
-from raytpu_torch.render import render_image
+from raytpu_torch.render import cuda_kernel, renderer
 from raytpu_torch.utils import image as image_io
 from raytpu_torch.utils.profiling import Benchmark, FrameTimer, RayStats
 
@@ -58,11 +64,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--soft-beta", type=float, default=None, metavar="B",
                    help="soft-shadow sigmoid sharpness (default 300; lower = softer)")
     p.add_argument("--frames", type=int, default=1, help="number of animated frames to render")
+    p.add_argument("--frames-per-dispatch", type=int, default=1, metavar="K",
+                   help="enqueue K animated frames with no host read between them and read back "
+                        "only the last; animation times within a dispatch advance by the "
+                        "previous dispatch's wall time per frame")
     p.add_argument("--screenshot", metavar="PATH", default=None, help="save the last frame (BMP or PNG)")
     p.add_argument("--benchmark", type=int, metavar="N", default=0,
                    help="run an N-sample FPS benchmark (reference: F6)")
     p.add_argument("--benchmark-out", default="benchmark.txt", help="benchmark report path")
     p.add_argument("--watch", action="store_true", help="print FPS once per second")
+    p.add_argument("--renderer", default="auto", choices=["auto", "eager", "kernel"],
+                   help="forward path: the route through the CUDA kernels (auto, kernel) or "
+                        "plain tensor ops (eager)")
+    p.add_argument("--ssaa", type=int, default=1, metavar="N", help="NxN supersampling per pixel")
     p.add_argument("--time", type=float, default=0.0, help="animation start time (seconds)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="render on the CUDA card (default) or, asked for, the CPU")
@@ -77,6 +91,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def make_render_fn(renderer_name: str):
+    """(render_fn -> uint8, render_f32_fn, backend name) for ``--renderer``:
+    the kernel route (``auto``, ``kernel``) or the eager path.  A kernel
+    that fails to build raises; nothing falls back to the eager path."""
+    if renderer_name == "eager":
+        return renderer.render_image, renderer.render_image_f32, "eager"
+    return cuda_kernel.render_image, cuda_kernel.render_image_f32, "kernel"
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     try:
@@ -86,6 +109,13 @@ def main(argv=None) -> int:
         return 2
     if w <= 0 or h <= 0:
         print(f"error: --size must be positive (got {args.size!r})", file=sys.stderr)
+        return 2
+    if args.ssaa < 1:
+        print(f"error: --ssaa must be >= 1 (got {args.ssaa})", file=sys.stderr)
+        return 2
+    if args.frames_per_dispatch < 1:
+        print(f"error: --frames-per-dispatch must be >= 1 (got {args.frames_per_dispatch})",
+              file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda, but torch finds no CUDA device; "
@@ -98,9 +128,9 @@ def main(argv=None) -> int:
             soft_kw["soft_beta"] = float(args.soft_beta)
     config = RenderConfig(width=w, height=h, lighting_mode=_MODES[args.mode],
                           shadows=not args.no_shadows, **soft_kw)
-    render_fn, backend = render_image, "route"
+    render_fn, render_f32, backend = make_render_fn(args.renderer)
     if args.shard:
-        from raytpu_torch.parallel import multihost, render_image_sharded
+        from raytpu_torch.parallel import multihost, render_image_sharded, sharding
 
         try:
             px, prim = (int(x) for x in args.shard.lower().split("x"))
@@ -113,18 +143,31 @@ def main(argv=None) -> int:
                   f"and --rank ({e})", file=sys.stderr)
             return 2
         render_fn = functools.partial(render_image_sharded, mesh=mesh)
+        # the supersampled grid is a larger ray grid for the px axis
+        render_f32 = functools.partial(sharding.render_pixels_sharded, mesh=mesh)
         backend = f"shard({px}x{prim})"
+    if args.ssaa > 1:
+        render_fn = functools.partial(renderer.render_image_ssaa, samples=args.ssaa,
+                                      render_fn=render_f32)
     spec = scenes.get(args.scene)
     scene = spec.build(args.device)
+    dev = scene.device
     print(f"raytpu_torch: scene={args.scene} {w}x{h} mode={args.mode} "
           f"shadows={config.shadows} soft={config.soft_shadows} device={args.device} "
-          f"backend={backend}")
+          f"backend={backend} ssaa={args.ssaa}")
 
-    # warm-up: builds the kernel on first use; .cpu() waits for the frame
+    def frame(t):
+        # the time filled on the device: a copy from the host would wait for
+        # every queued frame (math3d.scalar)
+        return render_fn(spec.animate(scene, math3d.scalar(t, dev)), config)
+
+    # warm-up: builds the kernels on first use; .cpu() waits for the frame
     t0 = time.perf_counter()
-    img = render_fn(spec.animate(scene, args.time), config).cpu().numpy()
-    print(f"build+first frame: {time.perf_counter() - t0:.2f}s")
+    img = frame(args.time).cpu().numpy()
+    warm_s = time.perf_counter() - t0
+    print(f"build+first frame: {warm_s:.2f}s")
 
+    K = args.frames_per_dispatch
     timer = FrameTimer()
     bench = Benchmark(args.benchmark) if args.benchmark else None
     if bench:
@@ -132,24 +175,39 @@ def main(argv=None) -> int:
         bench.start()
     stats = RayStats()
     n_frames = max(args.frames, 1)
-    while True:
-        t = args.time + timer.total
+    dispatches = 0
+    # per-frame wall estimate for the animation times inside a dispatch,
+    # clamped like the reference's elapsed upper bound (source/Timer.cpp:83-89)
+    dt_est = min(warm_s, 0.5)
+    done = False
+    while not done:
+        t = np.float32(args.time + timer.total)
+        # the frames this dispatch renders: a tail dispatch renders only the
+        # frames still due (a benchmark renders and counts whole dispatches)
+        j = K if bench else min(K, n_frames - stats.frames)
         ft0 = time.perf_counter()
-        img = render_fn(spec.animate(scene, t), config).cpu().numpy()
-        stats.add_frame(w, h, scene.lights.count, time.perf_counter() - ft0, config.shadows)
-        timer.tick()
-        if timer.fps_window_closed:
-            if args.watch:
-                print(f"dFPS: {timer.dfps:.1f}  ({stats.primary_rays_per_s / 1e6:.1f} M primary rays/s)")
-            if bench and bench.record(timer.dfps):
-                print("**BENCHMARK FINISHED**")
-                print(bench.report(), end="")
-                bench.write(args.benchmark_out)
-                break
+        for i in range(j):  # enqueued back to back, no host read between them
+            out = frame(float(t + np.float32(dt_est) * np.float32(i)))
+        img = out.cpu().numpy()  # the dispatch's one host read: its last frame
+        dispatches += 1
+        dt_est = (time.perf_counter() - ft0) / j
+        for _ in range(j):
+            timer.tick()
+            stats.add_frame(w, h, scene.lights.count, dt_est, config.shadows)
+            if timer.fps_window_closed:
+                if args.watch:
+                    print(f"dFPS: {timer.dfps:.1f}  "
+                          f"({stats.primary_rays_per_s / 1e6:.1f} M primary rays/s)")
+                if bench and bench.record(timer.dfps):
+                    print("**BENCHMARK FINISHED**")
+                    print(bench.report(), end="")
+                    bench.write(args.benchmark_out)
+                    done = True  # the dispatch's other frames are counted too
         if not bench and stats.frames >= n_frames:
-            break
+            done = True
 
-    print(f"frames={stats.frames} avg_ms={1e3 * stats.seconds / max(stats.frames, 1):.2f} "
+    print(f"frames={stats.frames} dispatches={dispatches} "
+          f"avg_ms={1e3 * stats.seconds / max(stats.frames, 1):.2f} "
           f"primary_rays/s={stats.primary_rays_per_s:.3e} total_rays/s={stats.total_rays_per_s:.3e}")
     if args.screenshot and (not args.shard or args.rank == 0):
         image_io.write_image(args.screenshot, img)

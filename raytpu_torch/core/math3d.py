@@ -115,15 +115,49 @@ def mat_identity(device="cuda"):
     return torch.eye(4, dtype=torch.float32, device=device)
 
 
+def _angle(a, device):
+    """An angle as a 0-dim float32 tensor on ``device``: a tensor is moved,
+    a number filled there (``scalar``), so that no copy waits on the card."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return scalar(float(a), device)
+
+
+def mat_rotation_x(pitch, device="cuda"):
+    """Row-vector X rotation: rows = {1,0,0}, {0,cos,-sin}, {0,sin,cos}."""
+    a = _angle(pitch, device)
+    c, s = torch.cos(a), torch.sin(a)
+    m = mat_identity(device)
+    m[1, 1], m[1, 2] = c, -s
+    m[2, 1], m[2, 2] = s, c
+    return m
+
+
 def mat_rotation_y(yaw, device="cuda"):
     """Row-vector Y rotation (reference: source/Matrix.cpp:124-134):
     rows = {cos,0,-sin}, {0,1,0}, {sin,0,cos}."""
-    a = torch.as_tensor(yaw, dtype=torch.float32, device=device)
+    a = _angle(yaw, device)
     c, s = torch.cos(a), torch.sin(a)
     m = mat_identity(device)
     m[0, 0], m[0, 2] = c, -s
     m[2, 0], m[2, 2] = s, c
     return m
+
+
+def mat_rotation_z(roll, device="cuda"):
+    """Row-vector Z rotation: rows = {cos,sin,0}, {-sin,cos,0}, {0,0,1}."""
+    a = _angle(roll, device)
+    c, s = torch.cos(a), torch.sin(a)
+    m = mat_identity(device)
+    m[0, 0], m[0, 1] = c, s
+    m[1, 0], m[1, 1] = -s, c
+    return m
+
+
+def mat_rotation(pitch, yaw, roll, device="cuda"):
+    """``Rx @ Ry @ Rz`` (reference: source/Matrix.cpp:150-155)."""
+    return (mat_rotation_x(pitch, device) @ mat_rotation_y(yaw, device)
+            @ mat_rotation_z(roll, device))
 
 
 def max_to_one(rgb):

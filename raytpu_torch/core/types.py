@@ -87,6 +87,23 @@ class Camera(_Tensors):
         fov_scale = np.float32(np.tan(np.float32(fov_degrees) * np.float32(math3d.TO_RADIANS) / 2.0))
         return Camera(_f32(origin, device), _f32(forward, device), _f32(fov_scale, device))
 
+    def with_fov(self, fov_degrees: float) -> "Camera":
+        """The field of view clamped to [10, 175] degrees, its tangent taken
+        in float32 as ``create`` takes it; filled on the camera's device."""
+        fov_degrees = float(np.clip(fov_degrees, 10.0, 175.0))
+        fov_scale = np.float32(np.tan(np.float32(fov_degrees) * np.float32(math3d.TO_RADIANS) / 2.0))
+        return dataclasses.replace(self, fov_scale=math3d.scalar(float(fov_scale),
+                                                                 self.origin.device))
+
+    def with_orientation(self, pitch, yaw) -> "Camera":
+        """Forward from pitch and yaw: UnitZ through ``Rx(pitch) @ Ry(yaw)``,
+        row-vector order (reference: source/Camera.h:61-66).  The angles are
+        numbers or tensors; numbers are filled on the camera's device."""
+        dev = self.origin.device
+        rot = math3d.mat_rotation(pitch, yaw, 0.0, device=dev)
+        unit_z = (torch.arange(3, device=dev) == 2).to(torch.float32)  # UNIT_Z
+        return dataclasses.replace(self, forward=math3d.transform_vector(rot, unit_z))
+
     def onb(self):
         """Camera-to-world basis: ``right = normalize(UnitY x fwd)``,
         ``up = normalize(fwd x right)`` (reference: source/Camera.h:43-53)."""
@@ -279,6 +296,9 @@ class Scene(_Tensors):
 
     def with_mesh_yaw(self, yaw) -> "Scene":
         return self.with_meshes(self.meshes.with_rotation_y(yaw))
+
+    def with_camera(self, camera: Camera) -> "Scene":
+        return dataclasses.replace(self, camera=camera)
 
     def update(self, total_time) -> "Scene":
         """Every mesh yaws by ``(cos(t)+1)/2 * 2π`` (reference:

@@ -135,7 +135,7 @@ def make_train_step(config: RenderConfig, optimizer: torch.optim.Optimizer, merg
     step zeroes the gradients, renders, backpropagates the image loss and
     steps the optimizer, which updates ``params`` in place and keeps its own
     state between steps.  For SGD without momentum the state is empty, so
-    a step from parameters carried across from raytpu is raytpu's step with
+    a step from parameters carried across out of raytpu is raytpu's step with
     ``optax.sgd``.  ``kw`` goes to ``render_soft_f32``."""
 
     def step(params: dict, scene: Scene, target):

@@ -140,6 +140,13 @@ def load():
             [c_ptr] * 8 + [c_int, c_int, c_ptr, c_ptr, c_int] + sp_tri
             + [c_ptr, c_ptr, c_int, c_float, c_int, c_int, c_float, c_ptr, c_ptr])
         lib.raytpu_chunked_shadow_shade.restype = c_int
+        # tri, wl, T, tiles, worklist, staged, out, stream
+        lib.raytpu_probe_smem_fold.argtypes = [c_ptr, c_ptr] + [c_int] * 4 + [c_ptr, c_ptr]
+        lib.raytpu_probe_smem_fold.restype = c_int
+        # blob, ng, wl, wl_stride, wl_cols, cnt, cnt_stride, blocks, out, stream
+        lib.raytpu_probe_dma_ring.argtypes = ([c_ptr, c_int, c_ptr, c_int, c_int, c_ptr, c_int,
+                                               c_int, c_ptr, c_ptr])
+        lib.raytpu_probe_dma_ring.restype = c_int
         lib.raytpu_cuda_error_string.argtypes = [c_int]
         lib.raytpu_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

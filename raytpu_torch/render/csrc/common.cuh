@@ -1,7 +1,7 @@
 // Device arithmetic shared by the kernels (K1 mega.cu, K2a/K2b mega2.cu,
-// K3/K4 packed.cu, K5-K7 soft.cu, K8-K10 chunked.cu, K11a/K11b mega3.cu):
-// the primitive tests, camera raygen, the tile layout and the shading of a
-// hit.  Each function follows the Pallas kernels' op order and rounds where
+// K3/K4 packed.cu, K5-K7 soft.cu, K8-K10 chunked.cu, K11a/K11b mega3.cu,
+// P1/P2 probes.cu): the primitive tests, camera raygen, the tile layout,
+// the shading of a hit and the cp.async helpers of the shared-memory rings.  Each function follows the Pallas kernels' op order and rounds where
 // the plain versions (raytpu_torch/render/plain.py) round: dot and cross
 // products and the points o + t*d are explicit fmaf calls, as XLA contracts
 // them on the CPU where raytpu's goldens were rendered
@@ -263,6 +263,23 @@ __device__ __forceinline__ void shade_hit(const float* lit, int L, int mode, boo
   rgb[1] = cg;
   rgb[2] = cb;
   dim_and_tonemap(sf, rgb);
+}
+
+// cp.async, 16 bytes from global into shared memory, bypassing L1 (mega3.cu's
+// and probes.cu's rings).  Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+// Closes this thread's group of copies issued since the last commit (an
+// empty group when it issued none).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace raytpu_dev

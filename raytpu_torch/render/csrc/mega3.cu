@@ -64,18 +64,6 @@ constexpr int kRing = 4;                        // stage slots in the ring
 constexpr int kStageFloats = kStage * kGroupFloats;
 constexpr int kRingFloats = kRing * kStageFloats;  // 20 KB
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Starts the copies of stage s (entries [s*kStage, s*kStage + kStage) of the
 // worklist `w` of `c` entries) into ring slot s % kRing.  Entries that are
 // not a group of the blob's `ng` are not copied (and not folded).

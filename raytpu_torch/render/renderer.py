@@ -158,11 +158,15 @@ def render_image(scene: Scene, config: RenderConfig):
     return math3d.quantize_u8(render_image_f32(scene, config))
 
 
-def render_image_ssaa(scene: Scene, config: RenderConfig, samples: int = 2):
+def render_image_ssaa(scene: Scene, config: RenderConfig, samples: int = 2, render_fn=None):
     """Supersampled render: a ``samples x samples`` grid per pixel, box
-    filtered.  Returns uint8."""
+    filtered.  ``render_fn(scene, config) -> (H, W, 3) float32`` renders the
+    supersampled grid: any route's ``render_image_f32`` (the kernel route's
+    ``cuda_kernel.render_image_f32``, the sharded
+    ``parallel.sharding.render_pixels_sharded``); by default this module's
+    eager one.  Returns uint8."""
     hi = dataclasses.replace(config, width=config.width * samples,
                              height=config.height * samples)
-    img = render_image_f32(scene, hi)
+    img = (render_fn or render_image_f32)(scene, hi)
     img = img.reshape(config.height, samples, config.width, samples, 3).mean(dim=(1, 3))
     return math3d.quantize_u8(img)

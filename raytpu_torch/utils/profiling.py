@@ -19,9 +19,15 @@ import torch
 
 
 class FrameTimer:
-    """Frame clock with 1 Hz FPS windows (reference: source/Timer.cpp:67-132)."""
+    """Frame clock with FPS windows, 1 s by default (reference:
+    source/Timer.cpp:67-132)."""
 
-    def __init__(self):
+    def __init__(self, fps_window: float = 1.0, elapsed_upper_bound: float | None = None):
+        """``elapsed_upper_bound`` clamps each frame's ``elapsed``, so that
+        one hitch (a kernel build) cannot fling the fly camera
+        (reference: source/Timer.cpp:83-89 ForceElapsedUpperBound)."""
+        self._window = fps_window
+        self._upper = elapsed_upper_bound
         self.reset()
 
     def reset(self):
@@ -38,12 +44,14 @@ class FrameTimer:
     def tick(self) -> None:
         now = time.perf_counter()
         self.elapsed = max(now - self._last, 0.0)
+        if self._upper is not None and self.elapsed > self._upper:
+            self.elapsed = self._upper
         self._last = now
         self.total = now - self._start
         self._frames_in_window += 1
         self._fps_ready = False
         w = now - self._window_start
-        if w >= 1.0:
+        if w >= self._window:
             self.dfps = self._frames_in_window / w
             self.fps = self.dfps
             self._frames_in_window = 0
