@@ -55,6 +55,14 @@ Phases (each passes or raises; nothing is caught):
      frames of bunny with a moving fly camera against the synchronous loop;
   4. times on the card (CUDA events) of every kernel beside its bound, and
      of each scene's frame, with the device's idle share from torch.profiler;
+     for K4 and K11b, which test each shadow ray's segment against the
+     group boxes before a group's triangles, two bounds (the count of every
+     listed triangle, as for the other culled kernels, and the box-culled
+     count: the triangles of the groups whose padded box the segment
+     crosses, no box tests) and, per light on bunny50k and bunny300k, the
+     groups listed per query, those whose padded box the segment crosses,
+     those whose box widened for the ray it crosses (the kernels' test),
+     the union of the latter over each warp and the occluded share;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
@@ -439,7 +447,8 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             wl, cnt = mega2.primary_worklists(scene, cfg)
             acc, bounds = mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg)
             wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
-            img = mega3.mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, cfg)
+            boxes = accel.group_boxes(scene.triangles)[2]
+            img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
             img2 = mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc2, cfg)
             torch.cuda.synchronize()
@@ -1485,6 +1494,98 @@ def _shadow_ops(S: int, P: int, occ, hit, tris, tiles: int):
     return ops + float((hit & occ).sum()) * OPS_PLANE
 
 
+def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int, P: int):
+    """What the box tests leave of each light's shadow worklists, for K4's
+    or K11b's queries: origins ``p`` (R, 3) in tile order, ``dirs`` (L, R,
+    3), ``mags`` (L, R), ``queried`` (R,) the rays the kernel asks about,
+    ``wl`` (nt, L, n) and ``cnt`` (nt, L) the worklists, ``boxes`` the box
+    records, ``occ`` (L, R) the answers.  Per light: groups listed per
+    query; groups whose padded box the query's segment crosses
+    (``accel.tight_segment_box_test``) and whose box widened for the ray
+    does (``accel.segment_box_test``, the kernels' test); the union of the
+    latter over each of the kernels' warps (``accel.warp_slots``); the
+    occluded share; and the box-culled count of FP32 operations: every
+    sphere and plane, and tri_t on every triangle of every group whose
+    padded box the segment crosses for a query that finds no occluder, one
+    test for one that does (where it is found is not counted).  No box test
+    is counted, and the triangles are counted per ray, not per warp, with
+    the padded box and not the wider one the kernels need for tri_t's
+    rounding: a lower bound for any walk over these 8-triangle groups."""
+    from raytpu_torch.ops import accel
+
+    L, R = dirs.shape[:2]
+    nt, step, dev = -(-R // 1024), 4, p.device
+    group_tris = _group_tris(T, dev)
+    slots = accel.warp_slots(dev).flatten()
+    out = []
+    for li in range(L):
+        inv = accel.inv_dir(dirs[li])
+        acc = {k: 0.0 for k in ("listed", "crossed", "widened", "tris", "union", "warps", "ops")}
+        for t0 in range(0, nt, step):
+            t1 = min(nt, t0 + step)
+            k, r0, r1 = t1 - t0, t0 * 1024, min(t1 * 1024, R)
+            c = cnt[t0:t1, li].long()
+            cmax = int(c.max())
+
+            def tiles(x, fill):
+                pad = k * 1024 - (r1 - r0)
+                x = torch.cat([x[r0:r1], x.new_full((pad, *x.shape[1:]), fill)])
+                return x.reshape(k, 1024, *x.shape[1:])
+
+            q = tiles(queried, False)
+            live = q & ~tiles(occ[li], True)
+            acc["listed"] += float(torch.where(q, c[:, None].to(torch.float64), 0.0).sum())
+            if cmax == 0:
+                continue
+            used = torch.arange(cmax, device=dev) < c[:, None]
+            g = torch.where(used, wl[t0:t1, li, :cmax].long(), 0)
+            args = (tiles(p, 0.0), tiles(inv, 1.0), tiles(mags[li], 0.0), boxes[g])
+            keep = used[:, None, :] & q[..., None]
+            cross = accel.tight_segment_box_test(*args) & keep
+            wide = accel.segment_box_test(*args) & keep
+            tris = (cross.to(torch.float64) * group_tris[g][:, None, :]).sum(dim=-1)
+            acc["crossed"] += float(cross.sum())
+            acc["widened"] += float(wide.sum())
+            acc["tris"] += float(tris[q].sum())
+            acc["ops"] += float(tris[live].sum()) * OPS_TRI_SHADOW
+            warp_q = q[:, slots].reshape(k, 32, 32).any(dim=2)
+            acc["union"] += float(wide[:, slots].reshape(k, 32, 32, cmax).any(dim=2).sum())
+            acc["warps"] += float(warp_q.sum())
+        n_q = float(queried.sum())
+        n_occ = float((occ[li] & queried).sum())
+        acc["ops"] += (n_q - n_occ) * (S * OPS_SPHERE + P * OPS_PLANE) + n_occ * OPS_PLANE
+        out.append({"listed_per_query": acc["listed"] / max(n_q, 1.0),
+                    "crossed_per_query": acc["crossed"] / max(n_q, 1.0),
+                    "widened_per_query": acc["widened"] / max(n_q, 1.0),
+                    "crossed_tris_per_query": acc["tris"] / max(n_q, 1.0),
+                    "union_per_warp": acc["union"] / max(acc["warps"], 1.0),
+                    "occluded_share": n_occ / max(n_q, 1.0), "ops": acc["ops"]})
+    return out
+
+
+def _box_bound(ops: float, ops_listed: float, nbytes: float, stats: list) -> dict:
+    """K4's or K11b's bound from its box-culled count ``ops``, with the count
+    of every listed triangle (``ops_listed``, Queue 2's yardstick) beside it
+    as ``bound_ms_listed``, and the box statistics."""
+    return {**_bound(ops, nbytes), "bound_ms_listed": _bound(ops_listed, nbytes)["bound_ms"],
+            "ops_listed": ops_listed, "box_stats": stats}
+
+
+def _listed_note(e: dict) -> str:
+    return (f"; counting every listed triangle {e['bound_ms_listed']:.4f} ms "
+            f"({e['ops_listed']:.4e} FP32 ops)" if "bound_ms_listed" in e else "")
+
+
+def _print_box_stats(key: str, name: str, stats: list) -> None:
+    for li, st in enumerate(stats):
+        print(f"phase 4: {key} {name} boxes, light {li}: {st['listed_per_query']:.1f} groups "
+              f"listed per query, {st['crossed_per_query']:.2f} whose padded box the segment "
+              f"crosses ({st['crossed_tris_per_query']:.1f} triangles), "
+              f"{st['widened_per_query']:.2f} widened for the ray (the kernels' test), "
+              f"{st['union_per_warp']:.1f} of those in the union over a warp, occluded share "
+              f"{st['occluded_share']:.4f}", flush=True)
+
+
 def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)):
     """K2a's and K2b's times at 640x480 beside their bounds, counted from
     this frame's worklists, and with ``k11`` K11a's and K11b's on the same
@@ -1509,11 +1610,12 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
           "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg),
                            iters=iters, warmup=3)}
     if k11:
+        boxes = accel.group_boxes(scene.triangles)[2]
         blob = mega3.pack_groups(buf, counts)
         ms["K11a"] = device_ms(lambda: mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg),
                                iters=iters, warmup=3)
-        ms["K11b"] = device_ms(lambda: mega3.mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, cfg),
-                               iters=iters, warmup=3)
+        ms["K11b"] = device_ms(lambda: mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc,
+                                                         cfg), iters=iters, warmup=3)
     cfg_p = RenderConfig(width=plain_size[0], height=plain_size[1])
     buf_p, counts_p = plain.mega_pack(scene, cfg_p)
     acc_p = acc if cfg_p == cfg else mega2.mega2_closest_plain(buf_p, counts_p, cfg_p)[0]
@@ -1556,15 +1658,23 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
     bytes_b = (buf.numel() + int(cnt_s.sum()) + cnt_s.numel() + acc.numel() + H * W * 3) * 4
     out = {}
     bounds_of = {"a": _bound(ops_a, bytes_a), "b": _bound(ops_b, bytes_b)}
+    if k11:  # K11b tests the group boxes: its count is the box-culled one
+        stats = shadow_box_stats(p_off, dirs, mags, hit, wl_s, cnt_s, boxes, T, occ, S, P)
+        _print_box_stats("K11b", name, stats)
+        shadow_listed = sum(_shadow_ops(S, P, occ[li], hit, tris_s[:, li], nt) for li in range(L))
+        bounds_of["K11b"] = _box_bound(ops_b - shadow_listed + sum(st["ops"] for st in stats),
+                                       ops_b, bytes_b + boxes.numel() * 4, stats)
     for key in ms:
-        plain_ms, bound = (plain_a if key.endswith("a") else plain_b), bounds_of[key[-1]]
+        plain_ms = plain_a if key.endswith("a") else plain_b
+        bound = bounds_of.get(key, bounds_of[key[-1]])
         out[key] = {"ms": ms[key], "plain_ms": plain_ms,
                     "plain_size": f"{plain_size[0]}x{plain_size[1]}", **bound}
         if key.startswith("K11"):
             out[key]["k2_ms"] = ms["K2" + key[-1]]
         print(f"phase 4: {key} {name}: {ms[key]:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
-              f"{bound['bound_by']} ({bound['ops']:.4e} FP32 ops, {bound['bytes']} B), plain "
-              f"{plain_ms:.2f} ms at {plain_size[0]}x{plain_size[1]}"
+              f"{bound['bound_by']} ({bound['ops']:.4e} FP32 ops, {bound['bytes']} B)"
+              + _listed_note(bound) + f", plain {plain_ms:.2f} ms at "
+              f"{plain_size[0]}x{plain_size[1]}"
               + (f"; K2{key[-1]} on the same frame {ms['K2' + key[-1]]:.4f} ms"
                  if key.startswith("K11") else ""), flush=True)
     out["tests_per_ray"] = float((tile_rays * _worklist_tris(wl, cnt, T)).sum()) / rays
@@ -1577,6 +1687,7 @@ def time_packed(dev, built: dict, name: str):
     frame's worklists; the plain versions' times on the first whole frame
     they were compared at (PACKED_PLAIN_SIZE)."""
     from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
     from raytpu_torch.render import packed, renderer
     from raytpu_torch.utils.profiling import device_ms
 
@@ -1607,10 +1718,12 @@ def time_packed(dev, built: dict, name: str):
         rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
         p_off, dirs, mags = renderer.shadow_query_inputs(scene, rec, cfg)
         p_off, dirs, mags = p_off.contiguous(), dirs.contiguous(), mags.contiguous()
-        wl4, cnt4 = packed.shadow_worklists(scene, p_off, dirs, mags, tmin)
-        occ = packed.any_hit_lights(p_off, dirs, mags, *blobs, wl4, cnt4, tmin)
-        ms4 = device_ms(lambda: packed.any_hit_lights(p_off, dirs, mags, *blobs, wl4, cnt4, tmin),
-                        iters=20, warmup=2)
+        glo, ghi, boxes = accel.group_boxes(scene.triangles)
+        wl4, cnt4 = packed.shadow_worklists(scene, p_off, dirs, mags, tmin,
+                                            group_bounds=(glo, ghi))
+        occ = packed.any_hit_lights(p_off, dirs, mags, *blobs, boxes, wl4, cnt4, tmin)
+        ms4 = device_ms(lambda: packed.any_hit_lights(p_off, dirs, mags, *blobs, boxes, wl4,
+                                                      cnt4, tmin), iters=20, warmup=2)
         tile_rays = torch.full((nt,), 1024.0, dtype=torch.float64, device=dev)
         tile_rays[-1] = R - 1024 * (nt - 1)
         tris3 = _worklist_tris(wl, cnt, T)
@@ -1620,17 +1733,22 @@ def time_packed(dev, built: dict, name: str):
         tris4 = _worklist_tris(wl4, cnt4, T)
         every = torch.ones((R,), dtype=torch.bool, device=dev)
         ops4 = sum(_shadow_ops(S, P, occ[li], every, tris4[:, li], nt) for li in range(L))
-        bytes4 = R * 12 + L * R * 16 + blob_bytes + (int(cnt4.sum()) + cnt4.numel()) * 4 + L * R
+        stats = shadow_box_stats(p_off, dirs, mags, every, wl4, cnt4, boxes, T, occ, S, P)
+        _print_box_stats("K4", name, stats)
+        bytes4 = (R * 12 + L * R * 16 + blob_bytes + boxes.numel() * 4
+                  + (int(cnt4.sum()) + cnt4.numel()) * 4 + L * R)
         size = f"{plain_size[0]}x{plain_size[1]}"
         out["K3"] = {"ms": ms3, "plain_size": size, **_bound(ops3, bytes3)}
-        out["K4"] = {"ms": ms4, "plain_size": size, **_bound(ops4, bytes4)}
+        out["K4"] = {"ms": ms4, "plain_size": size,
+                     **_box_bound(sum(st["ops"] for st in stats), ops4, bytes4, stats)}
         out["tests_per_ray"] = float((tile_rays * tris3).sum()) / R
         out["occluded_share"] = float(occ.float().mean())
     for key in ("K3", "K4"):
         e = out[key]
         print(f"phase 4: {key} {name}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
-              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B), plain "
-              f"{e['plain_ms']:.2f} ms at {e['plain_size']}", flush=True)
+              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B)"
+              + _listed_note(e) + f", plain {e['plain_ms']:.2f} ms at {e['plain_size']}",
+              flush=True)
     return out
 
 

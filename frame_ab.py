@@ -1,29 +1,42 @@
 """Frame times of raytpu_torch's routes, with host-to-device copies per frame,
-for comparing two trees of the repo on one CUDA card.
+and the shadow any-hit kernels' times and answers, for comparing two trees of
+the repo on one CUDA card.
 
-    python3 frame_ab.py            # from the root of a tree; prints one JSON line
+    python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
+    python3 frame_ab.py --compare DIR # the trees' K4 answers saved in DIR, pair by pair
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
-optional (16) and bunny50k (4), and, where the tree's ``chip_smoke.py``
-builds them, the chunked route's fixtures optional_l12 (16), bunny18k_l12
-(4) and reference_s106 (16); each REPEATS times, with the median, the
-least and the most.  For each it counts, under torch.profiler, the
-``Memcpy HtoD`` activities of one frame: each copies from pageable host
-memory and so waits for every kernel queued before it.  Then it times
-optional's material train step at 640x480 (chip_smoke.py's first grad
-path: SGD, payload_grad True) on the host clock to a synchronize, STEPS
-steps REPEATS times.
+optional (16), bunny50k (4) and bunny300k (2), and, where the tree's
+``chip_smoke.py`` builds them, the chunked route's fixtures optional_l12
+(16), bunny18k_l12 (4) and reference_s106 (16); then the mega3 route's
+frames (``render_image_mega3_f32``) of optional (16), bunny50k (4) and
+bunny300k (2); each REPEATS times, with the median, the least and the
+most.  For each route frame it counts, under torch.profiler, the ``Memcpy
+HtoD`` activities of one frame: each copies from pageable host memory and
+so waits for every kernel queued before it.  Then it times optional's
+material train step at 640x480 (chip_smoke.py's first grad path: SGD,
+payload_grad True) on the host clock to a synchronize, STEPS steps REPEATS
+times, and one warm call of each of chip_smoke.py's sharded cases in
+SHARDED_WALL on two ranks sharing the card.  Last, on frame 0 of bunny50k and bunny300k at 640x480, it times K4
+(``packed.any_hit_lights``, on the shadow queries of K3's hits) and K11b
+(``mega3.mega3_shade``, on K11a's buffer) alone, REPEATS runs of KERNEL_ITERS
+launches each; with ``--out DIR`` it saves K4's (L, R) answer there, one
+file per tree and scene, with a digest of its inputs.
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
-_work/parent``):
+_work/parent``), then compares their K4 answers:
 
-    for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py); done
+    for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
+        --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
+import inspect
 import json
 import os
 import sys
@@ -33,6 +46,15 @@ sys.path.insert(0, os.getcwd())
 
 REPEATS = 5
 STEPS = 8
+#: K4's and K11b's launches per timed run
+KERNEL_ITERS = 5
+#: the scenes on which K4 and K11b are timed and K4's answers saved
+KERNEL_SCENES = ("bunny50k", "bunny300k")
+#: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
+MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
+#: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
+#: triangle shard, and K11 on each rank's tile range
+SHARDED_WALL = ("bunny50k_prim", "bunny50k_mega3_px")
 
 
 def _spread(xs: list) -> dict:
@@ -40,14 +62,21 @@ def _spread(xs: list) -> dict:
     return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1], "all": xs}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="directory for K4's answers, one file per tree and scene")
+    ap.add_argument("--compare", metavar="DIR", help="compare the trees' K4 answers in DIR")
+    args = ap.parse_args(argv)
+    if args.compare:
+        return compare(args.compare)
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from raytpu_torch.core import scenes
     from raytpu_torch.core.types import RenderConfig
-    from raytpu_torch.render import render_image
+    from raytpu_torch.render import mega3, render_image
     from raytpu_torch.utils.profiling import device_ms
 
     if not torch.cuda.is_available():
@@ -55,9 +84,10 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     cfg = RenderConfig()
-    built = {n: scenes.get(n).build(dev) for n in ("reference", "bunny", "optional", "bunny50k")}
+    built = {n: scenes.get(n).build(dev)
+             for n in ("reference", "bunny", "optional", "bunny50k", "bunny300k")}
     cases = [("reference", "reference", 64), ("bunny", "bunny", 16), ("optional", "optional", 16),
-             ("bunny50k", "bunny50k", 4)]
+             ("bunny50k", "bunny50k", 4), ("bunny300k", "bunny300k", 2)]
     try:
         import chip_smoke as cs
     except ImportError:
@@ -72,25 +102,128 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    out = {"tree": os.path.basename(os.getcwd()), "card": smi}
-    for name, base, frames in cases:
-        spec, scene = scenes.get(base), built[name]
+    tree = os.path.basename(os.getcwd())
+    out = {"tree": tree, "card": smi}
+    mega3_cases = [(name + "_mega3", name, frames, mega3.render_image_mega3_f32)
+                   for name, frames in MEGA3_FRAMES]
+    for name, base, frames, render in [c + (render_image,) for c in cases] + mega3_cases:
+        spec, scene = scenes.get(base), built[base if name.endswith("_mega3") else name]
         ts = torch.linspace(0.0, 2.0 * np.pi, frames, device=dev)
         i = [0]
 
         def frame():
-            render_image(spec.animate(scene, ts[i[0] % frames]), cfg)
+            render(spec.animate(scene, ts[i[0] % frames]), cfg)
             i[0] += 1
 
         ms = [device_ms(frame, iters=frames, warmup=2) for _ in range(REPEATS)]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            frame()
-            torch.cuda.synchronize()
-        h2d = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy HtoD"))
-        out[name] = {"frame_ms": _spread(ms), "h2d_per_frame": h2d}
+        out[name] = {"frame_ms": _spread(ms)}
+        if render is render_image:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                frame()
+                torch.cuda.synchronize()
+            out[name]["h2d_per_frame"] = sum(e.count for e in prof.key_averages()
+                                             if e.key.startswith("Memcpy HtoD"))
     out["optional_material_step_ms"] = _spread(_material_steps(built["optional"], dev))
+    if hasattr(cs, "SHARDED_CASES"):
+        out["sharded_wall_ms"] = _sharded(cs.SHARDED_CASES)
+    for name in KERNEL_SCENES:
+        out[name + "_kernels"] = _shadow_kernels(built[name], cfg, tree, name, args.out)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _sharded(cases) -> dict:
+    """Wall ms of one warm sharded call (two gloo ranks sharing the card,
+    the slower rank's) of each of chip_smoke.py's SHARDED_WALL cases."""
+    import tempfile
+
+    from raytpu_torch.parallel import launch
+
+    cases = [c for c in cases if c["name"] in SHARDED_WALL]
+    with tempfile.TemporaryDirectory() as outdir:
+        results = launch.spawn(2, outdir, "cuda", cases, timeout=600.0)
+    return {c["name"]: max(r["cases"][c["name"]]["seconds"] for r in results) * 1e3
+            for c in cases}
+
+
+def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K4's and K11b's ms (REPEATS runs of KERNEL_ITERS launches, CUDA
+    events) on the scene's unanimated frame; K4's answer saved in
+    ``outdir`` with the digest of its inputs.  Each kernel is called with
+    the boxes where the tree's wrapper takes them."""
+    import numpy as np
+    import torch
+
+    from raytpu_torch.render import mega2, mega3, packed, plain, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    W, H, tmin = cfg.width, cfg.height, cfg.ray_min
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, tmin)
+    rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    blobs = packed.soft_packs(scene)
+    wl, cnt = packed.shadow_worklists(scene, p, dirs, mags, tmin)
+    k4_args = [p, dirs, mags, *blobs, wl, cnt, tmin]
+    buf, counts = plain.mega_pack(scene, cfg)
+    blob = mega3.pack_groups(buf, counts)
+    acc, bounds = mega3.mega3_closest(buf, counts, blob, *mega2.primary_worklists(scene, cfg), cfg)
+    k11b_args = [buf, counts, blob, *mega2.shadow_worklists(scene, cfg, bounds), acc, cfg]
+    if "boxes" in inspect.signature(packed.any_hit_lights).parameters:
+        from raytpu_torch.ops import accel
+
+        boxes = accel.group_boxes(scene.triangles)[2]
+        k4_args.insert(6, boxes)
+        k11b_args.insert(3, boxes)
+    occ = packed.any_hit_lights(*k4_args)
+    res = {}
+    for key, fn, a in (("K4", packed.any_hit_lights, k4_args),
+                       ("K11b", mega3.mega3_shade, k11b_args)):
+        res[key + "_ms"] = _spread([device_ms(lambda: fn(*a), iters=KERNEL_ITERS, warmup=1)
+                                    for _ in range(REPEATS)])
+    digest = hashlib.sha256()
+    for x in (p, dirs, mags):
+        digest.update(x.cpu().numpy().tobytes())
+    res["k4_inputs_sha256"] = digest.hexdigest()
+    res["k4_occluded"] = int(occ.sum())
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        path = os.path.join(outdir, f"k4_{name}_{tree}.npz")
+        bits = np.packbits(occ.cpu().numpy())
+        if os.path.exists(path):  # this tree's earlier run: K4 answers the same each run
+            before = np.load(path)["bits"]
+            res["k4_pairs_differ_from_earlier_run"] = int(
+                np.unpackbits(before ^ bits).sum())
+        np.savez(path, bits=bits, shape=np.asarray(occ.shape), sha=res["k4_inputs_sha256"])
+    return res
+
+
+def compare(outdir: str) -> int:
+    """Count the (light, ray) pairs in which two trees' K4 answers differ,
+    scene by scene, from the files ``--out`` wrote; non-zero unless every
+    scene has both trees' answers, on the same inputs, and none differ."""
+    import glob
+
+    import numpy as np
+
+    ok, out = True, {}
+    for name in KERNEL_SCENES:
+        files = sorted(glob.glob(os.path.join(outdir, f"k4_{name}_*.npz")))
+        runs = {f[len(os.path.join(outdir, f"k4_{name}_")):-4]: np.load(f) for f in files}
+        if len(runs) != 2:
+            out[name] = f"{len(runs)} trees' answers, not 2"
+            ok = False
+            continue
+        (ta, a), (tb, b) = sorted(runs.items())
+        same_inputs = str(a["sha"]) == str(b["sha"])
+        differ = int(np.unpackbits(a["bits"] ^ b["bits"]).sum())
+        out[name] = {"trees": [ta, tb], "pairs": int(np.prod(a["shape"])),
+                     "pairs_differ": differ, "same_inputs": same_inputs}
+        ok = ok and same_inputs and differ == 0
+    print(json.dumps({"k4_answers": out, "equal": ok}), flush=True)
+    return 0 if ok else 1
 
 
 def _material_steps(scene, dev) -> list:

@@ -337,6 +337,166 @@ def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
                       emin, emax], dim=1)
 
 
+# ---------------------------------------------------------------------------
+# The per-ray group-box test of the shadow any-hit kernels (K4, K11b)
+# ---------------------------------------------------------------------------
+#
+# A kernel may skip a group's triangles for a shadow ray only if tri_t
+# (common.cuh, plain.tri_t) reports no hit in any of them.  A hit that tri_t
+# reports is not always where the segment meets the triangle: it solves
+# o + t d = v0 + u e1 + v e2 by Cramer's rule in float32, and the point
+# X = v0 + u e1 + v e2 of the triangle that its (t, u, v) name lies within
+# |r| of the point Y = o + t d of the segment, where
+#
+#     |a| |r| <= |ea| |s| + |eu| |e1| + |ev| |e2| + |et|   (s = o - v0),
+#
+# ea, eu, ev, et being the rounding errors of the determinant a and of the
+# numerators of u, v and t, plus a few ulps of |e1|, |e2| and t.  With
+# fused dots and crosses each is at most 7 u |s| |e1| |e2| for a unit
+# direction (u = 2^-24; ea has no |s|), and tri_t rejects |a| < FLT_EPSILON
+# = 2u, so |r| <= 13.2 |e1| |e2| |s|.  For a ray nearly parallel to the
+# triangle's plane that is far more than a few ulps: a grazing segment that
+# passes a group's box at 1e-3 of the scene can get a hit from a triangle
+# in it (tests/test_torch_shadow_boxes.py builds such rays).  So each ray
+# tests group g's box widened by
+#
+#     w = HIT_SLACK * E_g * (|o - c_g|_1 + h_g),
+#
+# E_g the largest |e1| |e2| of the group's triangles, c_g the box's centre
+# and h_g its half diagonal: |s| <= |o - c_g| + h_g for every vertex of the
+# group.  The fixed pad (BOX_PAD_REL, BOX_PAD_ABS) covers the few ulps, the
+# records' e1 = v1 - v0 rounding and the slab test's own rounding for
+# origins within a few hundred box extents of the box.
+
+#: each group box is widened on every side by BOX_PAD_REL times the largest
+#: coordinate magnitude of the box plus BOX_PAD_ABS (``shadow_boxes``)
+BOX_PAD_REL, BOX_PAD_ABS = 1e-4, 1e-4
+#: bound on tri_t's hit-point error per unit |e1| |e2| |s| (13.2, above),
+#: with room for the rounding of the widening itself
+HIT_SLACK = 14.0
+#: direction components smaller than this in magnitude take it, sign kept,
+#: before their reciprocal (shadow.cuh:inv_dir): the reciprocal stays finite,
+#: so no (box face - origin) * (1 / 0) = 0 * inf = NaN
+DIR_FLOOR = 1e-30
+#: floats of one box record: lo(3), hi(3), kappa, kappa * h
+BOX_COLS = 8
+
+
+def group_boxes(tris: Triangles, group: int = GROUP):
+    """``(glo, ghi, boxes)``: the group AABBs of ``chunk_bounds``, which the
+    worklist culls take, and the shadow kernels' box records built from
+    them (``shadow_boxes``)."""
+    glo, ghi = chunk_bounds(tris, group)
+    e = (torch.linalg.vector_norm((tris.v1 - tris.v0).double(), dim=1)
+         * torch.linalg.vector_norm((tris.v2 - tris.v0).double(), dim=1))
+    e = torch.nn.functional.pad(e, (0, glo.shape[0] * group - e.shape[0]))
+    return glo, ghi, shadow_boxes(glo, ghi, e.reshape(-1, group).amax(dim=1))
+
+
+def shadow_boxes(glo, ghi, edge_product):
+    """The kernels' box records, (ng, 8) float32 ``[lo(3), hi(3), kappa,
+    kappa * h]``: the AABBs ``glo``, ``ghi`` padded by ``BOX_PAD_REL *
+    max|coord| + BOX_PAD_ABS`` on every side, ``kappa = HIT_SLACK *
+    edge_product`` (each group's largest |e1| |e2|) and ``h`` the padded
+    box's half diagonal, both rounded up, for the per-ray widening
+    ``kappa * |o - c|_1 + kappa * h`` (``segment_box_test``)."""
+    pad = BOX_PAD_REL * torch.maximum(glo.abs(), ghi.abs()).amax(dim=1, keepdim=True) + BOX_PAD_ABS
+    lo, hi = glo - pad, ghi + pad
+    up = 1.0 + 2.0 ** -20  # float32 rounding is within 2^-24: rounded up
+    kappa = HIT_SLACK * edge_product.double() * up
+    h = 0.5 * torch.linalg.vector_norm((hi - lo).double(), dim=1) * up
+    return torch.cat([lo, hi, kappa[:, None].float(), (kappa * h * up)[:, None].float()],
+                     dim=1).contiguous()
+
+
+def inv_dir(d):
+    """Per-component reciprocal of directions, components below DIR_FLOOR
+    in magnitude raised to it with their sign (shadow.cuh:inv_dir)."""
+    floor = torch.full_like(d, DIR_FLOOR)
+    return 1.0 / torch.where(d.abs() < DIR_FLOOR, torch.copysign(floor, d), d)
+
+
+def _faces(boxes, dist):
+    """A box's faces widened by ``kappa * dist + kappa * h`` (shadow.cuh:
+    widen): ``lo``, ``hi`` (..., 3) for ``boxes`` (..., 8) and ``dist``
+    (...)."""
+    w = (boxes[..., 6] * dist + boxes[..., 7])[..., None]
+    return boxes[..., 0:3] - w, boxes[..., 3:6] + w
+
+
+def _centre(boxes):
+    return (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
+
+
+def segment_box_test(o, inv, mag, boxes):
+    """(..., R, ng) bool: ray r's segment ``o + t d``, t in [0, mag],
+    crosses box g widened for it: the slab test of ``shadow.cuh:seg_box``,
+    rounded as it rounds.  ``o`` (..., R, 3), ``inv`` (..., R, 3) from
+    ``inv_dir``, ``mag`` (..., R), ``boxes`` (..., ng, 8) from
+    ``shadow_boxes``.  A NaN in the origin or the length crosses nothing
+    (tri_t finds no hit for such a ray either)."""
+    o, inv = o[..., :, None, :], inv[..., :, None, :]
+    boxes = boxes[..., None, :, :]
+    d = (o - _centre(boxes)).abs()
+    lo, hi = _faces(boxes, d[..., 0] + d[..., 1] + d[..., 2])
+    t1, t2 = (lo - o) * inv, (hi - o) * inv
+    tn = torch.fmin(t1, t2)
+    tf = torch.fmax(t1, t2)
+    tn = torch.fmax(torch.fmax(tn[..., 0], tn[..., 1]), tn[..., 2])
+    tf = torch.fmin(torch.fmin(tf[..., 0], tf[..., 1]), tf[..., 2])
+    return (tn <= tf) & (tf >= 0.0) & (tn <= mag[..., None])
+
+
+def tight_segment_box_test(o, inv, mag, boxes):
+    """``segment_box_test`` without the per-ray widening: the segment
+    crosses the padded box itself.  What a query needs of the groups
+    whatever the walk (chip_smoke.py counts the triangles of these groups
+    for K4's and K11b's bounds)."""
+    flat = torch.cat([boxes[..., 0:6], torch.zeros_like(boxes[..., 6:8])], dim=-1)
+    return segment_box_test(o, inv, mag, flat)
+
+
+def warp_slots(device=None):
+    """(32, 32) long: the slot in a 1024-ray tile of lane j of warp w in K4
+    and K11b (shadow.cuh:warp_slot): warp w takes the 8x4 pixel block at
+    rows 4(w // 4).. and columns 8(w % 4).. of the tile's 32x32 layout."""
+    w = torch.arange(32, device=device)[:, None]
+    lane = torch.arange(32, device=device)[None, :]
+    return ((w // 4) * 4 + lane // 8) * 32 + (w % 4) * 8 + lane % 8
+
+
+def bundle_bounds(o, inv, mag, live):
+    """The bounds of bundles of rays that ``bundle_box_test`` takes, over
+    the ``live`` ones (shadow.cuh:warp_bundle): ``o``, ``inv`` (..., n, 3),
+    ``mag`` and ``live`` (..., n) -> ``(olo, ohi, ilo, ihi)`` (..., 3) and
+    ``tmax`` (...,); inf and -inf where no ray is live."""
+    big = torch.tensor(float("inf"), dtype=o.dtype, device=o.device)
+    m = live[..., None]
+    return (torch.where(m, o, big).amin(dim=-2), torch.where(m, o, -big).amax(dim=-2),
+            torch.where(m, inv, big).amin(dim=-2), torch.where(m, inv, -big).amax(dim=-2),
+            torch.where(live, mag, -big).amax(dim=-1))
+
+
+def bundle_box_test(olo, ohi, ilo, ihi, tmax, boxes):
+    """(..., ng) bool: some ray of a bundle, with origin in [olo, ohi],
+    reciprocal direction in [ilo, ihi] and length at most ``tmax`` (the
+    bounds of ``bundle_bounds``), may cross box g of ``boxes`` (ng, 8)
+    (shadow.cuh:bundle_box).  The box is widened for the bundle's farthest
+    origin, per axis the larger of |olo - c| and |ohi - c|, so at least as
+    much as for any of its rays; each (face - origin) * reciprocal of a ray
+    of the bundle lies between the products at the corners, in float32 too
+    (each rounding is monotone), so a box that ``segment_box_test`` passes
+    for a ray of the bundle passes here."""
+    olo, ohi, ilo, ihi = (x[..., None, :] for x in (olo, ohi, ilo, ihi))
+    c = _centre(boxes)
+    d = torch.fmax((olo - c).abs(), (ohi - c).abs())
+    lo, hi = _faces(boxes, d[..., 0] + d[..., 1] + d[..., 2])
+    prods = [(face - o) * i for face in (lo, hi) for o in (ohi, olo) for i in (ilo, ihi)]
+    tn = torch.stack(prods).amin(dim=0).amax(dim=-1)
+    tf = torch.stack(prods).amax(dim=0).amin(dim=-1)
+    return (tn <= tf) & (tf >= 0.0) & (tn <= tmax[..., None])
+
+
 def culls_groups(tris: Triangles, group: int = GROUP) -> bool:
     """raytpu culls from two groups on (``CULL_MIN_TRIS`` is two 128-triangle
     chunks); below that every tile takes every group."""

@@ -140,7 +140,7 @@ def _train_case(case, scene, cfg, mesh, device):
                     "params_equal_on_ranks": None}
 
 
-def run_worker(rank: int, world_size: int, init_method: str, outdir: str, device: str = "cpu",
+def run_worker(rank: int, world_size: int, init_method: str, outdir: str, device: str = "cuda",
                cases=DEFAULT_CASES) -> dict:
     """The worker body: join the group, run every case, write the result."""
     import torch
@@ -195,7 +195,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(num_processes: int, outdir: str, device: str = "cpu", cases=None,
+def spawn(num_processes: int, outdir: str, device: str = "cuda", cases=None,
           timeout: float = 600.0) -> list:
     """Start ``num_processes`` workers on this host, wait for all of them and
     return their results.  Raises as soon as one fails, with its log's tail,

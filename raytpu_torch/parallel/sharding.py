@@ -211,7 +211,9 @@ def _shade_rays_sharded(scene: Scene, ro, rd, config: RenderConfig, tri_prio_off
     the kernels (their plain versions on the CPU): K3 for the closest hit,
     every light's occlusion at once by K4 within its limits and by K9 past
     them (which raises past 24 lights, as raytpu's does), one light at a
-    time by K8's shadow mode."""
+    time by K8's shadow mode.  K4's group boxes come from the shard's own
+    triangles (``packed.any_hit_lights_mega2`` on ``scene``), so box g is
+    the shard's group g, the one its worklists and records index."""
 
     def closest_fn(s, ro_b, rd_b, tmin):
         rec, prio = _local_closest_hit(s, ro_b, rd_b, tmin, tri_prio_offset)

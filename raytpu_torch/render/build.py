@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc -c`` per source, all started together, then linked into one shared
 library with a plain C interface, ``raytpu_torch/_build/libraytpu_torch_kernels.so``,
 and loaded with ``ctypes``.  The build runs the first time a kernel is used
-and again whenever a source, the shared header ``csrc/common.cuh`` or a flag
+and again whenever a source, a shared header (``csrc/*.cuh``) or a flag
 changes (a hash of them is kept beside the library).
 """
 
@@ -110,16 +110,19 @@ def load():
         lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr] + tiles_in
                                              + closest_out)
         lib.raytpu_mega3_closest.restype = c_int
-        lib.raytpu_mega3_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr] + tiles_in
-                                           + shade_out)
+        # scene, S, P, T, L, blob, boxes
+        lib.raytpu_mega3_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr]
+                                           + tiles_in + shade_out)
         lib.raytpu_mega3_shade.restype = c_int
         lib.raytpu_packed_closest.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_int, c_ptr, c_int,
                                               c_ptr, c_int, c_ptr, c_ptr, c_int, c_float, c_ptr,
                                               c_ptr, c_ptr, c_ptr, c_ptr]
         lib.raytpu_packed_closest.restype = c_int
+        # p, dirs, mags, R, L, spheres, S, planes, P, triangles, T, boxes, wl, cnt,
+        # wl_cols, tmin, occ, stream
         lib.raytpu_packed_anyhit.argtypes = [c_ptr, c_ptr, c_ptr, c_int, c_int, c_ptr, c_int, c_ptr,
-                                             c_int, c_ptr, c_int, c_ptr, c_ptr, c_int, c_float,
-                                             c_ptr, c_ptr]
+                                             c_int, c_ptr, c_int, c_ptr, c_ptr, c_ptr, c_int,
+                                             c_float, c_ptr, c_ptr]
         lib.raytpu_packed_anyhit.restype = c_int
         soft_in = [c_ptr, c_ptr, c_ptr, c_int, c_int]  # p, dirs, mags, R, L
         soft_wl = [c_ptr, c_ptr, c_int, c_float, c_float]  # wl, cnt, wl_cols, tmin, beta
@@ -164,6 +167,13 @@ def check_tensors(what: str, device, tensors: dict) -> None:
                 or tuple(x.shape) != tuple(shape)):
             raise ValueError(f"{what}: {name} must be a contiguous {dtype} {tuple(shape)} tensor "
                              f"on {device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def check_aligned(what: str, name: str, x, nbytes: int) -> None:
+    """Raise ValueError unless ``x``'s data starts on an ``nbytes`` boundary,
+    as a kernel's vector loads need."""
+    if x.data_ptr() % nbytes:
+        raise ValueError(f"{what}: {name} must be {nbytes}-byte aligned for the kernel's loads")
 
 
 def cuda_error_name(lib, err: int) -> str:

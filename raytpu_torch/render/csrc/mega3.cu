@@ -18,19 +18,28 @@
 //
 // What differs from K2 is how triangles reach the threads.  K2 reads each
 // group from device memory, every thread of the block the same address at
-// the same time, which the cache serves as a broadcast.  Here the block
-// walks its worklist in stages of kStage groups: the stage's records
-// (640 B a group, 8 triangles x 20 floats) are copied into a ring of kRing
-// stage slots in shared memory with cp.async, 16 B a thread, while the
-// block folds the stage kRing - 1 entries behind, and every thread reads
-// the records from shared memory as a broadcast.  This is raytpu's DMA
-// ring (_mega3_stream) without its TPU layout: one worklist form (each
-// tile's passing groups in ascending order, the port's cull glue), no
+// the same time, which the cache serves as a broadcast.  K11a's block walks
+// its worklist in stages of kStage groups: the stage's records (640 B a
+// group, 8 triangles x 20 floats) are copied into a ring of kRing stage
+// slots in shared memory with cp.async, 16 B a thread, while the block
+// folds the stage kRing - 1 entries behind, and every thread reads the
+// records from shared memory as a broadcast.  This is raytpu's DMA ring
+// (_mega3_stream) without its TPU layout: one worklist form (each tile's
+// passing groups in ascending order, the port's cull glue), no
 // fine/coarse/coarse2 modes, no SMEM entry budget.  The fold order is K2's
-// (ascending worklists, strict <, common.cuh's arithmetic), so K11's image
-// equals K2's bit for bit.  A block that has no ray left to resolve stops
-// walking a shadow worklist (__syncthreads_or): the same answer, since a
-// shadow ray needs one occluder.
+// (ascending worklists, strict <, common.cuh's arithmetic), so K11a's
+// buffer equals K2a's bit for bit.
+//
+// K11b answers each light's shadow query with shadow.cuh's walk, a warp at
+// a time: each ray tests the boxes of its row's groups, padded and widened
+// for the ray (after a test of the warp's bundle of rays), and runs the
+// triangles of a group only where its segment crosses the box, and a warp
+// leaves the row once all its rays are resolved.  Warps then walk different entries, so a block-wide
+// ring no longer serves them: the records come from device memory through
+// the caches, and blocks are 128 threads, eight to a tile.  The any-hit
+// answer does not depend on which listed triangles are tested, so K11b's
+// image equals K2b's bit for bit as long as the box test is conservative
+// (shadow.cuh says why it is).
 //
 // Waiting on the ring: each thread commits one cp.async group per stage
 // (empty for threads that copy nothing) and waits until at most kRing - 2
@@ -43,18 +52,21 @@
 // ray-triangle test that the worklists pass (chip_smoke.py counts them from
 // this frame's worklists, the same count as K2's) and ~100 of shading per
 // light; the bytes (scene, acc, image, worklists) are small beside it.
-// What the ring does about it: it takes the triangle records off the L1/L2
-// path and out of the threads' load latency, at the cost of a block-wide
-// barrier per kStage groups.  Measured by chip_smoke.py beside K2's times on
-// the same frames (PERF.md).
+// What the ring does about it (K11a): it takes the triangle records off the
+// L1/L2 path and out of the threads' load latency, at the cost of a
+// block-wide barrier per kStage groups.  What the box walk does about it
+// (K11b): it skips the triangle tests of the groups that no ray of a warp
+// can reach, most of a bunny300k row.  Measured by chip_smoke.py beside
+// K2's times on the same frames (PERF.md).
 
-#include "common.cuh"
+#include "shadow.cuh"
 
 namespace {
 
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
+constexpr int kShadeBlock = 128;  // K11b's threads a block: 4 warps
 constexpr int kGroup = 8;
 constexpr int kAccRows = 11;  // t, normal(3), material(7)
 constexpr int kGroupFloats = kGroup * kTri;     // 160 floats, 640 B
@@ -80,10 +92,10 @@ __device__ __forceinline__ void issue_stage(float* ring, const float* __restrict
   }
 }
 
-// Walks the worklist `w` (`c` entries) of the blob's groups through the ring:
-// fold(record, k) for every triangle k of every listed group, in worklist
-// order, each record read from shared memory.  All threads of the block call
-// it; the walk ends early once live() is false for every thread.
+// K11a's walk of the worklist `w` (`c` entries) of the blob's groups through
+// the ring: fold(record, k) for every triangle k of every listed group, in
+// worklist order, each record read from shared memory.  All threads of the
+// block call it; the walk ends early once live() is false for every thread.
 template <typename Live, typename Fold>
 __device__ __forceinline__ void walk(float* ring, const float* __restrict__ blob,
                                      const int* __restrict__ w, int c, int T, Live live,
@@ -226,14 +238,19 @@ __global__ void __launch_bounds__(kTile) mega3_closest_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kTile) mega3_shade_kernel(
+// K11b: one thread per ray slot, blocks of kShadeBlock threads, kTile /
+// kShadeBlock blocks to a tile; warp w of the tile takes the 8x4 pixel
+// block warp_slot(w, lane) (K11a wrote slot j of the tile at acc column
+// tile * 1024 + j, so any slot order reads the same rays).  Each light's
+// shadow query is shadow.cuh's walk over the (tile, light) worklist with the
+// group boxes, the triangles read from the blob as 20-float records.
+__global__ void __launch_bounds__(kShadeBlock, 4) mega3_shade_kernel(
     const float* __restrict__ scene, int S, int P, int T, int L, const float* __restrict__ blob,
-    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, int W, int H,
-    int tiled, int tile0, int feed, int mode, int shadows, float tmin, float normal_offset,
-    float shadow_dim, const float* __restrict__ acc, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];  // ring | cam | spheres | planes | lights
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* sm = ring + kRingFloats;
+    const float* __restrict__ boxes, const int* __restrict__ wl, const int* __restrict__ cnt,
+    int wl_cols, int W, int H, int tiled, int tile0, int feed, int mode, int shadows, float tmin,
+    float normal_offset, float shadow_dim, const float* __restrict__ acc,
+    float* __restrict__ out) {
+  extern __shared__ float sm[];  // cam | spheres | planes | lights
   const int n = kCam + S * kSph + P * kPln;
   const float* lit_g = scene + n + (size_t)T * kTri;
   for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
@@ -243,12 +260,15 @@ __global__ void __launch_bounds__(kTile) mega3_shade_kernel(
   const float* sph = cam + kCam;
   const float* pln = sph + S * kSph;
   const float* lit = sm + n;
-  const int tile = blockIdx.x;
-  const int slots = gridDim.x * kTile;
+  constexpr int kBlocksPerTile = kTile / kShadeBlock;
+  const int tile = blockIdx.x / kBlocksPerTile;
+  const int slots = (gridDim.x / kBlocksPerTile) * kTile;
+  const int warp = (blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + threadIdx.x / 32;
+  const int j = warp_slot(warp, threadIdx.x % 32);
 
   int pxi = 0, pyi = 0;
-  const bool valid = tile_pixel(tile0 + tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
-  const float* a = acc + (size_t)tile * kTile + threadIdx.x;
+  const bool valid = tile_pixel(tile0 + tile, j, W, H, tiled, &pxi, &pyi);
+  const float* a = acc + (size_t)tile * kTile + j;
   const float t = a[0];
   const bool hit = valid && t < INFINITY;
   const float rox = cam[0], roy = cam[1], roz = cam[2];
@@ -260,12 +280,11 @@ __global__ void __launch_bounds__(kTile) mega3_shade_kernel(
     oz = fmaf(a[3 * slots], normal_offset, fmaf(t, rdz, roz));
   }
 
-  // every light's shadow query first, block-wide, so the ring walks stay
-  // uniform; a miss needs none
+  // every light's shadow query first, a warp at a time; a miss needs none
   unsigned occluded = 0u;
   if (shadows) {
     for (int l = 0; l < L; ++l) {
-      bool occ = !hit;
+      bool occ = false;
       float lx = 0.0f, ly = 0.0f, lz = 0.0f, mag = 0.0f;
       if (hit) {
         light_dir(lit + l * kLight, ox, oy, oz, &lx, &ly, &lz, &mag);
@@ -275,19 +294,16 @@ __global__ void __launch_bounds__(kTile) mega3_shade_kernel(
           occ = plane_t(pln + p * kPln, ox, oy, oz, lx, ly, lz, tmin, mag) < INFINITY;
       }
       const int row = tile * L + l;
-      walk(ring, blob, wl + (size_t)row * wl_cols, min(cnt[row], wl_cols), T,
-           [&] { return !occ; },
-           [&](const float* r, int) {
-             if (!occ && tri_t(r, ox, oy, oz, lx, ly, lz, tmin, mag, true) < INFINITY) occ = true;
-           });
+      occ = shadow_walk<kTri>(blob, T, boxes, wl + (size_t)row * wl_cols,
+                              min(cnt[row], wl_cols), hit && !occ, ox, oy, oz, lx, ly, lz, tmin,
+                              mag) || occ;
       if (hit && occ) occluded |= 1u << l;
     }
   }
 
   // `feed`: the tile range's rays in feed order, (tiles * 1024, 3), black
   // past the frame; else the (H, W, 3) image
-  float* o = feed ? out + 3 * ((size_t)tile * kTile + threadIdx.x)
-                  : out + 3 * ((size_t)pyi * W + pxi);
+  float* o = feed ? out + 3 * ((size_t)tile * kTile + j) : out + 3 * ((size_t)pyi * W + pxi);
   if (!valid) {
     if (feed) o[0] = o[1] = o[2] = 0.0f;
     return;
@@ -337,20 +353,22 @@ int raytpu_mega3_closest(const float* scene, int S, int P, int T, const float* b
 }
 
 // Launches K11b on `stream` over tiles [tile0, tile0 + tiles), as K11a.
-// `wl` (tiles, L, wl_cols) and `cnt` (tiles, L) are the per-light shadow
-// worklists (read only when `shadows`), L <= 32; `acc` is K11a's; `out` is
-// (H, W, 3) float32, or with `feed` (tiles * 1024, 3) in feed order.
-// Returns the CUDA error of the launch.
+// `boxes` (ceil(T/8), 8) float32 are the group box records
+// (accel.shadow_boxes), 16-byte aligned; `wl` (tiles, L, wl_cols) and `cnt` (tiles, L) the per-light
+// shadow worklists (read only when `shadows`), L <= 32; `acc` is K11a's;
+// `out` is (H, W, 3) float32, or with `feed` (tiles * 1024, 3) in feed
+// order.  Returns the CUDA error of the launch.
 int raytpu_mega3_shade(const float* scene, int S, int P, int T, int L, const float* blob,
-                       const int* wl, const int* cnt, int wl_cols, int W, int H, int tiled,
-                       int tile0, int tiles, int feed, int mode, int shadows, float ray_min,
-                       float normal_offset, float shadow_dim, const float* acc, float* out,
-                       void* stream) {
-  const size_t smem = sizeof(float) * (kRingFloats + kCam + S * kSph + P * kPln + L * kLight);
+                       const float* boxes, const int* wl, const int* cnt, int wl_cols, int W,
+                       int H, int tiled, int tile0, int tiles, int feed, int mode, int shadows,
+                       float ray_min, float normal_offset, float shadow_dim, const float* acc,
+                       float* out, void* stream) {
+  const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln + L * kLight);
   const cudaError_t err = allow_smem(mega3_shade_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mega3_shade_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, L, blob, wl, cnt, wl_cols, W, H, tiled, tile0, feed, mode, shadows,
+  mega3_shade_kernel<<<tiles * (kTile / kShadeBlock), kShadeBlock, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      scene, S, P, T, L, blob, boxes, wl, cnt, wl_cols, W, H, tiled, tile0, feed, mode, shadows,
       ray_min, normal_offset, shadow_dim, acc, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,8 +20,9 @@
 // cull material_id (pallas_soft.py:_soft_packs).
 //
 // A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
-// pixel blocks).  One block of 1024 threads per tile, one thread per ray.
-// Worklists list each tile's passing groups in ascending order, and the
+// pixel blocks).  K3 runs one block of 1024 threads per tile, one thread
+// per ray; K4 eight blocks of 128 per tile and light (below).  Worklists
+// list each tile's passing groups in ascending order, and the
 // strict < update then gives a tie to the first primitive: the eager
 // argmin's order, stricter than raytpu's streamed K3, which may break
 // cross-group ties either way.
@@ -33,27 +34,34 @@
 // worklist passes, so the bound is the card's FP32 rate (chip_smoke.py
 // counts the tests from this run's worklists).  Measured by chip_smoke.py on
 // an NVIDIA H100 80GB HBM3 at 700 W, bunny300k at 640x480 (2,135 triangle
-// tests per camera ray): K3 37.9 ms and K4 142.4 ms, 73x and 56x their
-// bounds of 0.52 and 2.54 ms.
+// tests per camera ray): K3 37.9 ms and the 1024-thread K4 that walked
+// every listed triangle 142.4 ms, 73x and 56x their bounds of 0.52 and
+// 2.54 ms; PERF.md has K4's times since.
 //
 // What the design does about it.  The TPU's split between an SMEM launch
 // chain up to 9,600 triangles and a DMA-streamed kernel past it is a layout
 // artifact: here one kernel reads the triangles from device memory at any T,
 // and all threads of a block read the same group at the same time, which
 // the cache serves as a broadcast.  Spheres and planes sit in shared memory.
-// A shadow ray stops at its first occluder.  The arithmetic is common.cuh's,
+// K4 is shadow.cuh's walk: a shadow ray tests only the groups whose box,
+// padded and widened for the ray, its segment crosses (a warp tests the
+// listed boxes against the bounds of its 32 rays first), stops at its first
+// occluder, and its warp leaves the row once every lane is resolved; small
+// blocks, one grid row a light, leave no 27%-full last wave of 1024-thread
+// blocks.  The arithmetic is common.cuh's,
 // so K3 agrees bit for bit with its plain version and with the eager closest
 // hit (raytpu_torch/ops/intersect.py) where their formulas agree.
 
 #include <stdint.h>
 
-#include "common.cuh"
+#include "shadow.cuh"
 
 namespace {
 
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
+constexpr int kBlock = 128;  // K4's threads a block: 4 warps
 constexpr int kGroup = 8;
 constexpr int kSp = 5;    // sphere / plane record
 constexpr int kTr = 14;   // triangle record
@@ -143,42 +151,46 @@ __global__ void __launch_bounds__(kTile) packed_closest_kernel(
   mat_out[rid] = (int)mat;
 }
 
-__global__ void __launch_bounds__(kTile) packed_anyhit_kernel(
+// K4: one thread per (ray, light), blocks of kBlock threads, kTile / kBlock
+// blocks to a tile and one grid row per light.  Warp w of the tile takes the
+// 8x4 pixel block warp_slot(w, lane) of the tile's 32x32 layout (any
+// permutation of a tile's rays gives the same answer; the routes feed 32x32
+// blocks).  Spheres and planes first, then shadow_walk over the (tile,
+// light) worklist with the group boxes.
+__global__ void __launch_bounds__(kBlock, 4) packed_anyhit_kernel(
     const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
-    int R, int L, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, uint8_t* __restrict__ occ) {
+    int R, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin,
+    uint8_t* __restrict__ occ) {
   extern __shared__ float sm[];  // spheres | planes
   for (int k = threadIdx.x; k < S * kSp; k += blockDim.x) sm[k] = sph_g[k];
   for (int k = threadIdx.x; k < P * kSp; k += blockDim.x) sm[S * kSp + k] = pln_g[k];
   __syncthreads();
   const float* sph = sm;
   const float* pln = sm + S * kSp;
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
-  for (int l = 0; l < L; ++l) {
-    const size_t lr = (size_t)l * R + rid;
-    const float dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
-    const float mag = mags[lr];
-    bool hit = false;
+  const int L = gridDim.y, l = blockIdx.y;
+  const int tile = blockIdx.x / (kTile / kBlock);
+  const int warp = (blockIdx.x % (kTile / kBlock)) * (kBlock / 32) + threadIdx.x / 32;
+  const int rid = tile * kTile + warp_slot(warp, threadIdx.x % 32);
+  const bool valid = rid < R;  // lanes past the rays vote, never write
+  const size_t lr = (size_t)l * R + rid;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, mag = 0.0f;
+  bool hit = false;
+  if (valid) {
+    ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
+    dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
+    mag = mags[lr];
     for (int s = 0; s < S && !hit; ++s)
       hit = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY;
     for (int q = 0; q < P && !hit; ++q)
       hit = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY;
-    const int row = tile * L + l;
-    const int* w = wl + (size_t)row * wl_cols;
-    const int c = min(cnt[row], wl_cols);
-    for (int e = 0; e < c && !hit; ++e) {
-      const int g = w[e];
-      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-      const int k1 = min(g * kGroup + kGroup, T);
-      for (int k = g * kGroup; k < k1 && !hit; ++k)
-        hit = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY;
-    }
-    occ[lr] = hit ? 1 : 0;
   }
+  const int row = tile * L + l;
+  const bool tri_hit = shadow_walk<kTr>(tri, T, boxes, wl + (size_t)row * wl_cols,
+                                        min(cnt[row], wl_cols), valid && !hit, ox, oy, oz, dx, dy,
+                                        dz, tmin, mag);
+  if (valid) occ[lr] = (hit || tri_hit) ? 1 : 0;
 }
 
 }  // namespace
@@ -202,16 +214,20 @@ int raytpu_packed_closest(const float* ro, const float* rd, int R, const float* 
 }
 
 // Launches K4 on `stream`.  p (R, 3), dirs (L, R, 3), mags (L, R) float32;
+// `boxes` (ceil(T/8), 8) float32 the group box records (accel.shadow_boxes),
+// 16-byte aligned;
 // `wl` (nt, L, wl_cols) and `cnt` (nt, L) the per-light worklists; `occ`
 // (L, R) bytes.  Returns cudaGetLastError() after the launch.
 int raytpu_packed_anyhit(const float* p, const float* dirs, const float* mags, int R, int L,
                          const float* sph, int S, const float* pln, int P, const float* tri, int T,
-                         const int* wl, const int* cnt, int wl_cols, float ray_min, uint8_t* occ,
-                         void* stream) {
+                         const float* boxes, const int* wl, const int* cnt, int wl_cols,
+                         float ray_min, uint8_t* occ, void* stream) {
+  if (R == 0 || L == 0) return static_cast<int>(cudaSuccess);
   const int tiles = (R + kTile - 1) / kTile;
   const size_t smem = sizeof(float) * (S + P) * kSp;
-  packed_anyhit_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, dirs, mags, R, L, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, occ);
+  const dim3 grid(tiles * (kTile / kBlock), L);
+  packed_anyhit_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, dirs, mags, R, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, ray_min, occ);
   return static_cast<int>(cudaGetLastError());
 }
 

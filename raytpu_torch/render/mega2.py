@@ -93,13 +93,15 @@ def take_tiles(wl, cnt, tile0: int, tiles: int | None):
 
 
 def primary_worklists(scene: Scene, config: RenderConfig, tile0: int = 0,
-                      tiles: int | None = None):
+                      tiles: int | None = None, group_bounds=None):
     """K2a's (and K11a's) worklists ``(wl (nt, ng) int32, cnt (nt,) int32)``:
     each tile's groups that its camera rays may hit, in ascending order; a
-    tile range's rows with ``tiles`` set."""
+    tile range's rows with ``tiles`` set.  ``group_bounds`` is
+    ``accel.chunk_bounds(scene.triangles, accel.GROUP)`` where the caller
+    has it."""
     if not accel.culls_groups(scene.triangles):
         return take_tiles(*accel.full_worklist(num_tiles(config), scene.triangles), tile0, tiles)
-    glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
+    glo, ghi = group_bounds or accel.chunk_bounds(scene.triangles, accel.GROUP)
     rb = accel.camera_tile_bounds(scene.camera, config.width, config.height, is_tiled(config),
                                   tile=TILE)
     return take_tiles(*accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi,
@@ -107,12 +109,13 @@ def primary_worklists(scene: Scene, config: RenderConfig, tile0: int = 0,
                       tile0, tiles)
 
 
-def shadow_worklists(scene: Scene, config: RenderConfig, bounds):
+def shadow_worklists(scene: Scene, config: RenderConfig, bounds, group_bounds=None):
     """K2b's (and K11b's) worklists ``(wl (nt, L, n) int32, cnt (nt, L)
     int32)`` from K2a's per-tile boxes of shadow origins ``bounds`` (nt, 6):
     each light's groups that a shadow ray of the tile may hit; an empty box
     (a tile whose rays all miss, or past the frame) culls every group.
-    Without shadows they are empty."""
+    Without shadows they are empty.  ``group_bounds`` as for
+    ``primary_worklists``."""
     nt, L, dev = bounds.shape[0], scene.lights.count, scene.device
     if not config.shadows:
         return (torch.zeros((nt, L, 0), dtype=torch.int32, device=dev),
@@ -120,7 +123,7 @@ def shadow_worklists(scene: Scene, config: RenderConfig, bounds):
     if not accel.culls_groups(scene.triangles):
         wl, cnt = accel.full_worklist(nt * L, scene.triangles)
         return wl.reshape(nt, L, -1), cnt.reshape(nt, L)
-    glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
+    glo, ghi = group_bounds or accel.chunk_bounds(scene.triangles, accel.GROUP)
     lights = scene.lights
     per_light = [accel.chunk_worklist(accel.light_shadow_cull_from_aabb(
         bounds[:, 0:3], bounds[:, 3:6], lights.position[li], lights.direction[li],

@@ -16,9 +16,12 @@ directly.  The kernels are ``csrc/mega3.cu``:
     shading, shadow dim and tone map.
 
 They read the same worklists as K2 (each tile's passing 8-triangle groups
-in ascending order, ``mega2.primary_worklists``) but take the triangles
-from ``pack_groups``'s blob through a ring of shared-memory slots filled by
-asynchronous copies, in K2's fold order, so the image is K2's bit for bit.
+in ascending order, ``mega2.primary_worklists``) and take the triangles
+from ``pack_groups``'s blob: K11a through a ring of shared-memory slots
+filled by asynchronous copies, in K2's fold order; K11b ray by ray, only
+from the groups whose padded box (``accel.shadow_boxes``), widened for
+the ray, the shadow segment crosses.  The image is K2's bit for bit.  The
+group boxes are computed once a frame, for both culls and for K11b.
 raytpu's worklist modes (fine, coarse, coarse2), ring depths and SMEM
 entry budget fit Mosaic's scalar memory and are not ported; its
 1,048,576-triangle ceiling is kept.
@@ -34,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.ops import accel
 from raytpu_torch.render import build, mega2, plain
 
 GROUP = 8  #: triangles in a group: one worklist entry, 640 bytes of the blob
@@ -81,12 +85,13 @@ def render_image_mega3_f32(scene: Scene, config: RenderConfig, tile0: int | None
     tile0 = tile0 or 0
     buf, counts = plain.mega_pack(scene, config)
     blob = pack_groups(buf, counts)
-    wl, cnt = mega2.primary_worklists(scene, config, tile0, tiles)
+    glo, ghi, boxes = accel.group_boxes(scene.triangles)  # once, for every cull and K11b
+    wl, cnt = mega2.primary_worklists(scene, config, tile0, tiles, (glo, ghi))
     acc, bounds = mega3_closest(buf, counts, blob, wl, cnt, config, tile0, tiles)
     if counts[3] == 0:  # no lights: black (W1)
         return mega2.black(config, tiles, buf.device)
-    wl_s, cnt_s = mega2.shadow_worklists(scene, config, bounds)
-    return mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, config, tile0, tiles)
+    wl_s, cnt_s = mega2.shadow_worklists(scene, config, bounds, (glo, ghi))
+    return mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, config, tile0, tiles)
 
 
 def _launch_args(buf, counts, blob, wl, cnt, config: RenderConfig, tiles, what, extra):
@@ -100,8 +105,7 @@ def _launch_args(buf, counts, blob, wl, cnt, config: RenderConfig, tiles, what, 
         "scene buffer": (buf, torch.float32, mega2._buf_shape(counts)),
         "blob": (blob, torch.float32, (ng, GROUP * plain.TRI_COLS)),
         "wl": (wl, torch.int32, wl_shape), "cnt": (cnt, torch.int32, wl_shape[:-1]), **extra})
-    if blob.data_ptr() % 16:
-        raise ValueError(f"{what}: the blob must be 16-byte aligned for the kernel's copies")
+    build.check_aligned(what, "the blob", blob, 16)
     return nt, S, P, T, L
 
 
@@ -131,12 +135,14 @@ def mega3_closest(buf, counts, blob, wl, cnt, config: RenderConfig, tile0: int =
     return acc, bounds
 
 
-def mega3_shade(buf, counts, blob, wl, cnt, acc, config: RenderConfig, tile0: int = 0,
+def mega3_shade(buf, counts, blob, boxes, wl, cnt, acc, config: RenderConfig, tile0: int = 0,
                 tiles: int | None = None):
     """K11b -> (H, W, 3) float32, or with ``tiles`` set the range's
-    (tiles * 1024, 3) in feed order.  ``wl`` (nt, L, n) int32 and ``cnt``
-    (nt, L) int32 are the shadow worklists, ``acc`` is K11a's.  A CPU
-    buffer takes K2b's plain version."""
+    (tiles * 1024, 3) in feed order.  ``boxes`` (ceil(T/8), 8) float32 are
+    the group box records (``accel.shadow_boxes``) each shadow ray tests
+    before a group's triangles, ``wl`` (nt, L, n) int32 and ``cnt`` (nt, L)
+    int32 the shadow worklists, ``acc`` K11a's.  A CPU buffer takes K2b's
+    plain version, which needs no boxes."""
     global MEGA3_SHADE_LAUNCHES
     if buf.device.type == "cpu":
         _check(counts, config)
@@ -144,13 +150,16 @@ def mega3_shade(buf, counts, blob, wl, cnt, acc, config: RenderConfig, tile0: in
     nt, S, P, T, L = _launch_args(
         buf, counts, blob, wl, cnt, config, tiles, "K11b",
         {"acc": (acc, torch.float32, (mega2.ACC_ROWS, (tiles or mega2.num_tiles(config))
-                                      * mega2.TILE))})
+                                      * mega2.TILE)),
+         "boxes": (boxes, torch.float32, (-(-counts[2] // GROUP), accel.BOX_COLS))})
+    build.check_aligned("K11b", "boxes", boxes, 16)
     out = torch.empty(mega2.frame_shape(config, tiles), dtype=torch.float32, device=buf.device)
     lib = build.load()
     with torch.cuda.device(buf.device):
         err = lib.raytpu_mega3_shade(
-            buf.data_ptr(), S, P, T, L, blob.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
-            wl.shape[2], config.width, config.height, int(mega2.is_tiled(config)), tile0, nt,
+            buf.data_ptr(), S, P, T, L, blob.data_ptr(), boxes.data_ptr(), wl.data_ptr(),
+            cnt.data_ptr(), wl.shape[2], config.width, config.height, int(mega2.is_tiled(config)),
+            tile0, nt,
             int(tiles is not None), int(config.lighting_mode), int(bool(config.shadows)),
             float(config.ray_min), float(config.normal_offset), float(config.shadow_dim),
             acc.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)

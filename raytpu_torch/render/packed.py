@@ -11,7 +11,9 @@ and of the parts of ``raytpu/render/pallas_soft.py`` it runs:
     per-tile worklists -> t, the winner's global index, its unit normal and
     material id;
   * K4 (``any_hit_lights``): every light's occlusion for the shadow rays,
-    culled by per-(tile, light) worklists, triangle culling inverted.
+    culled by per-(tile, light) worklists and, ray by ray, by the padded
+    group boxes widened for the ray (``accel.shadow_boxes``), triangle
+    culling inverted.
 
 Camera rays go in 32x32 pixel blocks when W and H are multiples of 32
 (``mega2_fold``), so that a tile's directions form a tight cone.  The shade
@@ -79,19 +81,21 @@ def closest_worklists(scene: Scene, ro, rd, tmin, tmax=float("inf"), group=accel
     return accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi, float(tmin)))
 
 
-def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None, group=accel.GROUP):
+def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None, group=accel.GROUP,
+                     group_bounds=None):
     """The shadow rays' worklists ``(wl (nt, L, ng) int32, cnt (nt, L)
     int32)``: each light's groups of ``group`` triangles that a shadow ray
     of the tile may hit, from the shadow rays themselves
     (``accel.shadow_cull_matrix``).  K4 passes no ``soft_beta``; the soft
     kernels K5-K7 pass theirs, which widens every group's box by
     ``accel.chunk_soft_slack`` (pallas_soft.py:_padded_group_bounds).  K9
-    and K10 take 128-triangle chunks."""
+    and K10 take 128-triangle chunks.  ``group_bounds`` is
+    ``accel.chunk_bounds(scene.triangles, group)`` where the caller has it."""
     L, nt = dirs.shape[0], -(-p.shape[0] // TILE)
     if not accel.culls_groups(scene.triangles, group):
         wl, cnt = accel.full_worklist(nt * L, scene.triangles, group)
         return wl.reshape(nt, L, -1), cnt.reshape(nt, L)
-    glo, ghi = accel.chunk_bounds(scene.triangles, group)
+    glo, ghi = group_bounds or accel.chunk_bounds(scene.triangles, group)
     if soft_beta is not None:
         slack = accel.chunk_soft_slack(scene.triangles, float(soft_beta), group)[:, None]
         glo, ghi = glo - slack, ghi + slack
@@ -178,16 +182,21 @@ def hit_records_from_payload(ro_b, rd, t, normal, mat):
 def any_hit_lights_mega2(scene: Scene, p, dirs, mags, tmin):
     """(L, R) bool occlusion for every light: shadow origins ``p`` (R,3),
     directions ``dirs`` (L,R,3), segment lengths ``mags`` (L,R); shadow rays
-    invert triangle culling (reference: source/Utils.h:114-127)."""
+    invert triangle culling (reference: source/Utils.h:114-127).  The group
+    boxes are computed once, for the worklists and for K4's per-ray test."""
     p, dirs, mags = p.contiguous(), dirs.contiguous(), mags.contiguous()
-    wl, cnt = shadow_worklists(scene, p, dirs, mags, tmin)
-    return any_hit_lights(p, dirs, mags, *soft_packs(scene), wl, cnt, float(tmin))
+    glo, ghi, boxes = accel.group_boxes(scene.triangles)
+    wl, cnt = shadow_worklists(scene, p, dirs, mags, tmin, group_bounds=(glo, ghi))
+    return any_hit_lights(p, dirs, mags, *soft_packs(scene), boxes, wl, cnt, float(tmin))
 
 
-def any_hit_lights(p, dirs, mags, sph, pln, tri, wl, cnt, tmin):
+def any_hit_lights(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, tmin):
     """K4 over shadow rays and the records of ``soft_packs``, walking each
     (tile, light) worklist ``wl`` (nt, L, n) int32 up to ``cnt`` (nt, L)
-    int32 -> (L, R) bool.  CPU tensors take ``any_hit_lights_plain``."""
+    int32 and testing each ray's segment against ``boxes`` (ceil(T/8), 8)
+    float32 (``accel.shadow_boxes``) before a group's triangles -> (L, R)
+    bool.  CPU tensors take ``any_hit_lights_plain``, which needs no
+    boxes."""
     global PACKED_ANYHIT_LAUNCHES
     if p.device.type == "cpu":
         return any_hit_lights_plain(p, dirs, mags, sph, pln, tri, tmin)
@@ -198,14 +207,16 @@ def any_hit_lights(p, dirs, mags, sph, pln, tri, wl, cnt, tmin):
         "mags": (mags, torch.float32, (L, R)),
         "spheres": (sph, torch.float32, (S, SP_COLS)), "planes": (pln, torch.float32, (P, SP_COLS)),
         "triangles": (tri, torch.float32, (T, TRI_COLS)),
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.BOX_COLS)),
         "wl": (wl, torch.int32, (nt, L, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt, L))})
+    build.check_aligned("K4", "boxes", boxes, 16)
     occ = torch.empty((L, R), dtype=torch.bool, device=p.device)  # one byte, 0 or 1
     lib = build.load()
     with torch.cuda.device(p.device):
         err = lib.raytpu_packed_anyhit(
             p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), S,
-            pln.data_ptr(), P, tri.data_ptr(), T, wl.data_ptr(), cnt.data_ptr(), wl.shape[-1],
-            float(tmin), occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            pln.data_ptr(), P, tri.data_ptr(), T, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
+            wl.shape[-1], float(tmin), occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: {build.cuda_error_name(lib, err)}")
     PACKED_ANYHIT_LAUNCHES += 1

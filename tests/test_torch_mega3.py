@@ -43,6 +43,7 @@ from raytpu.render import pallas_kernel as pk
 from raytpu.render import renderer as jrenderer
 from raytpu_torch.core import math3d, scenes
 from raytpu_torch.core.types import LightingMode, RenderConfig
+from raytpu_torch.ops import accel
 from raytpu_torch.parallel import sharding
 from raytpu_torch.render import cuda_kernel, mega2, mega3, packed, plain
 
@@ -303,7 +304,8 @@ def test_k11_matches_plain_versions_and_k2_on_the_card():
             acc_p, _ = mega2.mega2_closest_plain(buf, counts, cfg)
             assert (acc[0] == acc_p[0]).float().mean() >= 0.9999
             wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
-            img = mega3.mega3_shade(buf, counts, blob, wl_s, cnt_s, acc, cfg)
+            boxes = accel.group_boxes(scene.triangles)[2]
+            img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             assert (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES) == (
                 before[0] + 1, before[1] + 1)
             assert torch.equal(img, mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg))
