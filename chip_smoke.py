@@ -169,6 +169,11 @@ CHUNKED_PATHS = (("optional_l12", 16, (W, H), "optional"),
                  ("bunny18k_l12", 4, (160, 128), "bunny"),
                  ("reference_s106", 16, (160, 128), "reference"))
 ANIMATED_BY = {name: base for name, _, _, base in CHUNKED_PATHS}
+#: the chunked kernels' comparisons with their plain versions: each
+#: fixture's size, and optional_l12 on a frame that does not fold (K10's
+#: 8x4 warps on rows of 50)
+CHUNKED_CMP = tuple((name, size) for name, _, size, _ in CHUNKED_PATHS) + (
+    ("optional_l12", (50, 37)),)
 #: the size at which the chunked route is held against the eager path and
 #: the plain versions are timed
 CHUNKED_PLAIN_SIZE = (160, 128)
@@ -620,8 +625,11 @@ def phase_compare_soft(dev, built: dict) -> dict:
     frame; K5 and K6 are checked on every CMP_TILE_STRIDE-th tile, K7 (a sum
     over every ray) against its plain version over every ray.  K5 must be
     within 1e-5, K6 and K7 within 1e-4 of each output's largest magnitude;
-    K7 launches twice, to show how far its atomic sums move between runs."""
+    K7 launches twice, to show how far its atomic sums move between runs.
+    K5 must equal itself bit for bit over records that pass every listed
+    group (its soft box tests skip only factors of exactly 1)."""
     from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
     from raytpu_torch.render import packed, soft
 
     out = {k: {"max_abs_diff": 0.0, "max_rel_err": 0.0} for k in ("K5", "K6", "K7")}
@@ -634,6 +642,13 @@ def phase_compare_soft(dev, built: dict) -> dict:
         blobs = packed.soft_packs(scene)
         gen = torch.Generator(device=dev).manual_seed(0)
         trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+        every = soft.soft_trans_lights_cuda(
+            p, dirs, mags, *blobs,
+            accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), dev), wl, cnt, tmin,
+            beta)
+        if not torch.equal(trans, every):
+            raise AssertionError(f"K5 {name}: the soft box tests changed "
+                                 f"{int((trans != every).sum())} (light, ray) pairs")
         g = torch.rand(trans.shape, generator=gen, device=dev) * 2.0 - 1.0
         ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta)
         prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta)
@@ -662,7 +677,8 @@ def phase_compare_soft(dev, built: dict) -> dict:
         run_to_run = float((prim - prim2).abs().max())
         g_mags_max = float(ray_p[2].abs().max())
         print(f"phase 2: K5-K7 {name} {w}x{h}, (L, R) {tuple(trans.shape)}, {sub.numel()} rays "
-              f"checked for K5 and K6, all for K7: K5 max|diff| {errs['K5'][0]:.3e}; K6 max|diff| "
+              f"checked for K5 and K6, all for K7: K5 max|diff| {errs['K5'][0]:.3e}, equal bit "
+              f"for bit to its walk over every listed group; K6 max|diff| "
               f"{errs['K6'][0]:.3e} ({errs['K6'][1]:.3e} of the largest, g_mags max "
               f"{g_mags_max:.3e}); K7 max|diff| {errs['K7'][0]:.3e} ({errs['K7'][1]:.3e} of the "
               f"largest), run to run {run_to_run:.3e}; transmittance < 1 on "
@@ -750,14 +766,18 @@ def phase_compare_chunked(dev, built: dict) -> dict:
     agrees; its shadow mode on every light's shadow queries of those hits,
     flattened into one batch: the same first occluder on >= 99.99% of
     queries.  K9 on the same queries: >= 99.9% of (light, ray) pairs equal.
-    K10 on K8's records: the megakernel budget.  Then the route's light cap:
-    optional with 24 lights renders, with 25 the route and K9 raise."""
+    K10 on K8's records: the megakernel budget, and equal bit for bit to
+    itself over records that pass every group of every listed chunk (the box
+    tests drop no occluder).  Also optional_l12 at 50x37, a frame that does
+    not fold.  Then the route's light cap: optional with 24 lights renders,
+    with 25 the route and K9 raise."""
     from raytpu_torch.core import convert, math3d
     from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
     from raytpu_torch.render import chunked, cuda_kernel, packed, plain, renderer
 
     out = {k: {"max_abs_diff": 0.0, "flip_frac": 0.0} for k in ("K8", "K9", "K10")}
-    for name, _, (w, h), _ in CHUNKED_PATHS:
+    for name, (w, h) in CHUNKED_CMP:
         scene = built[name]
         cfg = RenderConfig(width=w, height=h)
         tmin = cfg.ray_min
@@ -809,12 +829,22 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         k10_diff = float((colors[sub] - colors_p).abs().max())
         flips, mean = close_u8(math3d.quantize_u8(colors[sub]).cpu().numpy()[None],
                                math3d.quantize_u8(colors_p).cpu().numpy()[None], 0.01, 0.5)
+        _, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
+        every = chunked.shadow_shade(
+            rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd, p_off,
+            dirs, mags, plain.pack_lights(scene.lights), plain.material_table(scene.materials),
+            *blobs, accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), dev), wl_s,
+            cnt_s, cfg)
+        if not torch.equal(colors, every):
+            raise AssertionError(f"K10 {name} {w}x{h}: the box tests changed "
+                                 f"{int((colors != every).any(dim=1).sum())} pixels")
         print(f"phase 2: K8 {name} {w}x{h} ({sub.numel()} of {R} rays checked): winners agree "
               f"{agree:.6f}, max|t diff| {t_diff:.3e} (rel {t_rel:.3e}), max|normal diff| "
               f"{n_diff:.3e}; shadow mode on {L} x {sub.numel()} queries: first occluders agree "
               f"{s_agree:.6f} (max|t diff| {s_diff:.3e}); K9 on {tuple(occ.shape)} (L, R): "
               f"{k9_flip:.6f} of pairs differ, occluded share {float(occp.float().mean()):.4f}; "
-              f"K10 max|f32 diff| {k10_diff:.3e} flips {flips:.5f} mean {mean:.5f}", flush=True)
+              f"K10 max|f32 diff| {k10_diff:.3e} flips {flips:.5f} mean {mean:.5f}, equal bit "
+              f"for bit to its walk over every listed group", flush=True)
         _worst(out["K8"], max(t_diff, n_diff, s_diff), max(1.0 - agree, 1.0 - s_agree))
         _worst(out["K9"], float((occ[:, sub] != occp).any()), k9_flip)
         _worst(out["K10"], k10_diff, flips)
@@ -1494,33 +1524,47 @@ def _shadow_ops(S: int, P: int, occ, hit, tris, tiles: int):
     return ops + float((hit & occ).sum()) * OPS_PLANE
 
 
-def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int, P: int):
-    """What the box tests leave of each light's shadow worklists, for K4's
-    or K11b's queries: origins ``p`` (R, 3) in tile order, ``dirs`` (L, R,
-    3), ``mags`` (L, R), ``queried`` (R,) the rays the kernel asks about,
-    ``wl`` (nt, L, n) and ``cnt`` (nt, L) the worklists, ``boxes`` the box
-    records, ``occ`` (L, R) the answers.  Per light: groups listed per
-    query; groups whose padded box the query's segment crosses
-    (``accel.tight_segment_box_test``) and whose box widened for the ray
-    does (``accel.segment_box_test``, the kernels' test); the union of the
-    latter over each of the kernels' warps (``accel.warp_slots``); the
-    occluded share; and the box-culled count of FP32 operations: every
-    sphere and plane, and tri_t on every triangle of every group whose
-    padded box the segment crosses for a query that finds no occluder, one
-    test for one that does (where it is found is not counted).  No box test
-    is counted, and the triangles are counted per ray, not per warp, with
-    the padded box and not the wider one the kernels need for tri_t's
-    rounding: a lower bound for any walk over these 8-triangle groups."""
+def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int, P: int,
+                     chunk: int = 8, soft_ops=None):
+    """What the box tests leave of each light's shadow worklists, for the
+    queries of a kernel on the shadow walk (K4, K11b, K10, K5): origins
+    ``p`` (R, 3) in tile order, ``dirs`` (L, R, 3), ``mags`` (L, R),
+    ``queried`` (R,) the rays the kernel asks about, ``wl`` (nt, L, n) and
+    ``cnt`` (nt, L) the worklists, of 8-triangle groups or, with ``chunk`` =
+    128, of chunks that the walk expands to their 16 groups (K10), ``boxes``
+    the box records (8 columns, or the normal records), ``occ`` (L, R) the
+    answers, or None for the soft walk (K5), which has no occluded
+    shortcut and costs ``soft_ops`` = (per sphere, per plane, per triangle)
+    operations.  Per light: groups listed per query; groups whose padded
+    box the query's segment crosses (``accel.tight_segment_box_test``) and
+    whose box widened for the ray does (``accel.segment_box_test``, the
+    kernels' test); for the normal records also kappa's widening of the same
+    boxes (what the kappa walk would leave) and the share of (query, listed
+    group) pairs whose widening the triangles' normals narrow;
+    the union of the widened groups over each of the kernels' warps
+    (``accel.warp_slots``); the occluded share; and the box-culled count of
+    FP32 operations: every sphere and plane, and the triangle test on every
+    triangle of every group whose padded box the segment crosses, for a
+    query that finds no occluder, one test for one that does (where it is
+    found is not counted).  No box test is counted, and the triangles are
+    counted per ray, not per warp, with the padded box and not the wider one
+    the kernels need for the triangle test's rounding: a lower bound for
+    any walk over these groups."""
     from raytpu_torch.ops import accel
 
     L, R = dirs.shape[:2]
-    nt, step, dev = -(-R // 1024), 4, p.device
+    normals = boxes.shape[1] == accel.NORMAL_COLS
+    nt, step, dev = -(-R // 1024), 1 if normals else 4, p.device
+    ng, k_exp = boxes.shape[0], chunk // accel.GROUP
     group_tris = _group_tris(T, dev)
     slots = accel.warp_slots(dev).flatten()
+    tri_ops, sp_ops = ((soft_ops[2], S * soft_ops[0] + P * soft_ops[1]) if soft_ops
+                       else (OPS_TRI_SHADOW, S * OPS_SPHERE + P * OPS_PLANE))
     out = []
     for li in range(L):
         inv = accel.inv_dir(dirs[li])
-        acc = {k: 0.0 for k in ("listed", "crossed", "widened", "tris", "union", "warps", "ops")}
+        acc = dict.fromkeys(("listed", "crossed", "widened", "kappa", "narrowed", "tris", "union",
+                             "warps", "ops"), 0.0)
         for t0 in range(0, nt, step):
             t1 = min(nt, t0 + step)
             k, r0, r1 = t1 - t0, t0 * 1024, min(t1 * 1024, R)
@@ -1533,38 +1577,50 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
                 return x.reshape(k, 1024, *x.shape[1:])
 
             q = tiles(queried, False)
-            live = q & ~tiles(occ[li], True)
-            acc["listed"] += float(torch.where(q, c[:, None].to(torch.float64), 0.0).sum())
+            live = q if occ is None else q & ~tiles(occ[li], True)
             if cmax == 0:
                 continue
-            used = torch.arange(cmax, device=dev) < c[:, None]
-            g = torch.where(used, wl[t0:t1, li, :cmax].long(), 0)
+            # the walk's entries: each listed group, or each chunk's 16 groups
+            e = torch.arange(cmax * k_exp, device=dev)
+            g = wl[t0:t1, li, :cmax].long().repeat_interleave(k_exp, dim=1) * k_exp + e % k_exp
+            used = (e // k_exp < c[:, None]) & (g < ng)
+            g = torch.where(used, g, 0)
+            acc["listed"] += float((used.sum(dim=1).to(torch.float64) * q.sum(dim=1)).sum())
+            d = tiles(dirs[li], 0.0)
             args = (tiles(p, 0.0), tiles(inv, 1.0), tiles(mags[li], 0.0), boxes[g])
             keep = used[:, None, :] & q[..., None]
             cross = accel.tight_segment_box_test(*args) & keep
-            wide = accel.segment_box_test(*args) & keep
+            wide = accel.segment_box_test(*args, d=d) & keep
+            if normals:
+                acc["kappa"] += float((accel.segment_box_test(*args[:3], boxes[g][..., :8])
+                                       & keep).sum())
+                acc["narrowed"] += float((accel.narrowed(d, boxes[g]) & keep).sum())
             tris = (cross.to(torch.float64) * group_tris[g][:, None, :]).sum(dim=-1)
             acc["crossed"] += float(cross.sum())
             acc["widened"] += float(wide.sum())
             acc["tris"] += float(tris[q].sum())
-            acc["ops"] += float(tris[live].sum()) * OPS_TRI_SHADOW
+            acc["ops"] += float(tris[live].sum()) * tri_ops
             warp_q = q[:, slots].reshape(k, 32, 32).any(dim=2)
-            acc["union"] += float(wide[:, slots].reshape(k, 32, 32, cmax).any(dim=2).sum())
+            acc["union"] += float(wide[:, slots].reshape(k, 32, 32, -1).any(dim=2).sum())
             acc["warps"] += float(warp_q.sum())
         n_q = float(queried.sum())
-        n_occ = float((occ[li] & queried).sum())
-        acc["ops"] += (n_q - n_occ) * (S * OPS_SPHERE + P * OPS_PLANE) + n_occ * OPS_PLANE
-        out.append({"listed_per_query": acc["listed"] / max(n_q, 1.0),
-                    "crossed_per_query": acc["crossed"] / max(n_q, 1.0),
-                    "widened_per_query": acc["widened"] / max(n_q, 1.0),
-                    "crossed_tris_per_query": acc["tris"] / max(n_q, 1.0),
-                    "union_per_warp": acc["union"] / max(acc["warps"], 1.0),
-                    "occluded_share": n_occ / max(n_q, 1.0), "ops": acc["ops"]})
+        n_occ = 0.0 if occ is None else float((occ[li] & queried).sum())
+        acc["ops"] += (n_q - n_occ) * sp_ops + n_occ * OPS_PLANE
+        per_q = max(n_q, 1.0)
+        st = {"listed_per_query": acc["listed"] / per_q, "crossed_per_query": acc["crossed"] / per_q,
+              "widened_per_query": acc["widened"] / per_q,
+              "crossed_tris_per_query": acc["tris"] / per_q,
+              "union_per_warp": acc["union"] / max(acc["warps"], 1.0),
+              "occluded_share": n_occ / per_q, "ops": acc["ops"]}
+        if normals:
+            st["kappa_widened_per_query"] = acc["kappa"] / per_q
+            st["narrowed_share"] = acc["narrowed"] / max(acc["listed"], 1.0)
+        out.append(st)
     return out
 
 
 def _box_bound(ops: float, ops_listed: float, nbytes: float, stats: list) -> dict:
-    """K4's or K11b's bound from its box-culled count ``ops``, with the count
+    """A shadow-walk kernel's bound from its box-culled count ``ops``, with the count
     of every listed triangle (``ops_listed``, Queue 2's yardstick) beside it
     as ``bound_ms_listed``, and the box statistics."""
     return {**_bound(ops, nbytes), "bound_ms_listed": _bound(ops_listed, nbytes)["bound_ms"],
@@ -1578,10 +1634,12 @@ def _listed_note(e: dict) -> str:
 
 def _print_box_stats(key: str, name: str, stats: list) -> None:
     for li, st in enumerate(stats):
+        kappa = (f" (kappa's widening: {st['kappa_widened_per_query']:.2f}; narrowed on "
+                 f"{st['narrowed_share']:.4f} of listed pairs)" if "narrowed_share" in st else "")
         print(f"phase 4: {key} {name} boxes, light {li}: {st['listed_per_query']:.1f} groups "
               f"listed per query, {st['crossed_per_query']:.2f} whose padded box the segment "
               f"crosses ({st['crossed_tris_per_query']:.1f} triangles), "
-              f"{st['widened_per_query']:.2f} widened for the ray (the kernels' test), "
+              f"{st['widened_per_query']:.2f} widened for the ray (the kernels' test){kappa}, "
               f"{st['union_per_warp']:.1f} of those in the union over a warp, occluded share "
               f"{st['occluded_share']:.4f}", flush=True)
 
@@ -1765,8 +1823,11 @@ OPS_SOFT_SPHERE, OPS_SOFT_PLANE = 28, 24
 def time_soft(dev, built: dict, name: str, plain: bool):
     """K5's, K6's and K7's times at 640x480 on the differentiable main
     path's soft shadow queries, beside their bounds, counted from the
-    queries' worklists; the plain versions' times on the same whole frame
-    when ``plain``."""
+    queries' worklists (K5's box-culled, with the soft records: every
+    sphere and plane, and each triangle of each group whose soft-padded box
+    the segment crosses, with the count of every listed triangle beside
+    it); the plain versions' times on the same whole frame when
+    ``plain``."""
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.render import packed, soft
     from raytpu_torch.utils.profiling import device_ms
@@ -1779,10 +1840,12 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     S, P, T = (b.shape[0] for b in blobs)
     L, R = mags.shape
     trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+    boxes = soft.soft_boxes(scene, p, dirs, mags, tmin, beta)[0]
     g = torch.rand(trans.shape, generator=torch.Generator(device=dev).manual_seed(2),
                    device=dev) * 2.0 - 1.0
     calls = {
-        "K5": (lambda: soft.soft_trans_lights_cuda(p, dirs, mags, *blobs, wl, cnt, tmin, beta),
+        "K5": (lambda: soft.soft_trans_lights_cuda(p, dirs, mags, *blobs, boxes, wl, cnt, tmin,
+                                                   beta),
                lambda: soft.soft_trans_plain(p, dirs, mags, *blobs, tmin, beta)),
         "K6": (lambda: soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta),
                lambda: soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, tmin, beta)),
@@ -1796,9 +1859,15 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     blob_bytes = sum(b.numel() for b in blobs) * 4
     wl_bytes = (int(cnt.sum()) + cnt.numel()) * 4
     rays_in = R * 12 + L * R * 16
+    every = torch.ones((R,), dtype=torch.bool, device=dev)
+    stats = shadow_box_stats(p, dirs, mags, every, wl, cnt, boxes, T, None, S, P, soft_ops=(
+        OPS_SOFT_SPHERE + OPS_SOFT_MUL, OPS_SOFT_PLANE + OPS_SOFT_MUL, OPS_SOFT_TRI + OPS_SOFT_MUL))
+    _print_box_stats("K5", name, stats)
     bounds = {
-        "K5": _bound(sp_ops + L * R * (S + P) * OPS_SOFT_MUL + tests * (OPS_SOFT_TRI + OPS_SOFT_MUL),
-                     rays_in + blob_bytes + wl_bytes + L * R * 4),
+        "K5": _box_bound(sum(st["ops"] for st in stats),
+                         sp_ops + L * R * (S + P) * OPS_SOFT_MUL
+                         + tests * (OPS_SOFT_TRI + OPS_SOFT_MUL),
+                         rays_in + blob_bytes + boxes.numel() * 4 + wl_bytes + L * R * 4, stats),
         "K6": _bound(sp_ops + tests * OPS_SOFT_TRI,
                      rays_in + L * R * 8 + blob_bytes + wl_bytes + R * 12 + L * R * 16),
         "K7": _bound(tests * OPS_SOFT_TRI,
@@ -1811,8 +1880,8 @@ def time_soft(dev, built: dict, name: str, plain: bool):
                     **bounds[key]}
         e = out[key]
         print(f"phase 4: {key} {name}: {ms:.4f} ms, bound {e['bound_ms']:.4f} ms by "
-              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B), plain "
-              f"{plain_ms if plain_ms is None else round(plain_ms, 2)} ms; "
+              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B)" + _listed_note(e)
+              + f", plain {plain_ms if plain_ms is None else round(plain_ms, 2)} ms; "
               f"{out['tests_per_query']:.1f} triangle tests per (shadow ray, light)", flush=True)
     return out
 
@@ -1832,8 +1901,10 @@ def time_chunked(dev, built: dict, name: str):
     """K8's (closest mode), K9's and K10's times at 640x480 on the route's
     camera rays and their shadow queries, beside their bounds, counted from
     this frame's worklists as for K3 and K4 (a shadow query that finds an
-    occluder counts one plane test: a lower bound); the plain versions'
-    times on the whole frame at CHUNKED_PLAIN_SIZE."""
+    occluder counts one plane test: a lower bound); K10's bound is
+    box-culled, as K4's, with the count of every listed triangle beside it,
+    and its box statistics are printed; the plain versions' times on the
+    whole frame at CHUNKED_PLAIN_SIZE."""
     from raytpu_torch.core.types import LightKind, RenderConfig
     from raytpu_torch.render import chunked, packed, plain, renderer
     from raytpu_torch.utils.profiling import device_ms
@@ -1862,14 +1933,14 @@ def time_chunked(dev, built: dict, name: str):
                 lambda: plain.shadow_shade_plain(*k10_args, cfg), 1, 0)
             continue
         wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group=chunked.CHUNK)
-        wl_s, cnt_s = packed.shadow_worklists(scene, p_off, dirs, mags, tmin, group=chunked.CHUNK)
+        boxes, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
         ms8 = device_ms(lambda: chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False),
                         iters=20, warmup=2)
         occ = chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s, tmin)
         ms9 = device_ms(lambda: chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s,
                                                        tmin), iters=20, warmup=2)
-        ms10 = device_ms(lambda: chunked.shadow_shade(*k10_args, wl_s, cnt_s, cfg), iters=20,
-                         warmup=2)
+        ms10 = device_ms(lambda: chunked.shadow_shade(*k10_args, boxes, wl_s, cnt_s, cfg),
+                         iters=20, warmup=2)
         tile_rays = _tile_rays(R, dev)
         tris8 = _worklist_tris(wl, cnt, T, chunked.CHUNK)
         n_hit = float(rec.hit.sum())
@@ -1885,25 +1956,35 @@ def time_chunked(dev, built: dict, name: str):
         bytes9 = R * 12 + L * R * 16 + blob_bytes + wl_s_bytes + L * R
         kind = mats[rec.material.long(), 0]
         metal = mats[rec.material.long(), 4] != 0.0
-        ops10 = n_hit * OPS_K10_TAIL
+        ops10 = ops_shade = n_hit * OPS_K10_TAIL
         for li in range(L):
             is_point = int(scene.lights.kind[li]) == int(LightKind.POINT)
             ops10 += _shadow_ops(S, P, occ[li], rec.hit, tris_s[:, li], len(tile_rays))
-            ops10 += float(_shade_ops(cfg, is_point, kind, metal)[rec.hit & ~occ[li]].sum())
+            shade = float(_shade_ops(cfg, is_point, kind, metal)[rec.hit & ~occ[li]].sum())
+            ops10 += shade
+            ops_shade += shade
         bytes10 = (R * (1 + 12 + 12 + 4 + 12 + 12) + L * R * 16 + lights.numel() * 4
                    + mats.numel() * 4 + blob_bytes + wl_s_bytes + R * 12)
         size = f"{CHUNKED_PLAIN_SIZE[0]}x{CHUNKED_PLAIN_SIZE[1]}"
-        for key, ms, ops, nbytes in (("K8", ms8, ops8, bytes8), ("K9", ms9, ops9, bytes9),
-                                     ("K10", ms10, ops10, bytes10)):
+        for key, ms, ops, nbytes in (("K8", ms8, ops8, bytes8), ("K9", ms9, ops9, bytes9)):
             out[key] = {"ms": ms, "plain_size": size, **_bound(ops, nbytes)}
+        if boxes is None:  # a scene of a few groups: K10 tests every listed triangle
+            out["K10"] = {"ms": ms10, "plain_size": size, **_bound(ops10, bytes10)}
+        else:  # K10 walks the chunks' groups with the normal records (chunk -> 16 groups)
+            stats = shadow_box_stats(p_off, dirs, mags, rec.hit, wl_s, cnt_s, boxes, T, occ, S,
+                                     P, chunk=chunked.CHUNK)
+            _print_box_stats("K10", name, stats)
+            out["K10"] = {"ms": ms10, "plain_size": size,
+                          **_box_bound(ops_shade + sum(st["ops"] for st in stats), ops10,
+                                       bytes10 + boxes.numel() * 4, stats)}
         out["tests_per_ray"] = float((tile_rays * tris8).sum()) / R
         out["shadow_tests_per_query"] = float((tile_rays[:, None] * tris_s).sum()) / (L * R)
         out["occluded_share"] = float((occ & rec.hit[None]).sum()) / max(n_hit * L, 1.0)
     for key in ("K8", "K9", "K10"):
         e = out[key]
         print(f"phase 4: {key} {name}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
-              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B), plain "
-              f"{e['plain_ms']:.2f} ms at {e['plain_size']}", flush=True)
+              f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B)" + _listed_note(e)
+              + f", plain {e['plain_ms']:.2f} ms at {e['plain_size']}", flush=True)
     print(f"phase 4: {name}: {out['tests_per_ray']:.1f} triangle tests per camera ray, "
           f"{out['shadow_tests_per_query']:.1f} per (shadow ray, light) before any stop, "
           f"occluded share {out['occluded_share']:.4f}", flush=True)

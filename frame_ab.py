@@ -1,9 +1,9 @@
 """Frame times of raytpu_torch's routes, with host-to-device copies per frame,
-and the shadow any-hit kernels' times and answers, for comparing two trees of
+and the shadow-walk kernels' times and answers, for comparing two trees of
 the repo on one CUDA card.
 
     python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
-    python3 frame_ab.py --compare DIR # the trees' K4 answers saved in DIR, pair by pair
+    python3 frame_ab.py --compare DIR # the trees' K4, K10 and K5 answers saved in DIR
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
@@ -22,11 +22,19 @@ SHARDED_WALL on two ranks sharing the card.  Last, on frame 0 of bunny50k and bu
 (``packed.any_hit_lights``, on the shadow queries of K3's hits) and K11b
 (``mega3.mega3_shade``, on K11a's buffer) alone, REPEATS runs of KERNEL_ITERS
 launches each; with ``--out DIR`` it saves K4's (L, R) answer there, one
-file per tree and scene, with a digest of its inputs.
+file per tree and scene, with a digest of its inputs.  Likewise K10
+(``chunked.shadow_shade``, on the shadow queries of K8's hits) on frame 0
+of optional_l12, bunny18k_l12 and reference_s106 (K10_SCENES), saving its
+(R, 3) colors,
+and K5 (``soft.soft_trans_lights_cuda``, on the soft shadow queries of
+K3's hits, as the differentiable path forms them) on optional, bunny50k
+and bunny300k (K5_SCENES), saving its (L, R) transmittance.  Each wrapper
+is called with the box records where the tree's takes them.
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
-_work/parent``), then compares their K4 answers:
+_work/parent``), then counts the (light, ray) pairs of K4 and K5 and the
+(pixel, channel) entries of K10 in which the trees' answers differ:
 
     for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
         --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
@@ -50,6 +58,10 @@ STEPS = 8
 KERNEL_ITERS = 5
 #: the scenes on which K4 and K11b are timed and K4's answers saved
 KERNEL_SCENES = ("bunny50k", "bunny300k")
+#: the chunked fixtures on which K10 is timed and its colors saved
+K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
+#: the scenes on which K5 is timed and its transmittance saved
+K5_SCENES = ("optional", "bunny50k", "bunny300k")
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -64,8 +76,9 @@ def _spread(xs: list) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", help="directory for K4's answers, one file per tree and scene")
-    ap.add_argument("--compare", metavar="DIR", help="compare the trees' K4 answers in DIR")
+    ap.add_argument("--out", help="directory for the kernels' answers, one file per tree, "
+                    "kernel and scene")
+    ap.add_argument("--compare", metavar="DIR", help="compare the trees' answers in DIR")
     args = ap.parse_args(argv)
     if args.compare:
         return compare(args.compare)
@@ -128,8 +141,91 @@ def main(argv=None) -> int:
         out["sharded_wall_ms"] = _sharded(cs.SHARDED_CASES)
     for name in KERNEL_SCENES:
         out[name + "_kernels"] = _shadow_kernels(built[name], cfg, tree, name, args.out)
+    for name in K10_SCENES:
+        if name in built:
+            out[name + "_K10"] = _k10(built[name], cfg, tree, name, args.out)
+    for name in K5_SCENES:
+        out[name + "_K5"] = _k5(built[name], cfg, tree, name, args.out)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _save(outdir, kernel: str, name: str, tree: str, x, inputs) -> dict:
+    """Times aside, what a kernel's run leaves: the digest of its inputs, and
+    with ``outdir`` its answer ``x`` saved as ``{kernel}_{name}_{tree}.npz``
+    (compared with this tree's earlier run when there is one)."""
+    import numpy as np
+
+    digest = hashlib.sha256()
+    for t in inputs:
+        digest.update(t.cpu().numpy().tobytes())
+    res = {"inputs_sha256": digest.hexdigest()}
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        path = os.path.join(outdir, f"{kernel}_{name}_{tree}.npz")
+        a = x.cpu().numpy()
+        if os.path.exists(path):  # this tree's earlier run: the kernel answers the same each run
+            res["entries_differ_from_earlier_run"] = int((np.load(path)["x"] != a).sum())
+        np.savez(path, x=a, sha=res["inputs_sha256"])
+    return res
+
+
+def _k10(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K10's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's
+    unanimated frame through the chunked route's glue, its colors saved."""
+    import torch
+
+    from raytpu_torch.render import chunked, packed, plain, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    W, H, tmin = cfg.width, cfg.height, cfg.ray_min
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    args = [rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd, p, dirs,
+            mags, plain.pack_lights(scene.lights), plain.material_table(scene.materials),
+            *packed.soft_packs(scene)]
+    if hasattr(chunked, "shadow_inputs"):  # the tree's K10 takes its box records
+        args += chunked.shadow_inputs(scene, p, dirs, mags, tmin)
+    else:
+        args += packed.shadow_worklists(scene, p, dirs, mags, tmin, group=chunked.CHUNK)
+    args.append(cfg)
+    colors = chunked.shadow_shade(*args)
+    res = {"K10_ms": _spread([device_ms(lambda: chunked.shadow_shade(*args), iters=KERNEL_ITERS,
+                                        warmup=1) for _ in range(REPEATS)])}
+    torch.cuda.synchronize()
+    return {**res, **_save(outdir, "k10", name, tree, colors, (rec.hit, rec.normal, p, dirs, mags))}
+
+
+def _k5(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K5's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's soft
+    shadow queries at 640x480 as the differentiable path forms them, its
+    transmittance saved."""
+    import dataclasses
+
+    from raytpu_torch.render import packed, renderer, soft
+    from raytpu_torch.utils.profiling import device_ms
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    W, H, tmin, beta = cfg.width, cfg.height, cfg.ray_min, cfg.soft_beta
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, tmin)
+    rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    args = [p, dirs, mags, *packed.soft_packs(scene)]
+    if "boxes" in inspect.signature(soft.soft_trans_lights_cuda).parameters:
+        args += soft.soft_boxes(scene, p, dirs, mags, tmin, beta)
+    else:
+        args += soft.soft_worklists(scene, p, dirs, mags, tmin, beta)
+    args += [tmin, beta]
+    trans = soft.soft_trans_lights_cuda(*args)
+    res = {"K5_ms": _spread([device_ms(lambda: soft.soft_trans_lights_cuda(*args),
+                                       iters=KERNEL_ITERS, warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "k5", name, tree, trans, (p, dirs, mags))}
 
 
 def _sharded(cases) -> dict:
@@ -201,28 +297,37 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
 
 
 def compare(outdir: str) -> int:
-    """Count the (light, ray) pairs in which two trees' K4 answers differ,
-    scene by scene, from the files ``--out`` wrote; non-zero unless every
-    scene has both trees' answers, on the same inputs, and none differ."""
+    """Count the entries in which two trees' answers differ, kernel by
+    kernel and scene by scene, from the files ``--out`` wrote: K4's (light,
+    ray) pairs, K10's (pixel, channel) entries, K5's (light, ray) pairs.
+    Non-zero unless every kernel and scene has both trees' answers, on the
+    same inputs, and none differ."""
     import glob
 
     import numpy as np
 
     ok, out = True, {}
-    for name in KERNEL_SCENES:
-        files = sorted(glob.glob(os.path.join(outdir, f"k4_{name}_*.npz")))
-        runs = {f[len(os.path.join(outdir, f"k4_{name}_")):-4]: np.load(f) for f in files}
-        if len(runs) != 2:
-            out[name] = f"{len(runs)} trees' answers, not 2"
-            ok = False
-            continue
-        (ta, a), (tb, b) = sorted(runs.items())
-        same_inputs = str(a["sha"]) == str(b["sha"])
-        differ = int(np.unpackbits(a["bits"] ^ b["bits"]).sum())
-        out[name] = {"trees": [ta, tb], "pairs": int(np.prod(a["shape"])),
-                     "pairs_differ": differ, "same_inputs": same_inputs}
-        ok = ok and same_inputs and differ == 0
-    print(json.dumps({"k4_answers": out, "equal": ok}), flush=True)
+    for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES)):
+        for name in names:
+            prefix = os.path.join(outdir, f"{kernel}_{name}_")
+            runs = {f[len(prefix):-4]: np.load(f) for f in sorted(glob.glob(prefix + "*.npz"))}
+            key = f"{kernel.upper()} {name}"
+            if len(runs) != 2:
+                out[key] = f"{len(runs)} trees' answers, not 2"
+                ok = False
+                continue
+            (ta, a), (tb, b) = sorted(runs.items())
+            same_inputs = str(a["sha"]) == str(b["sha"])
+            if kernel == "k4":
+                entries = int(np.prod(a["shape"]))
+                differ = int(np.unpackbits(a["bits"] ^ b["bits"]).sum())
+            else:  # bit for bit: the float32 patterns
+                entries = int(a["x"].size)
+                differ = int((a["x"].view(np.uint32) != b["x"].view(np.uint32)).sum())
+            out[key] = {"trees": [ta, tb], "entries": entries, "entries_differ": differ,
+                        "same_inputs": same_inputs}
+            ok = ok and same_inputs and differ == 0
+    print(json.dumps({"answers": out, "equal": ok}), flush=True)
     return 0 if ok else 1
 
 

@@ -409,6 +409,112 @@ def shadow_boxes(glo, ghi, edge_product):
                      dim=1).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# A widening bounded by each ray's determinant (K10, K5)
+# ---------------------------------------------------------------------------
+#
+# The bound above, |a| |r| <= 26.4 u E |s|, holds with |a| the computed
+# determinant; kappa divides it by the least |a| that tri_t accepts, 2u,
+# the grazing worst case.  A ray that meets a group's triangles at an angle
+# has a larger determinant, and a lower bound a_lo of |a| over the group's
+# triangles for that ray bounds |r| by 13.2 E |s| (2u / a_lo): kappa's
+# widening scaled by 2u / a_lo <= 1.  The normal records
+# (``normal_boxes``) carry each group's eight triangle normals, and each
+# step of a_lo rounds down:
+#
+#   1. Exactly, a_k = e1 . (d x e2) = -n_k . d with n_k = e1 x e2 of
+#      triangle k's float32 edges (the records' e1, e2), so |a_k| = |n_k .
+#      d|.  The record stores n_k rounded to float32 from the exact
+#      product: within u |n_k| of it.
+#   2. c_k = |(n_k0 d0 + n_k1 d1) + n_k2 d2| in float32 is within 3u |n_k|
+#      |d| of the stored normal's exact dot product, |d| <= 1 + 2u for a
+#      normalized direction: with step 1, within 5u |n_k| <= 5u E of |a_k|
+#      (|n_k| <= |e1| |e2| <= E).
+#   3. The computed determinant is within 7u E of a_k (above), so |a| >=
+#      min_k c_k - 12u E over the group.  The kernel forms a_lo = min_k c_k
+#      - ea in float32, ea = kappa * TRI_SLACK: kappa >= HIT_SLACK E, so ea
+#      >= 16u E after its rounding; the min is exact, and the rounding of
+#      the difference, a relative u, is within HIT_SLACK's room (14 against
+#      13.2), as are the roundings of 2u / a_lo and of the scaled widening.
+#   4. Where a_lo <= 2u the scale 2u / max(a_lo, 2u) is exactly 1: the
+#      widening is kappa's, the grazing worst case.  A triangle parallel to
+#      the ray, or degenerate (n_k = 0), brings a group there.
+#
+# The bundle test bounds each |n_k . d| from below over a warp's
+# directions by interval arithmetic on their per-component bounds (0 where
+# the interval holds 0); every rounding above is monotone, so its scale is
+# at least each ray's, and it still implies the per-ray test.
+#
+# The soft records (K5).  K5 may skip a triangle only where plain float32
+# tri_soft gives occ < 2^-25, since then 1 - occ rounds to 1.0f exactly and
+# the product is unchanged bit for bit.  With m = SOFT_SUPPORT / beta, a
+# margin below -m gives occ below sigmoid(-20) ~ 2.1e-9, 14 times under
+# 2^-25, room for the rounding of beta * margin and of w = 1 - u - v.
+# tri_soft solves for (t, u, v) with tri_t's very roundings, so the point
+# v0 + u e1 + v e2 that its (u, v) name lies within |r| of the segment's
+# point at its t, where |r| is bounded as above plus 2u (|u| |e1| + |v|
+# |e2|) for the quotients' rounding; while the margin is at least -m, |u|
+# and |v| are at most 1 + 2m, so that term is at most 4u (1 + 2m) l, with
+# l the group's longest edge.  A point of the plane whose barycentrics are
+# all at least -m lies in the triangle scaled by 1 + 3m about its
+# centroid, which lies within 2 m l of the triangle (each vertex moves by
+# 3m times its distance to the centroid, two thirds of a median, at most
+# l).  So a group whose box, padded by (2m + 8u (1 + 2m)) l and widened as
+# above, the segment misses holds no triangle with a margin of -m or more:
+# every factor it would multiply in is exactly 1.0f.
+
+#: twice the float32 unit roundoff: the least |determinant| tri_t accepts
+TWO_U = 2.0 ** -23
+#: ea per unit of the record's kappa (step 3 above): 1.25 u, exact in
+#: float32, against the 16u / HIT_SLACK = 1.14 u that ea needs
+TRI_SLACK = 1.25 * 2.0 ** -24
+#: floats of one normal record: lo(3), hi(3), kappa, kappa * h, then the
+#: group's eight normals n_k(3) (the last triangle's repeated past the
+#: scene's end)
+NORMAL_COLS = 32
+
+
+def merge_bounds(glo, ghi, k: int):
+    """Bounds of runs of ``k`` consecutive groups from the groups' bounds
+    ``glo``, ``ghi`` (ng, 3): with ``k = CHUNK // GROUP`` exactly
+    ``chunk_bounds(tris, CHUNK)``, without a second pass over the
+    triangles (a min of mins is the min)."""
+    ng = glo.shape[0]
+    pad = -ng % k
+    lo = torch.nn.functional.pad(glo, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(ghi, (0, 0, 0, pad), value=float("-inf"))
+    return lo.reshape(-1, k, 3).amin(dim=1), hi.reshape(-1, k, 3).amax(dim=1)
+
+
+def normal_boxes(tris: Triangles, group: int = GROUP, soft_beta=None):
+    """``(glo, ghi, boxes)``: the group AABBs of ``chunk_bounds``, which the
+    worklist culls take, and the normal records (ng, NORMAL_COLS) float32
+    of K10 and K5: ``shadow_boxes``'s eight columns, then the group's
+    triangles' normals e1 x e2 of their float32 edges, rounded to float32
+    (above).  With ``soft_beta`` (K5) each box is first padded by (2m + 8u
+    (1 + 2m)) l, m = SOFT_SUPPORT / beta and l the group's longest edge, so
+    that a segment that misses it meets no triangle whose soft factor
+    differs from 1.0f (above)."""
+    glo, ghi = chunk_bounds(tris, group)
+    ng, T = glo.shape[0], tris.count
+    # the records' float32 edges, the last triangle repeated past the end,
+    # which changes no group's largest |e1| |e2| or longest edge
+    last = torch.arange(ng * group, device=glo.device).clamp_(max=T - 1)
+    e = (torch.stack([tris.v1, tris.v2]) - tris.v0)[:, last].double()
+    length = torch.linalg.vector_norm(e, dim=2)
+    if soft_beta is not None:
+        m = SOFT_SUPPORT / float(soft_beta)
+        longest = torch.maximum(length.amax(dim=0), torch.linalg.vector_norm(e[1] - e[0], dim=1))
+        pad = ((2.0 * m + 8.0 * 2.0 ** -24 * (1.0 + 2.0 * m)) * (1.0 + 2.0 ** -20)
+               * longest.reshape(ng, group).amax(dim=1)).float()[:, None]
+        lo, hi = glo - pad, ghi + pad
+    else:
+        lo, hi = glo, ghi
+    normals = torch.linalg.cross(e[0], e[1], dim=1).float().reshape(ng, 3 * group)
+    edge = (length[0] * length[1]).reshape(ng, group).amax(dim=1)
+    return glo, ghi, torch.cat([shadow_boxes(lo, hi, edge), normals], dim=1)
+
+
 def inv_dir(d):
     """Per-component reciprocal of directions, components below DIR_FLOOR
     in magnitude raised to it with their sign (shadow.cuh:inv_dir)."""
@@ -416,29 +522,74 @@ def inv_dir(d):
     return 1.0 / torch.where(d.abs() < DIR_FLOOR, torch.copysign(floor, d), d)
 
 
-def _faces(boxes, dist):
+def _faces(boxes, dist, scale=None):
     """A box's faces widened by ``kappa * dist + kappa * h`` (shadow.cuh:
-    widen): ``lo``, ``hi`` (..., 3) for ``boxes`` (..., 8) and ``dist``
-    (...)."""
-    w = (boxes[..., 6] * dist + boxes[..., 7])[..., None]
-    return boxes[..., 0:3] - w, boxes[..., 3:6] + w
+    widen), times ``scale`` for the normal records: ``lo``, ``hi`` (..., 3)
+    for ``boxes`` (..., 8 or NORMAL_COLS), ``dist`` and ``scale`` (...)."""
+    w = boxes[..., 6] * dist + boxes[..., 7]
+    if scale is not None:
+        w = w * scale
+    return boxes[..., 0:3] - w[..., None], boxes[..., 3:6] + w[..., None]
+
+
+def open_normal_boxes(ng: int, device=None):
+    """(ng, NORMAL_COLS) normal records that every segment crosses, boxes
+    of +-3e38 with no widening: a walk over them visits every listed group
+    (the kernels' tests hold K10 and K5 to it bit for bit)."""
+    boxes = torch.zeros((ng, NORMAL_COLS), dtype=torch.float32, device=device)
+    boxes[:, 0:3], boxes[:, 3:6] = -3.0e38, 3.0e38
+    return boxes
+
+
+def _scale(a_lo):
+    return TWO_U / torch.fmax(a_lo, torch.tensor(TWO_U, dtype=a_lo.dtype))
+
+
+def _dots(n, d):
+    """(n0 d0 + n1 d1) + n2 d2 in float32, as the kernels round it."""
+    return (n[..., 0] * d[..., 0] + n[..., 1] * d[..., 1]) + n[..., 2] * d[..., 2]
+
+
+def _normals(boxes):
+    return boxes[..., BOX_COLS:NORMAL_COLS].reshape(*boxes.shape[:-1], GROUP, 3)
+
+
+def _scale_of_least(boxes, least):
+    """2u / a_lo for ``least`` the least |n_k . d| of the records' normals,
+    a_lo = least - kappa * TRI_SLACK (steps 3 and 4 above), in float32 as
+    the kernel rounds them."""
+    return _scale(least - boxes[..., 6] * TRI_SLACK)
+
+
+def _ray_scale(boxes, d):
+    """The normal records' scale for rays of direction ``d`` (..., 3),
+    broadcast against ``boxes`` (shadow.cuh:ray_scale); None for the
+    8-column records."""
+    if boxes.shape[-1] != NORMAL_COLS:
+        return None
+    if d is None:
+        raise ValueError("the normal records widen by the ray's direction: pass d")
+    return _scale_of_least(boxes, _dots(_normals(boxes), d[..., None, :]).abs().amin(dim=-1))
 
 
 def _centre(boxes):
     return (boxes[..., 0:3] + boxes[..., 3:6]) * 0.5
 
 
-def segment_box_test(o, inv, mag, boxes):
+def segment_box_test(o, inv, mag, boxes, d=None):
     """(..., R, ng) bool: ray r's segment ``o + t d``, t in [0, mag],
     crosses box g widened for it: the slab test of ``shadow.cuh:seg_box``,
     rounded as it rounds.  ``o`` (..., R, 3), ``inv`` (..., R, 3) from
     ``inv_dir``, ``mag`` (..., R), ``boxes`` (..., ng, 8) from
-    ``shadow_boxes``.  A NaN in the origin or the length crosses nothing
-    (tri_t finds no hit for such a ray either)."""
+    ``shadow_boxes`` or (..., ng, NORMAL_COLS) from ``normal_boxes``, whose widening
+    also takes the directions ``d`` (..., R, 3).  A NaN in the origin or
+    the length crosses nothing (tri_t finds no hit for such a ray
+    either)."""
     o, inv = o[..., :, None, :], inv[..., :, None, :]
     boxes = boxes[..., None, :, :]
-    d = (o - _centre(boxes)).abs()
-    lo, hi = _faces(boxes, d[..., 0] + d[..., 1] + d[..., 2])
+    scale = _ray_scale(boxes, None if d is None else d[..., :, None, :])
+    dist = (o - _centre(boxes)).abs()
+    lo, hi = _faces(boxes, dist[..., 0] + dist[..., 1] + dist[..., 2], scale)
     t1, t2 = (lo - o) * inv, (hi - o) * inv
     tn = torch.fmin(t1, t2)
     tf = torch.fmax(t1, t2)
@@ -456,6 +607,13 @@ def tight_segment_box_test(o, inv, mag, boxes):
     return segment_box_test(o, inv, mag, flat)
 
 
+def narrowed(d, boxes):
+    """(..., R, ng) bool: the normal records' scale is below 1 for rays of
+    direction ``d`` (..., R, 3), so their widening is narrower than
+    kappa's (chip_smoke.py counts these per query)."""
+    return _ray_scale(boxes[..., None, :, :], d[..., :, None, :]) < 1.0
+
+
 def warp_slots(device=None):
     """(32, 32) long: the slot in a 1024-ray tile of lane j of warp w in K4
     and K11b (shadow.cuh:warp_slot): warp w takes the 8x4 pixel block at
@@ -465,36 +623,78 @@ def warp_slots(device=None):
     return ((w // 4) * 4 + lane // 8) * 32 + (w % 4) * 8 + lane % 8
 
 
-def bundle_bounds(o, inv, mag, live):
+def bundle_bounds(o, inv, mag, live, d=None):
     """The bounds of bundles of rays that ``bundle_box_test`` takes, over
     the ``live`` ones (shadow.cuh:warp_bundle): ``o``, ``inv`` (..., n, 3),
     ``mag`` and ``live`` (..., n) -> ``(olo, ohi, ilo, ihi)`` (..., 3) and
-    ``tmax`` (...,); inf and -inf where no ray is live."""
+    ``tmax`` (...,), then with the directions ``d`` (..., n, 3), which the
+    normal records take, ``(dlo, dhi)`` (..., 3); inf and -inf where no ray
+    is live."""
     big = torch.tensor(float("inf"), dtype=o.dtype, device=o.device)
     m = live[..., None]
-    return (torch.where(m, o, big).amin(dim=-2), torch.where(m, o, -big).amax(dim=-2),
-            torch.where(m, inv, big).amin(dim=-2), torch.where(m, inv, -big).amax(dim=-2),
-            torch.where(live, mag, -big).amax(dim=-1))
+    out = (torch.where(m, o, big).amin(dim=-2), torch.where(m, o, -big).amax(dim=-2),
+           torch.where(m, inv, big).amin(dim=-2), torch.where(m, inv, -big).amax(dim=-2),
+           torch.where(live, mag, -big).amax(dim=-1))
+    if d is None:
+        return out
+    return out + (torch.where(m, d, big).amin(dim=-2), torch.where(m, d, -big).amax(dim=-2))
 
 
-def bundle_box_test(olo, ohi, ilo, ihi, tmax, boxes):
+def _least_abs_dot(n, dlo, dhi):
+    """The least |(n0 d0 + n1 d1) + n2 d2| over directions in [dlo, dhi]
+    (shadow.cuh:least_abs_dot): the interval from the products at both
+    ends of each component, its least magnitude, 0 where it holds 0."""
+    lo = hi = None
+    for a in range(3):
+        p, q = n[..., a] * dlo[..., a], n[..., a] * dhi[..., a]
+        pl, ph = torch.fmin(p, q), torch.fmax(p, q)
+        lo, hi = (pl, ph) if lo is None else (lo + pl, hi + ph)
+    return torch.where((lo <= 0.0) & (hi >= 0.0), 0.0, torch.fmin(lo.abs(), hi.abs()))
+
+
+def _bundle_scale(boxes, dlo, dhi):
+    """The normal records' scale for a bundle whose directions lie in [dlo,
+    dhi] (shadow.cuh:bundle_box): ``_ray_scale`` with each |n_k . d|
+    bounded from below over the bundle by ``_least_abs_dot``."""
+    dots = _least_abs_dot(_normals(boxes), dlo[..., None, :], dhi[..., None, :])
+    return _scale_of_least(boxes, dots.amin(dim=-1))
+
+
+def bundle_box_test(olo, ohi, ilo, ihi, tmax, boxes, dlo=None, dhi=None):
     """(..., ng) bool: some ray of a bundle, with origin in [olo, ohi],
     reciprocal direction in [ilo, ihi] and length at most ``tmax`` (the
-    bounds of ``bundle_bounds``), may cross box g of ``boxes`` (ng, 8)
+    bounds of ``bundle_bounds``), may cross box g of ``boxes`` (ng, 8), or
+    of the normal records (ng, NORMAL_COLS) for directions in [dlo, dhi]
     (shadow.cuh:bundle_box).  The box is widened for the bundle's farthest
-    origin, per axis the larger of |olo - c| and |ohi - c|, so at least as
+    origin, per axis the larger of |olo - c| and |ohi - c|, and for the
+    normal records by the bundle's least bound of each |n_k . d|, so at least as
     much as for any of its rays; each (face - origin) * reciprocal of a ray
     of the bundle lies between the products at the corners, in float32 too
     (each rounding is monotone), so a box that ``segment_box_test`` passes
     for a ray of the bundle passes here."""
+    scale = None
+    if boxes.shape[-1] == NORMAL_COLS:
+        if dlo is None:
+            raise ValueError("the normal records widen by the rays' directions: pass dlo, dhi")
+        scale = _bundle_scale(boxes, dlo[..., None, :], dhi[..., None, :])
     olo, ohi, ilo, ihi = (x[..., None, :] for x in (olo, ohi, ilo, ihi))
     c = _centre(boxes)
     d = torch.fmax((olo - c).abs(), (ohi - c).abs())
-    lo, hi = _faces(boxes, d[..., 0] + d[..., 1] + d[..., 2])
+    lo, hi = _faces(boxes, d[..., 0] + d[..., 1] + d[..., 2], scale)
     prods = [(face - o) * i for face in (lo, hi) for o in (ohi, olo) for i in (ilo, ihi)]
     tn = torch.stack(prods).amin(dim=0).amax(dim=-1)
     tf = torch.stack(prods).amax(dim=0).amin(dim=-1)
     return (tn <= tf) & (tf >= 0.0) & (tn <= tmax[..., None])
+
+
+def chunk_groups(chunks, T: int, chunk: int = CHUNK):
+    """The 8-triangle groups of the chunk ids ``chunks`` (n,), in order, as
+    K10's walk expands a worklist row (shadow.cuh:group_walk): chunk c
+    gives groups (chunk / GROUP) c + j, j ascending, past the scene's last
+    group dropped."""
+    k = chunk // GROUP
+    g = (chunks.long()[:, None] * k + torch.arange(k, device=chunks.device)).flatten()
+    return g[g < -(-T // GROUP)]
 
 
 def culls_groups(tris: Triangles, group: int = GROUP) -> bool:

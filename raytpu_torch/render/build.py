@@ -127,7 +127,7 @@ def load():
         soft_in = [c_ptr, c_ptr, c_ptr, c_int, c_int]  # p, dirs, mags, R, L
         soft_wl = [c_ptr, c_ptr, c_int, c_float, c_float]  # wl, cnt, wl_cols, tmin, beta
         sp_tri = [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]  # spheres, planes, triangles
-        lib.raytpu_soft_trans.argtypes = soft_in + sp_tri + soft_wl + [c_ptr, c_ptr]
+        lib.raytpu_soft_trans.argtypes = soft_in + sp_tri + [c_ptr] + soft_wl + [c_ptr, c_ptr]
         lib.raytpu_soft_trans.restype = c_int
         lib.raytpu_soft_dray.argtypes = soft_in + sp_tri + soft_wl + [c_ptr] * 6
         lib.raytpu_soft_dray.restype = c_int
@@ -141,7 +141,7 @@ def load():
         lib.raytpu_chunked_anyhit_lights.restype = c_int
         lib.raytpu_chunked_shadow_shade.argtypes = (
             [c_ptr] * 8 + [c_int, c_int, c_ptr, c_ptr, c_int] + sp_tri
-            + [c_ptr, c_ptr, c_int, c_float, c_int, c_int, c_float, c_ptr, c_ptr])
+            + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_int, c_int, c_float, c_ptr, c_ptr])
         lib.raytpu_chunked_shadow_shade.restype = c_int
         # tri, wl, T, tiles, worklist, staged, out, stream
         lib.raytpu_probe_smem_fold.argtypes = [c_ptr, c_ptr] + [c_int] * 4 + [c_ptr, c_ptr]

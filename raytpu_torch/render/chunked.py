@@ -15,7 +15,10 @@ chunked branch of ``render_image_f32``.  The kernels are
   * K9 (``any_hit_lights``): every light's occlusion for the shadow rays,
     culled per (tile, light), at most 24 lights as in raytpu;
   * K10 (``shadow_shade``): after K8, every light's shadow query, the
-    shading, the dim per occluded light and MaxToOne, in one launch.
+    shading, the dim per occluded light and MaxToOne, in one launch; its
+    shadow queries walk the 8-triangle groups of their chunks with
+    ``csrc/shadow.cuh``'s box tests and the normal records of
+    ``accel.normal_boxes``.
 
 The worklists come from ``ops/accel.py`` through ``packed``'s worklist
 helpers, with raytpu's 128-triangle chunks; a scene under 256 triangles
@@ -31,12 +34,21 @@ import torch
 
 from raytpu_torch.core import math3d
 from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.ops import accel
 from raytpu_torch.render import build, packed, plain, renderer
 
 TILE = packed.TILE
 CHUNK = 128  #: triangles per worklist chunk (raytpu's CT), culled from two on
 MAX_LIGHTS = 24  #: raytpu's bitmask cap (pallas_kernel.py:395, 566)
 MAX_TRIS = 32768  #: the route's triangle cap (pallas_kernel.py:MAX_VMEM_TRIS)
+#: K10 on a scene of at most this many 8-triangle groups (reference_s106:
+#: one) takes no box records: its kernel then tests every listed triangle,
+#: without the walk's box tests, which cost more there than they skip, at
+#: twice the walk's occupancy (csrc/chunked.cu; shadow_ablation.py).  The
+#: walk's kernel is 1.28x slower at one group and faster at hundreds
+#: (optional_l12, bunny18k_l12); where between them it starts to pay is not
+#: measured, so 8 is a guess inside that range.
+FEW_GROUPS = 8
 
 #: Launches of K8, K9 and K10, counted where the wrappers launch them.
 CHUNKED_MIN_T_LAUNCHES = 0
@@ -173,25 +185,41 @@ def shadow_shade_chunked(scene: Scene, rec, rd, config: RenderConfig):
     _check_lights(L, "K10")
     p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, config))
     if config.shadows:
-        wl, cnt = packed.shadow_worklists(scene, p_off, dirs, mags, config.ray_min, group=CHUNK)
-    else:  # no shadow query: K10 reads no worklist
+        boxes, wl, cnt = shadow_inputs(scene, p_off, dirs, mags, config.ray_min)
+    else:  # no shadow query: K10 reads no worklist and no box
         nt = -(-rd.shape[0] // TILE)
+        boxes = None
         wl = torch.zeros((nt, L, 0), dtype=torch.int32, device=rd.device)
         cnt = torch.zeros((nt, L), dtype=torch.int32, device=rd.device)
     return shadow_shade(rec.hit, rec.normal.contiguous(), rec.point.contiguous(),
                         rec.material.contiguous(), rd.contiguous(), p_off, dirs, mags,
                         plain.pack_lights(scene.lights).contiguous(),
                         plain.material_table(scene.materials).contiguous(),
-                        *packed.soft_packs(scene), wl, cnt, config)
+                        *packed.soft_packs(scene), boxes, wl, cnt, config)
 
 
-def shadow_shade(hit, normal, point, mat, rd, p_off, dirs, mags, lights, mats, sph, pln, tri, wl,
-                 cnt, config: RenderConfig):
+def shadow_inputs(scene: Scene, p_off, dirs, mags, tmin):
+    """K10's shadow inputs for the queries ``p_off``, ``dirs``, ``mags``:
+    ``(boxes, wl, cnt)``, the normal records of ``accel.normal_boxes`` (None
+    for a scene of at most FEW_GROUPS groups) and each (tile, light)
+    worklist of 128-triangle chunks, from one set of group bounds."""
+    if -(-scene.triangles.count // accel.GROUP) <= FEW_GROUPS:
+        return (None, *packed.shadow_worklists(scene, p_off, dirs, mags, tmin, group=CHUNK))
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    return (boxes, *packed.shadow_worklists(scene, p_off, dirs, mags, tmin, group=CHUNK,
+                                            group_bounds=(glo, ghi)))
+
+
+def shadow_shade(hit, normal, point, mat, rd, p_off, dirs, mags, lights, mats, sph, pln, tri,
+                 boxes, wl, cnt, config: RenderConfig):
     """K10 over hit records (``hit`` (R,) bool, ``normal``, ``point`` (R,3),
     ``mat`` (R,) int32) of rays ``rd``, their shadow queries ``p_off``,
     ``dirs``, ``mags``, the tables ``lights`` (L,8) and ``mats`` (M,7), the
-    records of ``packed.soft_packs`` and each (tile, light) chunk worklist
-    -> (R,3) colors.  CPU tensors take ``plain.shadow_shade_plain``."""
+    records of ``packed.soft_packs``, the normal records ``boxes``
+    (ceil(T/8), 32) of ``accel.normal_boxes``, or None to test every listed
+    triangle (``shadow_inputs`` chooses), and each (tile, light) worklist of
+    128-triangle chunks -> (R,3) colors.  CPU tensors take
+    ``plain.shadow_shade_plain``, which needs no boxes."""
     global CHUNKED_SHADE_LAUNCHES
     L, R, M = lights.shape[0], rd.shape[0], mats.shape[0]
     S, P, T = sph.shape[0], pln.shape[0], tri.shape[0]
@@ -213,6 +241,10 @@ def shadow_shade(hit, normal, point, mat, rd, p_off, dirs, mags, lights, mats, s
         "planes": (pln, torch.float32, (P, packed.SP_COLS)),
         "triangles": (tri, torch.float32, (T, packed.TRI_COLS)),
         "wl": (wl, torch.int32, (nt, L, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt, L))})
+    if boxes is not None:
+        build.check_tensors("K10", rd.device, {
+            "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS))})
+        build.check_aligned("K10", "boxes", boxes, 16)
     if M == 0:
         raise ValueError("K10 needs a material table")
     out = torch.empty((R, 3), dtype=torch.float32, device=rd.device)
@@ -222,7 +254,8 @@ def shadow_shade(hit, normal, point, mat, rd, p_off, dirs, mags, lights, mats, s
             hit.data_ptr(), normal.data_ptr(), point.data_ptr(), mat.data_ptr(), rd.data_ptr(),
             p_off.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, lights.data_ptr(),
             mats.data_ptr(), M, sph.data_ptr(), S, pln.data_ptr(), P, tri.data_ptr(), T,
-            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(config.ray_min),
+            None if boxes is None else boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
+            wl.shape[-1], float(config.ray_min),
             int(config.lighting_mode), int(bool(config.shadows)), float(config.shadow_dim),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -34,9 +34,11 @@
 // scene under 256 triangles walks every chunk (raytpu's CULL_MIN_TRIS).
 //
 // A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
-// pixel blocks, raytpu in 512-ray 16x32 blocks).  One block of 1024
-// threads per tile, one thread per ray.  With the strict < update a tie
-// goes to the first primitive in sphere -> plane -> triangle order.
+// pixel blocks, raytpu in 512-ray 16x32 blocks).  K8 and K9: one block of
+// 1024 threads per tile, one thread per ray.  K10: eight blocks of 128 a
+// tile, each warp on an 8x4 pixel block, its shadow queries on
+// shadow.cuh's group walk (below).  With the strict < update a tie goes to
+// the first primitive in sphere -> plane -> triangle order.
 //
 // What bounds it.  The work is FP32 arithmetic: ~50 operations for each
 // ray-triangle test that a worklist passes, ~15 for each sphere and plane,
@@ -53,19 +55,28 @@
 // the threads read them from device memory; triangles stay in device
 // memory, and all threads of a block read the same chunk at the same time,
 // which the cache serves as a broadcast.  A shadow query stops at its
-// first occluder.  The arithmetic is common.cuh's, so the kernels agree
-// with their plain versions (raytpu_torch/render/plain.py) up to powf's
-// last bit.
+// first occluder.  K10's worklist rows are the union over a whole tile,
+// 126-541 groups a query, so it walks each chunk's 16 groups of 8 with
+// shadow.cuh: the warp's bundle, then
+// each ray, test the groups' boxes, widened for the ray by a bound of
+// tri_t's error that its triangles' normals narrow for rays far from
+// grazing (accel.normal_boxes), so a query visits
+// the triangles of a few groups; the occlusion is the same, so the colors
+// equal the walk over every listed triangle bit for bit.  The arithmetic
+// is common.cuh's, so the kernels agree with their plain versions
+// (raytpu_torch/render/plain.py) up to powf's last bit.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "shadow.cuh"
 
 namespace {
 
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
+constexpr int kShadeBlock = 128;  // K10's threads a block: 4 warps
 constexpr int kChunk = 128;
 constexpr int kSp = 5;    // sphere / plane record
 constexpr int kTr = 14;   // triangle record
@@ -227,40 +238,78 @@ __global__ void __launch_bounds__(kTile) chunked_anyhit_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kTile) chunked_shadow_shade_kernel(
+// K10: one thread a ray, blocks of kShadeBlock threads, kTile / kShadeBlock
+// to a tile; warp w of the tile takes the 8x4 pixel block warp_slot(w,
+// lane) of its 32x32 layout (any permutation of the tile's slots is
+// right, so unfolded frames take it too).  Per light in order: spheres and
+// planes, then the group walk over the (tile, light) worklist of
+// 128-triangle chunks, each expanded to its 16 groups, with the normal
+// records (kWalk; else every triangle of every listed chunk, lane by
+// lane); then the shading of a lit light or the dim of an occluded one.
+// Lanes past R or without a hit take part in every warp collective and are
+// never live.
+template <bool kWalk>
+__global__ void __launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel(
     const uint8_t* __restrict__ hit, const float* __restrict__ normal,
     const float* __restrict__ point, const int* __restrict__ mat_id, const float* __restrict__ rd,
     const float* __restrict__ p_off, const float* __restrict__ dirs,
     const float* __restrict__ mags, int R, int L, const float* __restrict__ lights,
     const float* __restrict__ mats, int M, const float* __restrict__ sph_g, int S,
     const float* __restrict__ pln_g, int P, const float* __restrict__ tri, int T,
-    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin, int mode,
-    int shadows, float shadow_dim, float* __restrict__ out) {
+    const float* __restrict__ boxes, const int* __restrict__ wl, const int* __restrict__ cnt,
+    int wl_cols, float tmin, int mode, int shadows, float shadow_dim, float* __restrict__ out) {
   extern __shared__ float sm[];
   const float *sph, *pln;
   stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
+  constexpr int kBlocksPerTile = kTile / kShadeBlock;
+  const int tile = blockIdx.x / kBlocksPerTile;
+  const int warp = (blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + threadIdx.x / 32;
+  const int rid = tile * kTile + warp_slot(warp, threadIdx.x % 32);
+  const bool lit = rid < R && hit[rid];  // lanes past R vote, never write
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, px = 0.0f, py = 0.0f, pz = 0.0f;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, vx = 0.0f, vy = 0.0f, vz = 0.0f;
+  const float* m = mats;
+  if (lit) {
+    nx = normal[3 * rid], ny = normal[3 * rid + 1], nz = normal[3 * rid + 2];
+    px = point[3 * rid], py = point[3 * rid + 1], pz = point[3 * rid + 2];
+    ox = p_off[3 * rid], oy = p_off[3 * rid + 1], oz = p_off[3 * rid + 2];
+    vx = -rd[3 * rid], vy = -rd[3 * rid + 1], vz = -rd[3 * rid + 2];
+    m = mats + min(max(mat_id[rid], 0), M - 1) * kMat;
+  }
   float rgb[3] = {0.0f, 0.0f, 0.0f};
-  if (hit[rid]) {
-    const float nx = normal[3 * rid], ny = normal[3 * rid + 1], nz = normal[3 * rid + 2];
-    const float px = point[3 * rid], py = point[3 * rid + 1], pz = point[3 * rid + 2];
-    const float ox = p_off[3 * rid], oy = p_off[3 * rid + 1], oz = p_off[3 * rid + 2];
-    const float vx = -rd[3 * rid], vy = -rd[3 * rid + 1], vz = -rd[3 * rid + 2];
-    const float* m = mats + min(max(mat_id[rid], 0), M - 1) * kMat;
-    float sf = 1.0f;
-    for (int l = 0; l < L; ++l) {
-      const size_t lr = (size_t)l * R + rid;
-      const float lx = dirs[3 * lr], ly = dirs[3 * lr + 1], lz = dirs[3 * lr + 2];
-      if (shadows) {
-        const int row = tile * L + l;
-        if (occluded(sph, S, pln, P, tri, T, wl + (size_t)row * wl_cols,
-                     min(cnt[row], wl_cols), ox, oy, oz, lx, ly, lz, tmin, mags[lr])) {
-          sf = sf * shadow_dim;
-          continue;
+  float sf = 1.0f;
+  for (int l = 0; l < L; ++l) {
+    const size_t lr = (size_t)l * R + rid;
+    float lx = 0.0f, ly = 0.0f, lz = 0.0f, mag = 0.0f;
+    if (lit) lx = dirs[3 * lr], ly = dirs[3 * lr + 1], lz = dirs[3 * lr + 2], mag = mags[lr];
+    bool occ = false;
+    if (shadows) {  // uniform over the grid
+      for (int s = 0; s < S && lit && !occ; ++s)
+        occ = sphere_t(sph + s * kSp, ox, oy, oz, lx, ly, lz, tmin, mag) < INFINITY;
+      for (int q = 0; q < P && lit && !occ; ++q)
+        occ = plane_t(pln + q * kSp, ox, oy, oz, lx, ly, lz, tmin, mag) < INFINITY;
+      const int row = tile * L + l;
+      const int* w = wl + (size_t)row * wl_cols;
+      const int c = min(cnt[row], wl_cols);
+      if constexpr (kWalk) {
+        AnyHitVisit<kTr> visit{ox, oy, oz, lx, ly, lz, tmin, mag};
+        const float o[3] = {ox, oy, oz}, d[3] = {lx, ly, lz};
+        group_walk<kTr, kNormalCols, kChunk / 8>(tri, T, boxes, w, c, lit && !occ, o, d, mag,
+                                                 visit);
+        occ = occ || visit.occ;
+      } else {
+        for (int e = 0; e < c && lit && !occ; ++e) {
+          const int ch = w[e];
+          if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+          const int k1 = min(ch * kChunk + kChunk, T);
+          for (int k = ch * kChunk; k < k1 && !occ; ++k)
+            occ = tri_t(tri + (size_t)k * kTr, ox, oy, oz, lx, ly, lz, tmin, mag, true) < INFINITY;
         }
       }
+    }
+    if (lit && occ) {
+      sf = sf * shadow_dim;
+    } else if (lit) {
       const float* li = lights + l * kLight;
       float w[3];
       shade_one_light(mode, li[7] == 0.0f, li, px, py, pz, nx, ny, nz, lx, ly, lz, vx, vy, vz, m,
@@ -269,11 +318,13 @@ __global__ void __launch_bounds__(kTile) chunked_shadow_shade_kernel(
       rgb[1] = rgb[1] + w[1];
       rgb[2] = rgb[2] + w[2];
     }
-    dim_and_tonemap(sf, rgb);
   }
-  out[3 * rid] = rgb[0];
-  out[3 * rid + 1] = rgb[1];
-  out[3 * rid + 2] = rgb[2];
+  if (lit) dim_and_tonemap(sf, rgb);
+  if (rid < R) {
+    out[3 * rid] = rgb[0];
+    out[3 * rid + 1] = rgb[1];
+    out[3 * rid + 2] = rgb[2];
+  }
 }
 
 size_t sp_smem(int S, int P) {
@@ -316,22 +367,28 @@ int raytpu_chunked_anyhit_lights(const float* p, const float* dirs, const float*
 
 // Launches K10 on `stream`.  hit (R,) bytes; normal, point, rd, p_off (R, 3)
 // and dirs (L, R, 3), mags (L, R) float32; mat_id (R,) int32; lights (L, 8)
-// and mats (M, 7) float32; `wl` (nt, L, wl_cols) and `cnt` (nt, L) the
-// per-light chunk worklists, read only when `shadows`; out (R, 3) float32.
+// and mats (M, 7) float32; `boxes` (ceil(T/8), 32) the normal records
+// (accel.normal_boxes), 16-byte aligned, or null to test every listed
+// triangle without box tests; `wl` (nt, L, wl_cols) and `cnt` (nt, L) the
+// per-light chunk worklists; boxes, wl and cnt are read only when
+// `shadows`; out (R, 3) float32.
 // Returns cudaGetLastError() after the launch.
 int raytpu_chunked_shadow_shade(const uint8_t* hit, const float* normal, const float* point,
                                 const int* mat_id, const float* rd, const float* p_off,
                                 const float* dirs, const float* mags, int R, int L,
                                 const float* lights, const float* mats, int M, const float* sph,
                                 int S, const float* pln, int P, const float* tri, int T,
-                                const int* wl, const int* cnt, int wl_cols, float ray_min,
-                                int mode, int shadows, float shadow_dim, float* out,
-                                void* stream) {
-  const int tiles = (R + kTile - 1) / kTile;
-  chunked_shadow_shade_kernel<<<tiles, kTile, sp_smem(S, P),
-                                static_cast<cudaStream_t>(stream)>>>(
+                                const float* boxes, const int* wl, const int* cnt, int wl_cols,
+                                float ray_min, int mode, int shadows, float shadow_dim,
+                                float* out, void* stream) {
+  const int blocks = (R + kTile - 1) / kTile * (kTile / kShadeBlock);
+  // without box records (a scene of a few groups, render/chunked.py): every
+  // listed triangle, at up to 64 registers a thread, twice the walk's
+  // occupancy for the sphere loop that dominates such a scene
+  auto kernel = boxes ? chunked_shadow_shade_kernel<true> : chunked_shadow_shade_kernel<false>;
+  kernel<<<blocks, kShadeBlock, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
       hit, normal, point, mat_id, rd, p_off, dirs, mags, R, L, lights, mats, M, sph, S, pln, P,
-      tri, T, wl, cnt, wl_cols, ray_min, mode, shadows, shadow_dim, out);
+      tri, T, boxes, wl, cnt, wl_cols, ray_min, mode, shadows, shadow_dim, out);
   return static_cast<int>(cudaGetLastError());
 }
 

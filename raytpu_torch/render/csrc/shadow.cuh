@@ -1,6 +1,14 @@
-// The shadow any-hit walk of K4 (packed.cu) and K11b (mega3.cu): one warp's
-// 32 shadow rays toward one light against the 8-triangle groups of their
-// (tile, light) worklist, each ray stopping at its first occluder.
+// The group walk of the shadow kernels: one warp's 32 shadow rays toward one
+// light against the 8-triangle groups of their (tile, light) worklist.  Four
+// kernels walk it:
+//
+//   K4 (packed.cu) and K11b (mega3.cu): any-hit, 8-triangle groups, the
+//     8-float box records (accel.shadow_boxes);
+//   K10 (chunked.cu): any-hit, 128-triangle chunks, each entry expanded to
+//     its 16 groups in ascending order, the 32-float normal records
+//     (accel.normal_boxes);
+//   K5 (soft.cu): the soft transmittance, 8-triangle groups, the normal
+//     records padded for the sigmoid's support (normal_boxes(soft_beta=...)).
 //
 // A worklist row is the union over a whole 1024-ray tile (the glue's cull,
 // raytpu_torch/render/packed.py and mega2.py), hundreds to thousands of
@@ -8,36 +16,47 @@
 // boxes of a few (chip_smoke.py phase 4 prints the counts).
 // So the walk tests boxes before triangles, at two levels:
 //
-//   1. the warp's bundle: lane j takes entry base + j of the row and tests
-//      its group's box against the bounds of every live ray of the warp
-//      (origins, reciprocal directions, the longest segment): one test a
-//      group a warp instead of one a ray;
+//   1. the warp's bundle: lane j takes entry base + j of the expanded row
+//      and tests its group's box against the bounds of every live ray of
+//      the warp (origins, reciprocal directions, the longest segment, and
+//      the directions for the normal records): one test a group a warp
+//      instead of one a ray;
 //   2. each ray: for the entries that pass, one after the other, every live
 //      lane tests its own segment [0, mag] against the box (seg_box), and
-//      the warp runs the group's triangles only if some lane passed
-//      (__any_sync); a lane runs tri_t only where its own test passed.
+//      the warp visits the group's triangles only if some lane passed
+//      (__any_sync); a lane visits them only where its own test passed.
 //
 // Both tests are conservative: neither rejects a group in which tri_t
-// reports a hit.  A box record (accel.shadow_boxes) is the group's AABB
-// padded by 1e-4 of its largest coordinate plus 1e-4, and two numbers by
-// which each ray widens it further: tri_t's float32 Cramer solve can name
-// a hit point as far as 13.2 |e1| |e2| |o - v0| off the segment when the
-// ray grazes the triangle's plane (ops/accel.py derives it), so the box
-// grows by kappa |o - c|_1 + kappa h for a ray from o (widen).  The ray's
-// [tmin, mag) is taken as [0, mag]; a direction component below 1e-30 takes
-// that value, sign kept, so its reciprocal is finite and no
-// (face - origin) * (1 / 0) = 0 * inf = NaN arises; a ray that passes
-// seg_box passes bundle_box, in float32 too, because the bundle widens the
-// box for its farthest origin and tests the corner products of the same
-// monotone roundings.  The occlusion does not depend on which triangles are
-// tested or in what order, so it equals the walk over every listed
-// triangle bit for bit (ops/accel.py has the torch twins of the two tests,
-// held against the plain triangle test by tests/test_torch_shadow_boxes.py).
+// reports a hit, nor, with the soft records, one holding a triangle whose
+// soft factor 1 - occ is not exactly 1.0f.  A box record is the group's
+// AABB padded by 1e-4 of its largest coordinate plus 1e-4, and two numbers
+// by which each ray widens it further: tri_t's float32 Cramer solve can
+// name a hit point as far as 13.2 |e1| |e2| |o - v0| off the segment when
+// the ray grazes the triangle's plane (ops/accel.py derives it), so the
+// box grows by kappa |o - c|_1 + kappa h for a ray from o (widen).  The
+// normal records scale that widening by 2u / a_lo <= 1, a_lo a lower bound
+// of the determinant |e1 . (d x e2)| over the group's triangles for the
+// ray's direction, from its eight triangles' normals (ray_scale);
+// ops/accel.py derives it step by step: 1 at the grazing worst case, a few
+// ulps of the scene for a ray far from grazing.  The ray's [tmin, mag) is
+// taken as [0, mag]; a direction component below 1e-30 takes that value,
+// sign kept, so its reciprocal is finite and no (face - origin) * (1 / 0)
+// = 0 * inf = NaN arises; a ray that passes seg_box passes bundle_box, in
+// float32 too, because the bundle widens the box for its farthest origin
+// and its least bound of each |n_k . d| and tests the corner products of
+// the same monotone roundings.  The occlusion does not depend on which triangles
+// are tested or in what order, so it equals the walk over every listed
+// triangle bit for bit; the soft product skips only factors of exactly
+// 1.0f and multiplies the others in the row's order, so it too equals the
+// walk over every listed triangle bit for bit (ops/accel.py has the torch
+// twins of the two tests, held against the plain triangle tests by
+// tests/test_torch_shadow_boxes.py).
 //
-// The warp leaves the row as soon as every lane is resolved (__all_sync
-// over occluded, out of the frame or not queried), instead of waiting for
-// the whole block.  The walk keeps common.cuh's tri_t with its IEEE
-// division: it decides every shadow.
+// An any-hit warp leaves the row as soon as every lane is resolved
+// (__all_sync over occluded, out of the frame or not queried), instead of
+// waiting for the whole block; the soft walk never stops early.  The walk
+// keeps common.cuh's tri_t with its IEEE division: it decides every
+// shadow.
 #pragma once
 
 #include "common.cuh"
@@ -52,7 +71,12 @@ __device__ __forceinline__ float inv_dir(float d) {
   return 1.0f / (fabsf(d) < kDirFloor ? copysignf(kDirFloor, d) : d);
 }
 
-constexpr int kBoxCols = 8;  // lo(3) hi(3) kappa kappa*h (accel.shadow_boxes)
+constexpr int kBoxCols = 8;    // lo(3) hi(3) kappa kappa*h (accel.shadow_boxes)
+// ... then the eight normals n_k(3) (accel.normal_boxes); the walk holds
+// the first kBoxCols in registers
+constexpr int kNormalCols = 32;
+// ea per unit kappa (accel.TRI_SLACK): 1.25 u
+constexpr float kTriSlack = 0x1.4p-24f;
 
 // Box b's faces widened by kappa * dist + kappa * h (accel._faces); the
 // multiply and the add round apart (-fmad=false), as the twin's do.
@@ -61,14 +85,83 @@ __device__ __forceinline__ void widen(const float* b, float dist, float* lo, flo
   for (int a = 0; a < 3; ++a) lo[a] = b[a] - w, hi[a] = b[a + 3] + w;
 }
 
+// The same widening times `scale` (the normal records).
+__device__ __forceinline__ void widen_scaled(const float* b, float dist, float scale, float* lo,
+                                             float* hi) {
+  const float w = (b[6] * dist + b[7]) * scale;
+  for (int a = 0; a < 3; ++a) lo[a] = b[a] - w, hi[a] = b[a + 3] + w;
+}
+
+// 2u / max(a_lo, 2u) (accel._scale): exactly 1 where a_lo <= 2u.
+__device__ __forceinline__ float scale_of(float a_lo) {
+  return kFltEps / fmaxf(a_lo, kFltEps);
+}
+
+__device__ __forceinline__ float dot_r(const float* n, const float* d) {
+  return (n[0] * d[0] + n[1] * d[1]) + n[2] * d[2];  // rounded as accel._dots
+}
+
+// The eight normals n_k(3) of normal record `rec` (global memory).
+__device__ __forceinline__ void load_normals(const float* __restrict__ rec, float* n) {
+  const float4* n4 = reinterpret_cast<const float4*>(rec + kBoxCols);
+  for (int i = 0; i < 6; ++i) {
+    const float4 u = n4[i];
+    n[4 * i] = u.x, n[4 * i + 1] = u.y, n[4 * i + 2] = u.z, n[4 * i + 3] = u.w;
+  }
+}
+
+// 2u / a_lo for `least` the least |n_k . d| of record b's normals, a_lo =
+// least - kappa * kTriSlack (accel._scale_of_least).
+__device__ __forceinline__ float least_scale(const float* b, float least) {
+  return scale_of(least - b[6] * kTriSlack);
+}
+
+// A ray's scale (accel._ray_scale): from the least |n_k . d| of the
+// group's normals.
+__device__ __forceinline__ float ray_scale(const float* b, const float* __restrict__ rec,
+                                           const float* d) {
+  float n[24];
+  load_normals(rec, n);
+  float least = INFINITY;
+  for (int k = 0; k < 8; ++k) least = fminf(least, fabsf(dot_r(n + 3 * k, d)));
+  return least_scale(b, least);
+}
+
+// The least |(n0 d0 + n1 d1) + n2 d2| over directions in [dlo, dhi]
+// (accel._least_abs_dot): the interval from the products at both ends of
+// each component, its least magnitude, 0 where it holds 0.
+__device__ __forceinline__ float least_abs_dot(const float* n, const float* dlo,
+                                               const float* dhi) {
+  float lo = 0.0f, hi = 0.0f;
+  for (int a = 0; a < 3; ++a) {
+    const float p0 = n[a] * dlo[a], p1 = n[a] * dhi[a];
+    lo = a ? lo + fminf(p0, p1) : fminf(p0, p1);
+    hi = a ? hi + fmaxf(p0, p1) : fmaxf(p0, p1);
+  }
+  return (lo <= 0.0f && hi >= 0.0f) ? 0.0f : fminf(fabsf(lo), fabsf(hi));
+}
+
 // The slab test of the segment o + t/inv, t in [0, mag], against box b
-// widened for a ray from o (accel.segment_box_test).  A NaN origin or
-// length makes the comparisons false: tri_t finds no hit for it either.
-__device__ __forceinline__ bool seg_box(const float* b, const float* o, const float* inv,
+// widened for a ray from o (accel.segment_box_test), and for the normal
+// records (b their first kBoxCols floats, rec the record) for its
+// direction d.  A NaN origin or length makes the comparisons false: tri_t
+// finds no hit for it either.
+template <bool kNormals>
+__device__ __forceinline__ bool seg_box(const float* b, const float* __restrict__ rec,
+                                        const float* o, const float* inv, const float* d,
                                         float mag) {
-  float d[3], lo[3], hi[3];
-  for (int a = 0; a < 3; ++a) d[a] = fabsf(o[a] - (b[a] + b[a + 3]) * 0.5f);
-  widen(b, d[0] + d[1] + d[2], lo, hi);
+  // the narrowed box lies inside kappa's (scale <= 1; every rounding is
+  // monotone), so kappa's cheaper test decides every ray it rejects
+  if constexpr (kNormals) {
+    if (!seg_box<false>(b, rec, o, inv, d, mag)) return false;
+  }
+  float dd[3], lo[3], hi[3];
+  for (int a = 0; a < 3; ++a) dd[a] = fabsf(o[a] - (b[a] + b[a + 3]) * 0.5f);
+  if constexpr (kNormals) {
+    widen_scaled(b, dd[0] + dd[1] + dd[2], ray_scale(b, rec, d), lo, hi);
+  } else {
+    widen(b, dd[0] + dd[1] + dd[2], lo, hi);
+  }
   float near[3], far[3];
   for (int a = 0; a < 3; ++a) {
     const float t1 = (lo[a] - o[a]) * inv[a], t2 = (hi[a] - o[a]) * inv[a];
@@ -79,10 +172,11 @@ __device__ __forceinline__ bool seg_box(const float* b, const float* o, const fl
   return tn <= tf && tf >= 0.0f && tn <= mag;
 }
 
-// The bounds of the warp's live rays: origins, reciprocal directions and the
-// longest segment (accel.bundle_bounds).
+// The bounds of the warp's live rays: origins, reciprocal directions, the
+// longest segment and, for the normal records, the directions
+// (accel.bundle_bounds).
 struct Bundle {
-  float olo[3], ohi[3], ilo[3], ihi[3], tmax;
+  float olo[3], ohi[3], ilo[3], ihi[3], dlo[3], dhi[3], tmax;
 };
 
 __device__ __forceinline__ float warp_min(float x) {
@@ -94,14 +188,19 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+template <bool kNormals>
 __device__ __forceinline__ Bundle warp_bundle(bool live, const float* o, const float* inv,
-                                              float mag) {
+                                              const float* d, float mag) {
   Bundle q;
   for (int a = 0; a < 3; ++a) {
     q.olo[a] = warp_min(live ? o[a] : INFINITY);
     q.ohi[a] = warp_max(live ? o[a] : -INFINITY);
     q.ilo[a] = warp_min(live ? inv[a] : INFINITY);
     q.ihi[a] = warp_max(live ? inv[a] : -INFINITY);
+    if constexpr (kNormals) {
+      q.dlo[a] = warp_min(live ? d[a] : INFINITY);
+      q.dhi[a] = warp_max(live ? d[a] : -INFINITY);
+    }
   }
   q.tmax = warp_max(live ? mag : -INFINITY);
   return q;
@@ -109,15 +208,30 @@ __device__ __forceinline__ Bundle warp_bundle(bool live, const float* o, const f
 
 // Could some ray of the bundle cross box b (accel.bundle_box_test)?  The
 // box is widened for the bundle's farthest origin, per axis the larger of
-// |olo - c| and |ohi - c|; per axis, the extremes of (face - origin) *
-// reciprocal over the bundle lie at the corner products.
-__device__ __forceinline__ bool bundle_box(const Bundle& q, const float* b) {
+// |olo - c| and |ohi - c|, and for the normal records by the least bound
+// of each |n_k . d| over the bundle's directions (least_abs_dot).  Per
+// axis, the extremes of (face - origin) * reciprocal over the bundle lie
+// at the corner products.
+template <bool kNormals>
+__device__ __forceinline__ bool bundle_box(const Bundle& q, const float* b,
+                                           const float* __restrict__ rec) {
+  if constexpr (kNormals) {  // as seg_box: kappa's test first
+    if (!bundle_box<false>(q, b, rec)) return false;
+  }
   float d[3], lo[3], hi[3];
   for (int a = 0; a < 3; ++a) {
     const float c = (b[a] + b[a + 3]) * 0.5f;
     d[a] = fmaxf(fabsf(q.olo[a] - c), fabsf(q.ohi[a] - c));
   }
-  widen(b, d[0] + d[1] + d[2], lo, hi);
+  if constexpr (kNormals) {
+    float n[24];
+    load_normals(rec, n);
+    float least = INFINITY;
+    for (int k = 0; k < 8; ++k) least = fminf(least, least_abs_dot(n + 3 * k, q.dlo, q.dhi));
+    widen_scaled(b, d[0] + d[1] + d[2], least_scale(b, least), lo, hi);
+  } else {
+    widen(b, d[0] + d[1] + d[2], lo, hi);
+  }
   float tn = -INFINITY, tf = INFINITY;
   for (int a = 0; a < 3; ++a) {
     float mn = INFINITY, mx = -INFINITY;
@@ -142,38 +256,62 @@ __device__ __forceinline__ int warp_slot(int warp, int lane) {
   return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;
 }
 
-// One warp's any-hit walk toward one light; every lane of the warp calls it
-// together.  `live`: this lane's ray is queried and not yet occluded (by a
-// sphere or plane).  tri: kRec floats a triangle record, v0 e1 e2 n cull
-// first; boxes: (ceil(T/8), kBoxCols) box records; w: the row's `c`
-// entries.  Returns whether a triangle occludes this lane's segment
-// [tmin, mag) (false for a lane that is not live).
+// The any-hit visit: tri_t on triangles [k0, k1) of the group, triangle
+// culling inverted, stopping at the first occluder.
 template <int kRec>
-__device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T,
-                                            const float* __restrict__ boxes,
-                                            const int* __restrict__ w, int c, bool live,
-                                            float ox, float oy, float oz, float dx, float dy,
-                                            float dz, float tmin, float mag) {
+struct AnyHitVisit {
+  static constexpr bool kStops = true;  // a lane is resolved at its first occluder
+  float ox, oy, oz, dx, dy, dz, tmin, mag;
+  bool occ = false;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    for (int k = k0; k < k1; ++k) {
+      if (tri_t(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY) {
+        occ = true;
+        break;
+      }
+    }
+  }
+  __device__ __forceinline__ bool resolved() const { return occ; }
+};
+
+// One warp's walk toward one light; every lane of the warp calls it
+// together.  kRec: floats a triangle record, v0 e1 e2 n cull first; kCols:
+// kBoxCols or kNormalCols; kExpand: groups an entry (1 for a list of groups,
+// 16 for a list of 128-triangle chunks); `visit` is called with each group
+// this lane's segment crosses, in the row's order (AnyHitVisit above, or
+// soft.cu's product).  `live`: this lane's ray is queried and not yet
+// resolved (occluded by a sphere or plane).  boxes: (ceil(T/8), kCols)
+// records, 16-byte aligned; w: the row's `c` entries.
+template <int kRec, int kCols, int kExpand, class Visit>
+__device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
+                                           const float* __restrict__ boxes,
+                                           const int* __restrict__ w, int c, bool live,
+                                           const float* o, const float* d, float mag,
+                                           Visit& visit) {
+  constexpr bool kNormals = kCols == kNormalCols;
   constexpr int kGroupTris = 8;
-  if (!__any_sync(kFullWarp, live)) return false;
+  if (!__any_sync(kFullWarp, live)) return;
   const int lane = threadIdx.x % 32;
   const int ng = (T + kGroupTris - 1) / kGroupTris;
-  const float o[3] = {ox, oy, oz};
-  const float inv[3] = {inv_dir(dx), inv_dir(dy), inv_dir(dz)};
-  const Bundle q = warp_bundle(live, o, inv, mag);
-  bool occ = false;
-  for (int base = 0; base < c; base += 32) {
+
+  const float inv[3] = {inv_dir(d[0]), inv_dir(d[1]), inv_dir(d[2])};
+  const Bundle q = warp_bundle<kNormals>(live, o, inv, d, mag);
+  const int n = c * kExpand;
+  for (int base = 0; base < n; base += 32) {
     const int e = base + lane;
-    int g = e < c ? w[e] : -1;
+    // a negative entry gives g < 0, a chunk past the scene g >= ng
+    int g = e < n ? w[e / kExpand] * kExpand + e % kExpand : -1;
     if (g >= ng) g = -1;  // not a group of this scene
-    float b[kBoxCols] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float b[kBoxCols];  // held in registers
+    for (int i = 0; i < kBoxCols; ++i) b[i] = 0.0f;
     bool cand = false;
     if (g >= 0) {
-      const float4* b4 = reinterpret_cast<const float4*>(boxes + kBoxCols * (size_t)g);
-      const float4 u0 = b4[0], u1 = b4[1];
-      b[0] = u0.x, b[1] = u0.y, b[2] = u0.z, b[3] = u0.w;
-      b[4] = u1.x, b[5] = u1.y, b[6] = u1.z, b[7] = u1.w;
-      cand = bundle_box(q, b);
+      const float4* b4 = reinterpret_cast<const float4*>(boxes + kCols * (size_t)g);
+      for (int i = 0; i < kBoxCols / 4; ++i) {
+        const float4 u = b4[i];
+        b[4 * i] = u.x, b[4 * i + 1] = u.y, b[4 * i + 2] = u.z, b[4 * i + 3] = u.w;
+      }
+      cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);
     }
     unsigned todo = __ballot_sync(kFullWarp, cand);
     while (todo) {
@@ -182,22 +320,30 @@ __device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T
       const int gj = __shfl_sync(kFullWarp, g, j);
       float bj[kBoxCols];
       for (int i = 0; i < kBoxCols; ++i) bj[i] = __shfl_sync(kFullWarp, b[i], j);
-      const bool pass = live && seg_box(bj, o, inv, mag);
+      const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d, mag);
       if (!__any_sync(kFullWarp, pass)) continue;
-      if (pass) {
-        const int k1 = min(gj * kGroupTris + kGroupTris, T);
-        for (int k = gj * kGroupTris; k < k1; ++k) {
-          if (tri_t(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY) {
-            occ = true;
-            break;
-          }
-        }
+      if (pass) visit(tri, gj * kGroupTris, min(gj * kGroupTris + kGroupTris, T));
+      if constexpr (Visit::kStops) {
+        live = live && !visit.resolved();
+        if (__all_sync(kFullWarp, !live)) return;  // every lane resolved
       }
-      live = live && !occ;
-      if (__all_sync(kFullWarp, !live)) return occ;  // every lane resolved
     }
   }
-  return occ;
+}
+
+// K4's and K11b's any-hit walk over 8-triangle groups with the 8-float box
+// records: whether a triangle occludes this lane's segment [tmin, mag)
+// (false for a lane that is not live).
+template <int kRec>
+__device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T,
+                                            const float* __restrict__ boxes,
+                                            const int* __restrict__ w, int c, bool live,
+                                            float ox, float oy, float oz, float dx, float dy,
+                                            float dz, float tmin, float mag) {
+  AnyHitVisit<kRec> visit{ox, oy, oz, dx, dy, dz, tmin, mag};
+  const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+  group_walk<kRec, kBoxCols, 1>(tri, T, boxes, w, c, live, o, d, mag, visit);
+  return visit.occ;
 }
 
 }  // namespace raytpu_dev

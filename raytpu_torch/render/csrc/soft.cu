@@ -21,14 +21,20 @@
 // plane normal(3) dot(origin, normal) material_id, triangle v0(3) e1(3) e2(3)
 // normal(3) cull material_id.
 //
-// A tile is 1024 consecutive rays; one block of 1024 threads per tile, one
-// thread per ray.  Spheres and planes sit in shared memory.  Triangles come
-// from device memory through each (tile, light) worklist of 8-triangle
-// groups, in ascending order, one launch at any triangle count; the group
-// boxes behind the worklists are widened by the sigmoid's support
-// (accel.chunk_soft_slack), so a triangle a worklist leaves out occludes a
-// ray of the tile by less than sigmoid(-20) ~ 2e-9.  K5 has no early exit:
-// every listed group multiplies in.  K6 accumulates in registers and crosses
+// A tile is 1024 consecutive rays.  Spheres and planes sit in shared
+// memory.  Triangles come from device memory through each (tile, light)
+// worklist of 8-triangle groups, in ascending order, one launch at any
+// triangle count; the group boxes behind the worklists are widened by the
+// sigmoid's support (accel.chunk_soft_slack), so a triangle a worklist
+// leaves out occludes a ray of the tile by less than sigmoid(-20) ~ 2e-9.
+// K5: a thread per (ray, light), eight blocks of 128 a tile and light, each
+// warp on an 8x4 pixel block, walking its row with shadow.cuh's soft walk:
+// each ray skips the groups whose soft normal record its segment misses
+// (accel.normal_boxes with beta), which hold no triangle whose factor 1 -
+// occ is not exactly 1.0f, and multiplies the rest in the row's order, so
+// its product equals the walk over every listed triangle bit for bit; it
+// never stops early.  K6 and K7: one block of 1024 threads per tile, one
+// thread per ray, every listed group.  K6 accumulates in registers and crosses
 // no rays.  K7 is the only reduction across rays: each block sums its
 // rays' partials for each listed triangle (warp shuffles, then shared
 // memory across the 32 warps, in a fixed order) and adds one value per
@@ -57,12 +63,14 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "shadow.cuh"
 
 namespace {
 
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
+constexpr int kBlock = 128;  // K5's threads a block: 4 warps
 constexpr int kWarps = kTile / 32;
 constexpr int kGroup = 8;
 constexpr int kSp = 5;   // sphere / plane record
@@ -185,41 +193,59 @@ __device__ __forceinline__ void load_sp(float* sm, const float* sph_g, int S, co
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kTile) soft_trans_kernel(
+// The soft visit: multiplies (1 - occ) of triangles [k0, k1) into the
+// lane's product, in order; it never stops early.
+template <int kRec>
+struct SoftVisit {
+  static constexpr bool kStops = false;
+  float ox, oy, oz, dx, dy, dz, tmin, mag, beta, tr;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    for (int k = k0; k < k1; ++k)
+      tr = tr * (1.0f - tri_soft(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz, tmin, mag,
+                                 beta).occ);
+  }
+  __device__ __forceinline__ bool resolved() const { return false; }
+};
+
+// K5: one thread per (ray, light), a grid of (kTile / kBlock blocks a tile)
+// x lights; warp w of the tile takes the 8x4 pixel block warp_slot(w,
+// lane) of its 32x32 layout.  Spheres and planes multiply in first, then
+// the soft group walk over the (tile, light) worklist with the soft normal
+// records: a lane skips only groups whose factors are all exactly 1.0f, so
+// the product equals the walk over every listed triangle bit for bit.
+__global__ void __launch_bounds__(kBlock, 4) soft_trans_kernel(
     const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
-    int R, int L, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, float beta, float* __restrict__ trans) {
+    int R, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin, float beta,
+    float* __restrict__ trans) {
   extern __shared__ float sm[];  // spheres | planes
   load_sp(sm, sph_g, S, pln_g, P);
   const float* sph = sm;
   const float* pln = sm + S * kSp;
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
-  for (int l = 0; l < L; ++l) {
-    const size_t lr = (size_t)l * R + rid;
-    const float dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
-    const float mag = mags[lr];
-    float tr = 1.0f;
+  const int L = gridDim.y, l = blockIdx.y;
+  const int tile = blockIdx.x / (kTile / kBlock);
+  const int warp = (blockIdx.x % (kTile / kBlock)) * (kBlock / 32) + threadIdx.x / 32;
+  const int rid = tile * kTile + warp_slot(warp, threadIdx.x % 32);
+  const bool valid = rid < R;  // lanes past the rays vote, never write
+  const size_t lr = (size_t)l * R + rid;
+  SoftVisit<kTr> v{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, tmin, 0.0f, beta, 1.0f};
+  if (valid) {
+    v.ox = p[3 * rid], v.oy = p[3 * rid + 1], v.oz = p[3 * rid + 2];
+    v.dx = dirs[3 * lr], v.dy = dirs[3 * lr + 1], v.dz = dirs[3 * lr + 2];
+    v.mag = mags[lr];
     for (int s = 0; s < S; ++s)
-      tr = tr * (1.0f - sphere_soft(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag, beta).occ);
+      v.tr = v.tr * (1.0f - sphere_soft(sph + s * kSp, v.ox, v.oy, v.oz, v.dx, v.dy, v.dz, tmin,
+                                        v.mag, beta).occ);
     for (int q = 0; q < P; ++q)
-      tr = tr * (1.0f - plane_soft(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, mag, beta).occ);
-    const int row = tile * L + l;
-    const int* w = wl + (size_t)row * wl_cols;
-    const int c = min(cnt[row], wl_cols);
-    for (int e = 0; e < c; ++e) {
-      const int g = w[e];
-      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-      const int k1 = min(g * kGroup + kGroup, T);
-      for (int k = g * kGroup; k < k1; ++k)
-        tr = tr * (1.0f - tri_soft(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, mag,
-                                   beta).occ);
-    }
-    trans[lr] = tr;
+      v.tr = v.tr * (1.0f - plane_soft(pln + q * kSp, v.ox, v.oy, v.oz, v.dx, v.dy, v.dz, tmin,
+                                       v.mag, beta).occ);
   }
+  const int row = tile * L + l;
+  const float o[3] = {v.ox, v.oy, v.oz}, d[3] = {v.dx, v.dy, v.dz};
+  group_walk<kTr, kNormalCols, 1>(tri, T, boxes, wl + (size_t)row * wl_cols,
+                                  min(cnt[row], wl_cols), valid, o, d, v.mag, v);
+  if (valid) trans[lr] = v.tr;
 }
 
 __global__ void __launch_bounds__(kTile) soft_dray_kernel(
@@ -395,17 +421,21 @@ __global__ void __launch_bounds__(kTile) soft_dprim_kernel(
 
 extern "C" {
 
-// Launches K5 on `stream` over ceil(R/1024) tiles.  p (R, 3), dirs (L, R, 3),
-// mags (L, R) float32; `wl` (nt, L, wl_cols) and `cnt` (nt, L) the soft
-// worklists; trans (L, R) float32.  Returns cudaGetLastError() after the launch.
+// Launches K5 on `stream` over ceil(R/1024) tiles x L lights.  p (R, 3),
+// dirs (L, R, 3), mags (L, R) float32; `boxes` (ceil(T/8), 32) the soft
+// normal records (accel.normal_boxes with beta), 16-byte aligned; `wl` (nt, L,
+// wl_cols) and `cnt` (nt, L) the soft worklists; trans (L, R) float32.
+// Returns cudaGetLastError() after the launch.
 int raytpu_soft_trans(const float* p, const float* dirs, const float* mags, int R, int L,
                       const float* sph, int S, const float* pln, int P, const float* tri, int T,
-                      const int* wl, const int* cnt, int wl_cols, float tmin, float beta,
-                      float* trans, void* stream) {
+                      const float* boxes, const int* wl, const int* cnt, int wl_cols, float tmin,
+                      float beta, float* trans, void* stream) {
+  if (R == 0 || L == 0) return static_cast<int>(cudaSuccess);
   const int tiles = (R + kTile - 1) / kTile;
   const size_t smem = sizeof(float) * (S + P) * kSp;
-  soft_trans_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, dirs, mags, R, L, sph, S, pln, P, tri, T, wl, cnt, wl_cols, tmin, beta, trans);
+  const dim3 grid(tiles * (kTile / kBlock), L);
+  soft_trans_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, dirs, mags, R, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, tmin, beta, trans);
   return static_cast<int>(cudaGetLastError());
 }
 

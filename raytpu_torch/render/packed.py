@@ -89,13 +89,19 @@ def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None, group=ac
     (``accel.shadow_cull_matrix``).  K4 passes no ``soft_beta``; the soft
     kernels K5-K7 pass theirs, which widens every group's box by
     ``accel.chunk_soft_slack`` (pallas_soft.py:_padded_group_bounds).  K9
-    and K10 take 128-triangle chunks.  ``group_bounds`` is
-    ``accel.chunk_bounds(scene.triangles, group)`` where the caller has it."""
+    and K10 take 128-triangle chunks.  ``group_bounds`` is the 8-triangle
+    groups' ``accel.chunk_bounds(scene.triangles)`` where the caller has
+    it; the bounds of larger groups are merged from it
+    (``accel.merge_bounds``), not taken in a second pass over the
+    triangles."""
     L, nt = dirs.shape[0], -(-p.shape[0] // TILE)
     if not accel.culls_groups(scene.triangles, group):
         wl, cnt = accel.full_worklist(nt * L, scene.triangles, group)
         return wl.reshape(nt, L, -1), cnt.reshape(nt, L)
-    glo, ghi = group_bounds or accel.chunk_bounds(scene.triangles, group)
+    if group_bounds is None:
+        glo, ghi = accel.chunk_bounds(scene.triangles, group)
+    else:
+        glo, ghi = accel.merge_bounds(*group_bounds, group // accel.GROUP)
     if soft_beta is not None:
         slack = accel.chunk_soft_slack(scene.triangles, float(soft_beta), group)[:, None]
         glo, ghi = glo - slack, ghi + slack

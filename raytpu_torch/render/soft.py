@@ -7,7 +7,9 @@ and their streamed forms).  The kernels are ``csrc/soft.cu``:
 
   * K5 (``soft_trans_lights_cuda``): every light's transmittance (L, R) of
     the shadow rays, the product of ``1 - occ`` over the spheres, the planes
-    and the triangles of each (tile, light) worklist;
+    and the triangles of each (tile, light) worklist, each ray skipping the
+    groups whose soft normal record (``soft_boxes``) its segment misses, all
+    of whose factors are exactly 1.0f;
   * K6 (``soft_dray``): K5's VJP on the ray side, ``g_p`` (R, 3) summed
     over lights, ``g_dirs`` (L, R, 3) and ``g_mags`` (L, R);
   * K7 (``soft_dprim``): K5's VJP on the triangles, ``[g_s, g_e1, g_e2]``
@@ -32,6 +34,7 @@ import torch
 
 from raytpu_torch.core import math3d
 from raytpu_torch.core.types import Scene
+from raytpu_torch.ops import accel
 from raytpu_torch.ops.intersect import OCC_MAX
 from raytpu_torch.render import build, packed, plain
 from raytpu_torch.render.packed import SP_COLS, TILE, TRI_COLS
@@ -46,10 +49,22 @@ SOFT_DPRIM_LAUNCHES = 0
 _dot3, _fma, _cross3 = math3d.dot3, math3d.fma, math3d.cross3
 
 
-def soft_worklists(scene: Scene, p, dirs, mags, tmin, beta):
+def soft_worklists(scene: Scene, p, dirs, mags, tmin, beta, group_bounds=None):
     """K5-K7's worklists ``(wl (nt, L, ng) int32, cnt (nt, L) int32)``:
-    K4's shadow culls over group boxes widened by the soft slack."""
-    return packed.shadow_worklists(scene, p, dirs, mags, tmin, soft_beta=beta)
+    K4's shadow culls over group boxes widened by the soft slack.
+    ``group_bounds``: the groups' ``accel.chunk_bounds`` where the caller
+    has them."""
+    return packed.shadow_worklists(scene, p, dirs, mags, tmin, soft_beta=beta,
+                                   group_bounds=group_bounds)
+
+
+def soft_boxes(scene: Scene, p, dirs, mags, tmin, beta):
+    """K5's per-step inputs from one set of group bounds: the soft normal
+    records (``accel.normal_boxes`` with ``beta``: a segment that misses one
+    meets no triangle whose factor differs from 1.0f) and the worklists
+    ``(boxes, wl, cnt)``."""
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles, soft_beta=beta)
+    return (boxes, *soft_worklists(scene, p, dirs, mags, tmin, beta, group_bounds=(glo, ghi)))
 
 
 def soft_trans_lights_kernel(scene: Scene, p, dirs, mags, tmin, beta):
@@ -58,8 +73,9 @@ def soft_trans_lights_kernel(scene: Scene, p, dirs, mags, tmin, beta):
     ``(trans, (blobs, wl, cnt))``."""
     p, dirs, mags = p.contiguous(), dirs.contiguous(), mags.contiguous()
     blobs = packed.soft_packs(scene)
-    wl, cnt = soft_worklists(scene, p, dirs, mags, tmin, beta)
-    return soft_trans_lights_cuda(p, dirs, mags, *blobs, wl, cnt, tmin, beta), (blobs, wl, cnt)
+    boxes, wl, cnt = soft_boxes(scene, p, dirs, mags, tmin, beta)
+    return (soft_trans_lights_cuda(p, dirs, mags, *blobs, boxes, wl, cnt, tmin, beta),
+            (blobs, wl, cnt))
 
 
 def _check(what, p, dirs, mags, sph, pln, tri, wl, cnt, extra=None):
@@ -77,21 +93,28 @@ def _check(what, p, dirs, mags, sph, pln, tri, wl, cnt, extra=None):
     return L, R, S, P, T
 
 
-def soft_trans_lights_cuda(p, dirs, mags, sph, pln, tri, wl, cnt, tmin, beta):
+def soft_trans_lights_cuda(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, tmin, beta):
     """K5 over shadow rays and the records of ``packed.soft_packs``, walking
     each (tile, light) worklist ``wl`` (nt, L, n) int32 up to ``cnt``
-    (nt, L) -> (L, R) float32.  CPU tensors take ``soft_trans_plain``."""
+    (nt, L) and testing each ray's segment against the soft normal records
+    ``boxes`` (ceil(T/8), 32) of ``soft_boxes`` before a group's triangles
+    -> (L, R) float32.  CPU tensors take ``soft_trans_plain``, which needs
+    no boxes."""
     global SOFT_TRANS_LAUNCHES
     if p.device.type == "cpu":
         return soft_trans_plain(p, dirs, mags, sph, pln, tri, tmin, beta)
     L, R, S, P, T = _check("K5", p, dirs, mags, sph, pln, tri, wl, cnt)
+    build.check_tensors("K5", p.device, {
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS))})
+    build.check_aligned("K5", "boxes", boxes, 16)
     trans = torch.empty((L, R), dtype=torch.float32, device=p.device)
     lib = build.load()
     with torch.cuda.device(p.device):
         err = lib.raytpu_soft_trans(
             p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), S,
-            pln.data_ptr(), P, tri.data_ptr(), T, wl.data_ptr(), cnt.data_ptr(), wl.shape[-1],
-            float(tmin), float(beta), trans.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            pln.data_ptr(), P, tri.data_ptr(), T, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
+            wl.shape[-1], float(tmin), float(beta), trans.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: {build.cuda_error_name(lib, err)}")
     SOFT_TRANS_LAUNCHES += 1

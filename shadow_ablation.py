@@ -1,29 +1,57 @@
-"""K4's time on one CUDA card with parts of its design taken out: what each
-part of the shadow walk (raytpu_torch/render/csrc/shadow.cuh) buys.
+"""The shadow walk's kernels K4, K10 and K5 on one CUDA card with parts of
+their design taken out: what each part of the walk
+(raytpu_torch/render/csrc/shadow.cuh) buys.
 
     python3 shadow_ablation.py       # prints one JSON line
 
-Each variant is packed.cu built with one change to shadow.cuh or
-packed.cu (nvcc, the package's flags, one library per variant under
-raytpu_torch/_build/ablation, all compiled at once).  K4 runs on the shadow
-queries of frame 0 of bunny50k and bunny300k at 640x480, as chip_smoke.py
-phase 4 forms them, timed with CUDA events (REPEATS runs of ITERS launches);
-each variant's (L, R) answer must equal the design's:
+Each variant is the kernels' sources built with one change to shadow.cuh,
+packed.cu, chunked.cu or soft.cu (nvcc, the package's flags, one library
+per variant under raytpu_torch/_build/ablation, all compiled at once).
+The kernels run on frame 0 at 640x480, their inputs formed as
+chip_smoke.py phase 4 forms them: K4 on the shadow queries of bunny50k and
+bunny300k, K10 on those of optional_l12, bunny18k_l12 and reference_s106
+(the chunked route), K5 on the soft shadow queries of optional, bunny50k and bunny300k;
+each is timed with CUDA events (REPEATS runs of ITERS launches), and each
+variant's answer (K4's and K5's (L, R), K10's (R, 3) colors) must equal
+the design's bit for bit, and the design's the package wrapper's on the
+same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
+``soft.soft_trans_lights_cuda``):
 
-  design        the kernel as committed;
-  no_bundle     no test of the warp's bundle: every listed entry goes to
-                each ray's box test;
-  no_ray_box    no per-ray box test: a warp runs a group's triangles for
-                every live lane wherever the bundle test passes;
-  no_boxes      neither test: every listed triangle, with the warp-granular
-                exit, 128-thread blocks and 8x4 pixel warps kept;
-  no_warp_exit  a warp walks its whole row even when every lane is resolved;
-  rows          each warp takes a row of 32 pixels, not an 8x4 block;
-  block1024     one 1024-thread block per (tile, light), not eight of 128.
+  design        the kernels as committed;
+  no_bundle     (K4) no test of the warp's bundle: every listed entry goes
+                to each ray's box test;
+  no_ray_box    (K4, K10, K5) no per-ray box test: a warp visits a group's
+                triangles for every live lane wherever the bundle test
+                passes;
+  no_boxes      (K4) neither test: every listed triangle, with the
+                warp-granular exit, 128-thread blocks and 8x4 pixel warps
+                kept;
+  no_warp_exit  (K4) a warp walks its whole row even when every lane is
+                resolved;
+  rows          (K4) each warp takes a row of 32 pixels, not an 8x4 block;
+  block1024     (K4, K10, K5) one 1024-thread block per (tile, light) (K4,
+                K5) or per tile (K10), not eight of 128;
+  kappa         (K10, K5) the normal records' widening replaced by kappa's
+                (K4's widening on the same records): the triangles'
+                normals taken out;
+  no_pretest    (K10, K5) the normal records' tests without kappa's
+                cheaper test before them;
+  no_direct     (K10) a scene of a few groups (reference_s106) is given the
+                normal records too, so it takes the walk's kernel, not the
+                one that tests every listed triangle;
+  regs64        (K10, K5) at most 64 registers a thread (launch bounds of 8
+                blocks of 128 an SM, not 4).
 
-The variants are replacements of exact lines of the committed shadow.cuh
-and packed.cu: the script raises when one of those lines has changed, and
-the variants must then be restated against the new sources.
+Beside the kernels' times the line holds, per K10 and K5 scene, the
+milliseconds a frame or step spends building the records
+(``accel.normal_boxes``) and all of the kernel's per-frame inputs
+(records and worklists: ``chunked.shadow_inputs``, ``soft.soft_boxes``),
+CUDA events around back-to-back calls, which on these host-bound calls
+is the host's time to issue them.
+
+The variants are replacements of exact lines of the committed sources: the
+script raises when one of those lines has changed, and the variants must
+then be restated against the new sources.
 """
 
 from __future__ import annotations
@@ -37,70 +65,232 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 REPEATS, ITERS = 3, 5
-SCENES = ("bunny50k", "bunny300k")
-RAY_BOX = "const bool pass = live && seg_box(bj, o, inv, mag);"
-#: variant -> [(file, text in the design, text in the variant)]
+K4_SCENES = ("bunny50k", "bunny300k")
+K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
+K5_SCENES = ("optional", "bunny50k", "bunny300k")
+RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d, "
+           "mag);")
+BUNDLE = "cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);"
+#: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": [],
-    "no_bundle": [("shadow.cuh", "cand = bundle_box(q, b);", "cand = true;")],
-    "no_ray_box": [("shadow.cuh", RAY_BOX, "const bool pass = live;")],
-    "no_boxes": [("shadow.cuh", "cand = bundle_box(q, b);", "cand = true;"),
-                 ("shadow.cuh", RAY_BOX, "const bool pass = live;")],
-    "no_warp_exit": [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return occ;", "")],
-    "rows": [("shadow.cuh", "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
-              "return warp * 32 + lane;")],
-    "block1024": [("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
-                  ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
-                   "__launch_bounds__(kBlock, 1) packed_anyhit_kernel")],
+    "design": ("K4 K10 K5", []),
+    "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
+    "no_ray_box": ("K4 K10 K5", [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_boxes": ("K4", [("shadow.cuh", BUNDLE, "cand = true;"),
+                        ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_warp_exit": ("K4", [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return;", "")]),
+    "rows": ("K4", [("shadow.cuh",
+                     "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
+                     "return warp * 32 + lane;")]),
+    "block1024": ("K4 K10 K5", [
+        ("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
+        ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
+         "__launch_bounds__(kBlock, 1) packed_anyhit_kernel"),
+        ("chunked.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
+        ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
+         "__launch_bounds__(kShadeBlock, 1) chunked_shadow_shade_kernel"),
+        ("soft.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
+        ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
+         "__launch_bounds__(kBlock, 1) soft_trans_kernel")]),
+    "kappa": ("K10 K5", [
+        ("shadow.cuh", "widen_scaled(b, dd[0] + dd[1] + dd[2], ray_scale(b, rec, d), lo, hi);",
+         "widen(b, dd[0] + dd[1] + dd[2], lo, hi);"),
+        ("shadow.cuh", "widen_scaled(b, d[0] + d[1] + d[2], least_scale(b, least), lo, hi);",
+         "widen(b, d[0] + d[1] + d[2], lo, hi);")]),
+    "no_pretest": ("K10 K5", [
+        ("shadow.cuh", "if (!seg_box<false>(b, rec, o, inv, d, mag)) return false;", ""),
+        ("shadow.cuh", "if (!bundle_box<false>(q, b, rec)) return false;", "")]),
+    "no_direct": ("K10", []),  # the same library, given the normal records (k10_launcher)
+    "regs64": ("K10 K5", [
+        ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
+         "__launch_bounds__(kShadeBlock, 8) chunked_shadow_shade_kernel"),
+        ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
+         "__launch_bounds__(kBlock, 8) soft_trans_kernel")]),
 }
+#: each kernel's source and the kernel entry whose ptxas line is kept
+SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
+           "K10": ("chunked.cu", "chunked_shadow_shade_kernelILb1E"),  # the walk's instance
+           "K5": ("soft.cu", "soft_trans")}
 
 
 def build_variants(out: Path) -> dict:
-    """{variant: library path}, every variant compiled at once."""
+    """{variant: (library path, {kernel: ptxas registers line})}, every
+    variant compiled at once, each from the sources of the kernels it
+    applies to."""
     from raytpu_torch.render import build
 
     csrc = REPO / "raytpu_torch" / "render" / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, (kernels, patches) in VARIANTS.items():
         src = out / name
         src.mkdir(parents=True)
-        for f in ("common.cuh", "shadow.cuh", "packed.cu"):
+        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu"):
             shutil.copy(csrc / f, src / f)
         for f, old, new in patches:
             text = (src / f).read_text()
             if old not in text:
                 raise RuntimeError(f"{name}: {f} no longer holds {old!r}")
             (src / f).write_text(text.replace(old, new))
-        lib = src / "libk4.so"
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(src / "packed.cu"), "-o",
-             str(lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        lib = src / "libwalk.so"
+        files = [str(src / SOURCES[k][0]) for k in kernels.split()]
+        procs[name] = (lib, kernels.split(), subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", *files, "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for name, (lib, kernels, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
-        entry = next(i for i, ln in enumerate(lines) if "Compiling entry" in ln and "anyhit" in ln)
-        libs[name] = (lib, next(ln.strip() for ln in lines[entry:] if "registers" in ln))
+        regs = {}
+        for k in kernels:
+            entry = next(i for i, ln in enumerate(lines)
+                         if "Compiling entry" in ln and SOURCES[k][1] in ln)
+            regs[k] = next(ln.strip() for ln in lines[entry:] if "registers" in ln)
+        libs[name] = (lib, regs)
     return libs
 
 
-def k4_inputs(scene, cfg):
-    """K4's arguments on the scene's frame 0, as chip_smoke.py phase 4."""
-    from raytpu_torch.ops import accel
+def _frame_queries(scene, cfg, closest):
+    """Shadow queries ``(p, dirs, mags)`` of frame 0's folded camera rays
+    and the hit records ``closest(scene, ro, rd, tmin)`` gives."""
     from raytpu_torch.render import packed, renderer
 
     ro, rd = renderer.generate_rays(scene.camera, cfg)
     rd = packed.mega2_fold(rd, cfg.height, cfg.width)
     ro = ro.expand_as(rd).contiguous()
-    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, cfg.ray_min)
-    rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
-    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    rec = closest(scene, ro, rd, cfg.ray_min)
+    return rd, rec, tuple(x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+
+
+def _packed_closest(scene, ro, rd, tmin):
+    from raytpu_torch.render import packed
+
+    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, tmin)
+    return packed.hit_records_from_payload(ro, rd, t, normal, mat)
+
+
+def k4_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K4 on the scene's frame 0."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import packed
+
+    _, _, (p, dirs, mags) = _frame_queries(scene, cfg, _packed_closest)
     glo, ghi, boxes = accel.group_boxes(scene.triangles)
     wl, cnt = packed.shadow_worklists(scene, p, dirs, mags, cfg.ray_min, group_bounds=(glo, ghi))
-    return p, dirs, mags, packed.soft_packs(scene), boxes, wl, cnt
+    sph, pln, tri = packed.soft_packs(scene)
+    L, R = dirs.shape[:2]
+
+    def launch(lib, out, variant):
+        return lib.raytpu_packed_anyhit(
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), sph.shape[0],
+            pln.data_ptr(), pln.shape[0], tri.data_ptr(), tri.shape[0], boxes.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    want = packed.any_hit_lights(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, cfg.ray_min)
+    return torch.empty((L, R), dtype=torch.uint8, device=dev), launch, None, want.to(torch.uint8)
+
+
+def k10_launcher(scene, cfg, dev):
+    """(output, launch(fn, out, variant), {what: ms}, the package's answer)
+    for K10 on the chunked route's frame 0, with the records
+    ``chunked.shadow_inputs`` chooses, or for the variant no_direct always
+    the normal records; the ms to build the records and all of K10's
+    inputs."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import chunked, packed, plain
+
+    rd, rec, (p, dirs, mags) = _frame_queries(scene, cfg, chunked.closest_hit_chunked)
+    boxes, wl, cnt = chunked.shadow_inputs(scene, p, dirs, mags, cfg.ray_min)
+    records = accel.normal_boxes(scene.triangles)[2]
+    glue = glue_ms(lambda: accel.normal_boxes(scene.triangles),
+                   lambda: chunked.shadow_inputs(scene, p, dirs, mags, cfg.ray_min))
+    sph, pln, tri = packed.soft_packs(scene)
+    lights, mats = plain.pack_lights(scene.lights), plain.material_table(scene.materials)
+    hit, normal, point = rec.hit, rec.normal.contiguous(), rec.point.contiguous()
+    mat = rec.material.contiguous()
+    L, R = dirs.shape[:2]
+
+    def launch(lib, out, variant):
+        b = records if variant == "no_direct" or boxes is not None else None
+        return lib.raytpu_chunked_shadow_shade(
+            hit.data_ptr(), normal.data_ptr(), point.data_ptr(), mat.data_ptr(), rd.data_ptr(),
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, lights.data_ptr(),
+            mats.data_ptr(), mats.shape[0], sph.data_ptr(), sph.shape[0], pln.data_ptr(),
+            pln.shape[0], tri.data_ptr(), tri.shape[0], None if b is None else b.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min),
+            int(cfg.lighting_mode), 1, float(cfg.shadow_dim), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    want = chunked.shadow_shade(hit, normal, point, mat, rd, p, dirs, mags, lights, mats, sph, pln,
+                                tri, boxes, wl, cnt, cfg)
+    return torch.empty((R, 3), dtype=torch.float32, device=dev), launch, glue, want
+
+
+def k5_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), {what: ms}, the package's answer)
+    for K5 on the soft shadow queries of the differentiable path's frame 0;
+    the ms to build the soft records and all of K5's inputs."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import packed, soft
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    _, _, (p, dirs, mags) = _frame_queries(scene, cfg, _packed_closest)
+    boxes, wl, cnt = soft.soft_boxes(scene, p, dirs, mags, cfg.ray_min, cfg.soft_beta)
+    glue = glue_ms(lambda: accel.normal_boxes(scene.triangles, soft_beta=cfg.soft_beta),
+                   lambda: soft.soft_boxes(scene, p, dirs, mags, cfg.ray_min, cfg.soft_beta))
+    sph, pln, tri = packed.soft_packs(scene)
+    L, R = dirs.shape[:2]
+
+    def launch(lib, out, variant):
+        return lib.raytpu_soft_trans(
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), sph.shape[0],
+            pln.data_ptr(), pln.shape[0], tri.data_ptr(), tri.shape[0], boxes.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min),
+            float(cfg.soft_beta), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    want = soft.soft_trans_lights_cuda(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, cfg.ray_min,
+                                       cfg.soft_beta)
+    return torch.empty((L, R), dtype=torch.float32, device=dev), launch, glue, want
+
+
+def glue_ms(records, inputs) -> dict:
+    """The median ms of REPEATS timings of ITERS back-to-back calls of
+    ``records()`` and of ``inputs()``."""
+    from raytpu_torch.utils.profiling import device_ms
+
+    return {what: sorted(device_ms(fn, iters=ITERS, warmup=1) for _ in range(REPEATS))[REPEATS // 2]
+            for what, fn in (("records_ms", records), ("inputs_ms", inputs))}
+
+
+def _bind(lib_path: str, kernels: list):
+    """The variant's library with the C signatures of its kernels set."""
+    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib = ctypes.CDLL(lib_path)
+    sp_tri = [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]
+    if "K4" in kernels:
+        lib.raytpu_packed_anyhit.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int] + sp_tri
+                                             + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_ptr, c_ptr])
+    if "K10" in kernels:
+        lib.raytpu_chunked_shadow_shade.argtypes = (
+            [c_ptr] * 8 + [c_int, c_int, c_ptr, c_ptr, c_int] + sp_tri
+            + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_int, c_int, c_float, c_ptr, c_ptr])
+    if "K5" in kernels:
+        lib.raytpu_soft_trans.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int] + sp_tri
+                                          + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_float, c_ptr,
+                                             c_ptr])
+    return lib
 
 
 def main() -> int:
@@ -114,47 +304,57 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("shadow_ablation: this needs a CUDA card", file=sys.stderr)
         return 1
+    import chip_smoke as cs
+
     dev = torch.device("cuda", 0)
     libs = build_variants(build.BUILD_DIR / "ablation")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RenderConfig()
-    out = {"card": smi, "k4_registers": {n: r for n, (_, r) in libs.items()}, "ms": {}}
-    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    fns = {}
-    for name, (lib, _) in libs.items():
-        fn = ctypes.CDLL(str(lib)).raytpu_packed_anyhit
-        fn.argtypes = [c_ptr, c_ptr, c_ptr, c_int, c_int, c_ptr, c_int, c_ptr, c_int, c_ptr,
-                       c_int, c_ptr, c_ptr, c_ptr, c_int, c_float, c_ptr, c_ptr]
-        fn.restype = c_int
-        fns[name] = fn
-    for scene_name in SCENES:
-        p, dirs, mags, (sph, pln, tri), boxes, wl, cnt = k4_inputs(scenes.get(scene_name).build(dev),
-                                                                   cfg)
-        L, R = dirs.shape[:2]
-        answers, ms = {}, {}
-        for name, fn in fns.items():
-            occ = torch.empty((L, R), dtype=torch.uint8, device=dev)
+    out = {"card": smi, "registers": {n: r for n, (_, r) in libs.items()}, "ms": {},
+           "records": {}}
+    bound = {n: _bind(str(lib), list(regs)) for n, (lib, regs) in libs.items()}
 
-            def launch():
-                err = fn(p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(),
-                         sph.shape[0], pln.data_ptr(), pln.shape[0], tri.data_ptr(), tri.shape[0],
-                         boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[-1],
-                         float(cfg.ray_min), occ.data_ptr(),
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{name}: launch failed ({err})")
+    def scene(name):
+        if name == "optional_l12":
+            return cs.nine_lights(scenes.get("optional").build(dev))
+        if name == "bunny18k_l12":
+            return cs.nine_lights(scenes.scene_bunny_subdiv(3, device=dev))
+        if name == "reference_s106":
+            return cs.sphere_grid(scenes.get("reference").build(dev))
+        return scenes.get(name).build(dev)
 
-            launch()
-            torch.cuda.synchronize()
-            answers[name] = occ.clone()
-            ms[name] = sorted(device_ms(launch, iters=ITERS, warmup=1) for _ in range(REPEATS))
-        for name, occ in answers.items():
-            differ = int((occ != answers["design"]).sum())
+    for key, names, make in (("K4", K4_SCENES, k4_launcher), ("K10", K10_SCENES, k10_launcher),
+                             ("K5", K5_SCENES, k5_launcher)):
+        variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
+        for scene_name in names:
+            template, launch, glue, want = make(scene(scene_name), cfg, dev)
+            answers, ms = {}, {}
+            for name in variants:
+                lib, res = bound[name], template.clone()
+
+                def run():
+                    err = launch(lib, res, name)
+                    if err:
+                        raise RuntimeError(f"{key} {name}: launch failed ({err})")
+
+                run()
+                torch.cuda.synchronize()
+                answers[name] = res.clone()
+                ms[name] = sorted(device_ms(run, iters=ITERS, warmup=1) for _ in range(REPEATS))
+            differ = int((answers["design"].view(torch.uint8) != want.view(torch.uint8)).sum())
             if differ:
-                raise AssertionError(f"{scene_name} {name}: {differ} pairs differ from the design")
-        out["ms"][scene_name] = {n: {"median": v[len(v) // 2], "min": v[0], "max": v[-1]}
-                                 for n, v in ms.items()}
+                raise AssertionError(f"{key} {scene_name}: the design's answer differs from the "
+                                     f"package's in {differ} bytes")
+            for name, ans in answers.items():
+                differ = int((ans.view(torch.uint8) != answers["design"].view(torch.uint8)).sum())
+                if differ:
+                    raise AssertionError(f"{key} {scene_name} {name}: {differ} bytes differ from "
+                                         f"the design's answer")
+            out["ms"][f"{key} {scene_name}"] = {
+                n: {"median": v[len(v) // 2], "min": v[0], "max": v[-1]} for n, v in ms.items()}
+            if glue is not None:
+                out["records"][f"{key} {scene_name}"] = glue
     out["answers_equal_to_design"] = True
     print(json.dumps(out), flush=True)
     return 0

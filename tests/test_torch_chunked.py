@@ -45,6 +45,7 @@ from raytpu.render import renderer as jrenderer
 from raytpu.utils import stage_profile as jstage_profile
 from raytpu_torch.core import convert, math3d, scenes
 from raytpu_torch.core.types import RenderConfig
+from raytpu_torch.ops import accel
 from raytpu_torch.render import chunked, cuda_kernel, packed, plain, renderer
 from raytpu_torch.utils import stage_profile
 
@@ -428,7 +429,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 def test_chunked_kernels_match_plain_versions_on_the_card():
     """K8 (both modes), K9 and K10 against their plain versions on a card,
-    each launched once per call; run on a machine with a card with
+    each launched once per call, and K10 equal bit for bit to itself over
+    records that pass every listed group; run on a machine with a card with
     ``pytest -m cuda tests/test_torch_chunked.py -p no:xdist``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -470,7 +472,17 @@ def test_chunked_kernels_match_plain_versions_on_the_card():
                 cfg)
             _close(math3d.quantize_u8(colors).cpu().numpy()[None],
                    math3d.quantize_u8(colors_p).cpu().numpy()[None])
+            # the box tests drop no occluder: K10 over records that pass every
+            # group of every listed chunk gives the same bits
+            boxes, wl, cnt = chunked.shadow_inputs(scene, p, dirs, mags, cfg.ray_min)
+            args = (rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd, p,
+                    dirs, mags, plain.pack_lights(scene.lights),
+                    plain.material_table(scene.materials), *blobs)
+            every = accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), dev)
+            got = chunked.shadow_shade(*args, boxes, wl, cnt, cfg)
+            assert torch.equal(got, colors)
+            assert torch.equal(got, chunked.shadow_shade(*args, every, wl, cnt, cfg))
             torch.cuda.synchronize()
             assert [chunked.CHUNKED_MIN_T_LAUNCHES, chunked.CHUNKED_ANYHIT_LAUNCHES,
                     chunked.CHUNKED_SHADE_LAUNCHES] == [counts[0] + 3, counts[1] + 1,
-                                                        counts[2] + 1]
+                                                        counts[2] + 3]

@@ -555,13 +555,13 @@ def test_soft_wrappers_refuse_what_the_kernels_do_not_take():
     scene = _scene("bunny")
     p, dirs, mags = _shadow_inputs(scene, 8, 8)
     blobs = packed.soft_packs(scene)
-    wl, cnt = soft.soft_worklists(scene, p, dirs, mags, 1e-4, 300.0)
+    boxes, wl, cnt = soft.soft_boxes(scene, p, dirs, mags, 1e-4, 300.0)
     g = torch.ones_like(mags)
-    meta = [x.to("meta") for x in (p, dirs, mags, g, *blobs, wl, cnt)]
-    mp, md, mm, mg, ms, mpl, mt, mwl, mcnt = meta
+    meta = [x.to("meta") for x in (p, dirs, mags, g, *blobs, boxes, wl, cnt)]
+    mp, md, mm, mg, ms, mpl, mt, mb, mwl, mcnt = meta
     before = (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DPRIM_LAUNCHES)
     with pytest.raises(ValueError, match="K5 runs on CUDA"):
-        soft.soft_trans_lights_cuda(mp, md, mm, ms, mpl, mt, mwl, mcnt, 1e-4, 300.0)
+        soft.soft_trans_lights_cuda(mp, md, mm, ms, mpl, mt, mb, mwl, mcnt, 1e-4, 300.0)
     with pytest.raises(ValueError, match="K6 runs on CUDA"):
         soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, 300.0)
     with pytest.raises(ValueError, match="K7 runs on CUDA"):
@@ -689,6 +689,11 @@ def test_soft_kernels_match_plain_versions_on_the_card():
                     soft.SOFT_DPRIM_LAUNCHES) == tuple(b + 1 for b in before)
             ref = soft.soft_trans_plain(p, dirs, mags, *blobs, 1e-4, BETA)
             assert float((trans - ref).abs().max()) <= 1e-5
+            # the per-ray soft test skips only factors of exactly 1: K5 over
+            # records that pass every group gives the same bits
+            every = accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), dev)
+            assert torch.equal(trans, soft.soft_trans_lights_cuda(p, dirs, mags, *blobs, every, wl,
+                                                                  cnt, 1e-4, BETA))
             ray_ref = soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, 1e-4, BETA)
             prim_ref = soft.soft_dprim_plain(p, dirs, mags, g, trans, blobs[2], 1e-4, BETA)
             for got, want in (*zip(ray, ray_ref), (prim, prim_ref)):

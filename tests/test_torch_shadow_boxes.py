@@ -1,5 +1,8 @@
-"""The group-box test of the shadow any-hit kernels K4 and K11b
-(``render/csrc/shadow.cuh``), through its torch twins in ``ops/accel.py``.
+"""The group-box tests of the shadow walk (``render/csrc/shadow.cuh``),
+through their torch twins in ``ops/accel.py``, for its three kinds of box
+record: kappa (``accel.group_boxes``, K4 and K11b), cone
+(``accel.normal_boxes``, K10: the normals that span each group's cone of
+normals) and soft (``accel.normal_boxes`` with beta, K5).
 
 A kernel skips a group's triangles for a shadow ray whose segment misses the
 group's padded box widened for the ray (``accel.segment_box_test``), and
@@ -15,22 +18,39 @@ triangle edges, segments that end exactly at a triangle on a box face) and
 on rays so nearly parallel to a triangle's plane that the triangle test's
 float32 solve names hit points outside the padded box, and that the
 occlusion with box culling equals ``packed.any_hit_lights_plain`` bit for
-bit.  Torch only.  The test marked ``cuda`` holds K4 and K11b against their
-plain versions on a card (``pytest -m cuda tests/test_torch_shadow_boxes.py``).
+bit.  The normal records narrow that widening by a bound of each ray's
+determinant (never past kappa's); the soft records must pass every group
+holding a triangle whose soft factor ``1 - occ`` is not exactly 1.0f, so
+that K5's product equals the walk over every listed group bit for bit.
+Torch only.  The test marked ``cuda`` holds K4 and K11b against their plain
+versions on a card (``pytest -m cuda tests/test_torch_shadow_boxes.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import functools
+
 from raytpu_torch.core import scenes
-from raytpu_torch.core.types import RenderConfig
+from raytpu_torch.core.types import RenderConfig, Triangles
 from raytpu_torch.ops import accel
-from raytpu_torch.render import packed, plain, renderer
+from raytpu_torch.render import chunked, packed, plain, renderer, soft
 
 torch.set_num_threads(2)
 
 TMIN = RenderConfig().ray_min
+BETA = RenderConfig().soft_beta
+#: the box records: K4's and K11b's (kappa), K10's normal records (cone),
+#: K5's (soft)
+KINDS = ("kappa", "cone", "soft")
+
+
+def _boxes(tris, kind):
+    """(glo, ghi, boxes) of ``kind`` for the triangles ``tris``."""
+    if kind == "kappa":
+        return accel.group_boxes(tris)
+    return accel.normal_boxes(tris, soft_beta=BETA if kind == "soft" else None)
 #: bunny50k's 640x480 tiles: one on the bunny whose shadow worklists list
 #: 1,290-2,391 of its 9,344 groups, and one of floor beside it
 BUNNY50K_TILES = (171, 285)
@@ -72,32 +92,80 @@ def _check_queries(sph, pln, tri, tri_ids, p, d, mag, boxes):
     hits = _hits(tri[tri_ids], p[rays], d[rays], mag[rays])  # (n rays, n triangles)
     groups, col = torch.unique(tri_ids // accel.GROUP, return_inverse=True)
     inv = accel.inv_dir(d)
-    seg = accel.segment_box_test(p[rays], inv[rays], mag[rays], boxes[groups])[:, col]
+    seg = accel.segment_box_test(p[rays], inv[rays], mag[rays], boxes[groups], d=d[rays])[:, col]
     assert bool(seg[hits].all()), "the per-ray box test rejected a group that a ray hits"
     culled = want & ~live
     culled[rays] = (hits & seg).any(dim=1)
     assert torch.equal(culled, want)
-    pad = (-R) % 32  # bundles of 32 queries; padding queries are not live
+    hit_groups = torch.zeros((R, groups.numel()), dtype=torch.bool)
+    hit_groups[rays] = torch.zeros((rays.numel(), groups.numel())).index_add_(
+        1, col, hits.float()) > 0
+    _check_bundles(p, d, mag, live, boxes[groups], hit_groups)
+    return want
+
+
+def _check_bundles(p, d, mag, live, boxes, need):
+    """Each 32 consecutive queries a bundle (padding queries not live): the
+    bundle test passes every group that ``need`` (R, groups) asks of one of
+    its queries."""
+    pad = (-p.shape[0]) % 32
 
     def bundles(x, fill):
         return torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)]).reshape(-1, 32, *x.shape[1:])
 
-    q = accel.bundle_bounds(bundles(p, 0.0), bundles(inv, 1.0), bundles(mag, 0.0),
-                            bundles(live, False))
-    hit_groups = torch.zeros((R + pad, groups.numel()), dtype=torch.bool)
-    hit_groups[rays] = torch.zeros((rays.numel(), groups.numel())).index_add_(
-        1, col, hits.float()) > 0
-    passed = accel.bundle_box_test(*q, boxes[groups])  # (bundles, groups)
-    assert bool(passed[hit_groups.reshape(-1, 32, groups.numel()).any(dim=1)].all()), \
-        "the bundle test rejected a group that a ray of the warp hits"
-    return want
+    q = accel.bundle_bounds(bundles(p, 0.0), bundles(accel.inv_dir(d), 1.0), bundles(mag, 0.0),
+                            bundles(live, False), d=bundles(d, 0.0))
+    passed = accel.bundle_box_test(*q[:5], boxes, *q[5:])  # (bundles, groups)
+    assert bool(passed[bundles(need, False).any(dim=1)].all()), \
+        "the bundle test rejected a group that a ray of the warp needs"
 
 
-def _tile_queries(scene, cfg, tiles=None):
-    """Shadow queries ``(p, dirs, mags)`` of the packed route's camera rays
-    (32x32 blocks when they fit) in the 1024-ray ``tiles`` given, or in all,
-    the closest hit over the triangles their worklists list, and the
-    queries' shadow worklists ``(wl, cnt)`` as K4 gets them."""
+def _factors(tri, p, d, mag):
+    """(R, T) float32 soft factors ``1 - occ`` of plain ``tri_soft`` (K5's
+    arithmetic), in plain's chunks of triangles."""
+    o3 = tuple(x[:, None] for x in p.unbind(1))
+    d3 = tuple(x[:, None] for x in d.unbind(1))
+    return torch.cat([1.0 - soft._tri_soft(soft._rows(tri[a:b], 13), o3, d3, TMIN, mag[:, None],
+                                           BETA)[0]
+                      for a, b in plain._tri_chunks(tri.shape[0], p.shape[0], p.device)], dim=1)
+
+
+def _soft_walk(factors, passed):
+    """K5's product over triangles in their order, as its soft visit forms
+    it: each ray multiplies the factors of the triangles ``passed`` lets it
+    visit, one at a time."""
+    tr = torch.ones(factors.shape[0])
+    for k in range(factors.shape[1]):
+        tr = torch.where(passed[:, k], tr * factors[:, k], tr)
+    return tr
+
+
+def _check_soft(tri, tri_ids, p, d, mag, boxes):
+    """The soft records against the soft factors of the triangles
+    ``tri_ids`` (ascending) for the queries: every group holding a factor
+    other than exactly 1.0f passes the per-ray and the bundle test, so the
+    twin of K5's walk with the per-ray test equals, bit for bit, the walk
+    over every listed triangle.  Returns the (R, n) factors."""
+    if tri_ids.numel() == 0:
+        return torch.ones((p.shape[0], 0))
+    f = _factors(tri[tri_ids], p, d, mag)
+    groups, col = torch.unique(tri_ids // accel.GROUP, return_inverse=True)
+    seg = accel.segment_box_test(p, accel.inv_dir(d), mag, boxes[groups], d=d)[:, col]
+    assert bool(seg[f != 1.0].all()), "the soft test rejected a group whose factor is not 1"
+    assert torch.equal(_soft_walk(f, seg), _soft_walk(f, torch.ones_like(seg)))
+    need = torch.zeros((p.shape[0], groups.numel())).index_add_(1, col, (f != 1.0).float()) > 0
+    _check_bundles(p, d, mag, torch.ones(p.shape[0], dtype=torch.bool), boxes[groups], need)
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_queries(name, size, tiles=None):
+    """``name``'s scene and the shadow queries ``(p, dirs, mags)`` of the
+    packed route's camera rays at ``size`` (32x32 blocks when they fit) in
+    the 1024-ray ``tiles`` given, or in all, the closest hit over the
+    triangles their worklists list.  Each kind's cases share them."""
+    scene = scenes.get(name).build("cpu")
+    cfg = RenderConfig(width=size[0], height=size[1])
     ro, rd = renderer.generate_rays(scene.camera, cfg)
     if cfg.width % 32 == 0 and cfg.height % 32 == 0:
         rd = packed.mega2_fold(rd, cfg.height, cfg.width)
@@ -109,50 +177,74 @@ def _tile_queries(scene, cfg, tiles=None):
     ids = _listed(*packed.closest_worklists(scene, ro, rd, TMIN), tri.shape[0])
     t, _, normal, mat = packed.winner_search_plain(ro, rd, sph, pln, tri[ids], TMIN)
     rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
-    p, dirs, mags = renderer.shadow_query_inputs(scene, rec, cfg)
-    return p, dirs, mags, packed.shadow_worklists(scene, p, dirs, mags, TMIN)
+    return (scene, *renderer.shadow_query_inputs(scene, rec, cfg))
 
 
-def _listed(wl, cnt, T):
-    """The triangle ids of every group the worklist rows list, ascending."""
+def _worklists(scene, p, dirs, mags, kind, glo, ghi):
+    """The queries' shadow worklists as each kind's kernel gets them: K4's
+    and K11b's of 8-triangle groups, K10's of 128-triangle chunks, K5's
+    soft ones."""
+    if kind == "soft":
+        return soft.soft_worklists(scene, p, dirs, mags, TMIN, BETA, group_bounds=(glo, ghi))
+    group = chunked.CHUNK if kind == "cone" else accel.GROUP
+    return packed.shadow_worklists(scene, p, dirs, mags, TMIN, group=group,
+                                   group_bounds=(glo, ghi))
+
+
+def _listed(wl, cnt, T, group=accel.GROUP):
+    """The triangle ids of every entry the worklist rows list, ascending:
+    of each group, or with ``group`` = 128 of each chunk's groups as K10
+    expands them (``accel.chunk_groups``)."""
     used = torch.arange(wl.shape[-1]) < cnt[..., None]
     g = torch.unique(wl[used].long())
+    if group != accel.GROUP:
+        g = accel.chunk_groups(g, T, group)
     return (g[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten().clamp(max=T - 1).unique()
 
 
-def _check_frame(name, size, tiles=None, warps=range(32)):
-    """``_check_queries`` on ``name``'s queries at ``size`` (the 1024-ray
-    ``tiles`` given, or all), those of each tile's ``warps`` (the kernels'
-    warps, ``accel.warp_slots``) against the triangles of their shadow
-    worklist rows, which K4 and K11b walk: no shadow ray of the tile
-    reaches another (the glue's cull is conservative).  Returns the (L, R)
-    occlusion, False for the queries not checked."""
-    scene = scenes.get(name).build("cpu")
-    p, dirs, mags, (wl, cnt) = _tile_queries(scene, RenderConfig(width=size[0], height=size[1]),
-                                             tiles)
+def _check_frame(name, size, kind, tiles=None, warps=range(32)):
+    """``_check_queries`` (``_check_soft`` for the soft records) on
+    ``name``'s queries at ``size`` (the 1024-ray ``tiles`` given, or all),
+    those of each tile's ``warps`` (the kernels' warps,
+    ``accel.warp_slots``) against the triangles of their shadow worklist
+    rows, which the kernels walk: no shadow ray of the tile reaches another
+    (the glue's cull is conservative).  Returns the (L, R) occlusion, or
+    for the soft records whether a factor is not 1, False for the queries
+    not checked."""
+    scene, p, dirs, mags = _tile_queries(name, size, tiles)
     sph, pln, tri = packed.soft_packs(scene)
-    boxes = accel.group_boxes(scene.triangles)[2]
+    glo, ghi, boxes = _boxes(scene.triangles, kind)
+    wl, cnt = _worklists(scene, p, dirs, mags, kind, glo, ghi)
+    group = chunked.CHUNK if kind == "cone" else accel.GROUP
     out = torch.zeros((dirs.shape[0], p.shape[0]), dtype=torch.bool)
     for ti in range(wl.shape[0]):
         r = ti * 1024 + accel.warp_slots()[list(warps)].flatten()
         r = r[r < p.shape[0]]
         for li in range(dirs.shape[0]):
-            ids = _listed(wl[ti, li], cnt[ti, li], tri.shape[0])
-            out[li, r] = _check_queries(sph, pln, tri, ids, p[r], dirs[li, r], mags[li, r], boxes)
+            ids = _listed(wl[ti, li], cnt[ti, li], tri.shape[0], group)
+            if kind == "soft":
+                out[li, r] = (_check_soft(tri, ids, p[r], dirs[li, r], mags[li, r], boxes)
+                              != 1.0).any(dim=1)
+            else:
+                out[li, r] = _check_queries(sph, pln, tri, ids, p[r], dirs[li, r], mags[li, r],
+                                            boxes)
     return out
 
 
-@pytest.mark.parametrize("name", ["bunny", "optional"])
-def test_box_test_passes_every_hit_at_64x48(name):
+@pytest.mark.parametrize("name,kind", [("bunny", "kappa"), ("optional", "kappa"),
+                                       ("bunny", "cone"), ("optional", "cone"),
+                                       ("bunny", "soft")])
+def test_box_test_passes_every_hit_at_64x48(name, kind):
     """Every shadow query of the frame against every triangle its (tile,
-    light) worklist lists, which K4 and K11b walk."""
-    got = _check_frame(name, (64, 48))
+    light) worklist lists, which K4 and K11b (kappa), K10 (cone, 128-triangle
+    chunks) and K5 (soft) walk."""
+    got = _check_frame(name, (64, 48), kind)
     assert bool(got.any()) and not bool(got.all())
 
 
 def test_box_test_passes_every_hit_on_bunny50k_tiles():
     """640x480 tiles of bunny50k, as above, the queries of a few warps."""
-    got = _check_frame("bunny50k", (640, 480), BUNNY50K_TILES, BUNNY50K_WARPS)
+    got = _check_frame("bunny50k", (640, 480), "kappa", BUNNY50K_TILES, BUNNY50K_WARPS)
     assert int(got.sum()) > 100
 
 
@@ -312,40 +404,199 @@ def _grazing_rays(tri, boxes, rng, m):
             torch.cat([2.0 * dist, mag2]), torch.cat([k1, k2]))
 
 
+@functools.lru_cache(maxsize=None)
+def _scene_rays(name):
+    """``name``'s scene, its triangle records, kappa's records, and the
+    grazing and the adversarial rays against them: each kind's cases share
+    them."""
+    scene = scenes.get(name).build("cpu")
+    _, _, tri = packed.soft_packs(scene)
+    glo, ghi, kappa = accel.group_boxes(scene.triangles)
+    return (scene, tri, kappa, _grazing_rays(tri, kappa, np.random.default_rng(11), 4096),
+            _adversarial_rays(tri, glo, ghi, np.random.default_rng(7)))
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("name", ["bunny", "optional"])
-def test_box_test_passes_every_hit_of_grazing_rays(name):
+def test_box_test_passes_every_hit_of_grazing_rays(name, kind):
     """Rays that graze a triangle's plane (``_grazing_rays``): tri_t's hit
     point may lie far off the segment there, and the per-ray widening of the
     box (``accel.shadow_boxes``) must still take in every hit.  Some of
     these hits lie outside the padded box without the widening, so the
-    check has teeth."""
-    scene = scenes.get(name).build("cpu")
-    _, _, tri = packed.soft_packs(scene)
-    boxes = accel.group_boxes(scene.triangles)[2]
-    p, d, mag, k = _grazing_rays(tri, boxes, np.random.default_rng(11), 4096)
+    check has teeth.  The normal records never widen past kappa's; the soft
+    records pass every group whose soft factor is not 1."""
+    scene, tri, kappa, (p, d, mag, k), _ = _scene_rays(name)
+    boxes = _boxes(scene.triangles, kind)[2]
+    groups = torch.unique(k // accel.GROUP)
+    ids = (groups[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten()
+    ids = ids[ids < tri.shape[0]]
+    if kind == "soft":
+        assert bool((_check_soft(tri, ids, p, d, mag, boxes) != 1.0).any())
+        return
     hit = plain.tri_t(tuple(tri[k, c] for c in range(13)), p.unbind(1), d.unbind(1), TMIN, mag,
                       shadow=True) < plain.INF
     own = boxes[k // accel.GROUP][:, None]
     tight = accel.tight_segment_box_test(p[:, None], accel.inv_dir(d)[:, None], mag[:, None],
                                          own)[:, 0, 0]
     assert int((hit & ~tight).sum()) > 0
-    groups = torch.unique(k // accel.GROUP)
-    ids = (groups[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten()
-    ids = ids[ids < tri.shape[0]]
     empty = torch.zeros((0, packed.SP_COLS))
     occ = _check_queries(empty, empty, tri, ids, p, d, mag, boxes)
     assert bool(occ[hit].all())
+    if kind == "cone":  # never wider than kappa's widening
+        inv = accel.inv_dir(d)
+        wide = accel.segment_box_test(p, inv, mag, kappa[groups])
+        assert bool((wide | ~accel.segment_box_test(p, inv, mag, boxes[groups], d=d)).all())
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("name", ["bunny", "optional"])
-def test_box_test_passes_every_hit_of_adversarial_rays(name):
-    scene = scenes.get(name).build("cpu")
-    sph, pln, tri = packed.soft_packs(scene)
+def test_box_test_passes_every_hit_of_adversarial_rays(name, kind):
+    """The adversarial rays against every triangle of the scene; the normal
+    records narrow the widening for most of them (the check has teeth) and
+    never past kappa's."""
+    scene, tri, _, _, (p, d, mag) = _scene_rays(name)
     empty = torch.zeros((0, packed.SP_COLS))
-    glo, ghi, boxes = accel.group_boxes(scene.triangles)
-    p, d, mag = _adversarial_rays(tri, glo, ghi, np.random.default_rng(7))
-    occ = _check_queries(empty, empty, tri, torch.arange(tri.shape[0]), p, d, mag, boxes)
+    boxes = _boxes(scene.triangles, kind)[2]
+    every = torch.arange(tri.shape[0])
+    if kind == "soft":
+        assert bool((_check_soft(tri, every, p, d, mag, boxes) != 1.0).any())
+        return
+    occ = _check_queries(empty, empty, tri, every, p, d, mag, boxes)
     assert int(occ.sum()) > p.shape[0] // 2
+    if kind == "cone":
+        inv = accel.inv_dir(d)
+        narrow = accel.segment_box_test(p, inv, mag, boxes, d=d)
+        assert bool((accel.segment_box_test(p, inv, mag, boxes[:, :8]) | ~narrow).all())
+        assert float(accel.narrowed(d, boxes).float().mean()) > 0.5
+
+
+def _margin_rays(tri, rng, m):
+    """(p, d, mag) of ``m`` rays that cross the plane of a random triangle
+    at a point whose least barycentric coordinate is -f SOFT_SUPPORT / beta,
+    f from 0.5 to 1.5: the soft factor is not 1 below f ~ 0.87, and exactly
+    1 above it.  The rays meet the plane at 0 to 80 degrees from its normal,
+    from 0.05 to 2 away, and end as far past it."""
+    v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    k = torch.as_tensor(rng.integers(0, tri.shape[0], m))
+    neg = -torch.as_tensor(rng.uniform(0.5, 1.5, m), dtype=torch.float32) * (
+        accel.SOFT_SUPPORT / BETA)
+    share = torch.as_tensor(rng.random(m), dtype=torch.float32) * (1.0 - neg)
+    lam = torch.stack([neg, share, 1.0 - neg - share], dim=1)
+    perm = torch.as_tensor(np.argsort(rng.random((m, 3)), axis=1))
+    lam = torch.gather(lam, 1, perm)  # the negative coordinate on a random vertex
+    x = v0[k] + lam[:, 1:2] * e1[k] + lam[:, 2:3] * e2[k]
+    n = torch.nn.functional.normalize(torch.linalg.cross(e1[k], e2[k], dim=1), dim=1)
+    side = torch.nn.functional.normalize(torch.linalg.cross(n, torch.as_tensor(
+        rng.normal(size=(m, 3)), dtype=torch.float32), dim=1), dim=1)
+    ang = torch.as_tensor(rng.uniform(0.0, np.radians(80.0), m), dtype=torch.float32)
+    d = torch.nn.functional.normalize(n * torch.cos(ang)[:, None]
+                                      + side * torch.sin(ang)[:, None], dim=1)
+    dist = torch.as_tensor(10.0 ** rng.uniform(np.log10(0.05), np.log10(2.0), m),
+                           dtype=torch.float32)
+    return x - d * dist[:, None], d, 2.0 * dist
+
+
+def _slivers(rng, n=64):
+    """Triangle records (n, 14) of slivers: an edge of 0.5 to 2 and a third
+    vertex 1e-4 to 1e-2 off it, near its middle or near an end, culling
+    none, scattered in a 4-unit cube; and their Triangles."""
+    v0 = torch.as_tensor(rng.uniform(-2.0, 2.0, (n, 3)), dtype=torch.float32)
+    edge = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(n, 3)),
+                                                         dtype=torch.float32), dim=1)
+    edge = edge * torch.as_tensor(rng.uniform(0.5, 2.0, (n, 1)), dtype=torch.float32)
+    off = torch.nn.functional.normalize(torch.linalg.cross(edge, torch.as_tensor(
+        rng.normal(size=(n, 3)), dtype=torch.float32), dim=1), dim=1)
+    at = torch.as_tensor(rng.choice([0.02, 0.5, 0.98], (n, 1)), dtype=torch.float32)
+    thin = torch.as_tensor(10.0 ** rng.uniform(-4.0, -2.0, (n, 1)), dtype=torch.float32)
+    v1, v2 = v0 + edge, v0 + at * edge + thin * off
+    normal = torch.nn.functional.normalize(torch.linalg.cross(v1 - v0, v2 - v0, dim=1), dim=1)
+    zeros = torch.zeros(n, dtype=torch.int32)
+    tris = Triangles(v0=v0, v1=v1, v2=v2, normal=normal, cull=zeros + 2, material=zeros)
+    rec = torch.cat([v0, v1 - v0, v2 - v0, normal, torch.full((n, 1), 2.0),
+                     torch.zeros((n, 1))], dim=1)
+    return rec, tris
+
+
+@pytest.mark.parametrize("name", ["bunny", "slivers"])
+def test_soft_records_pass_every_factor_below_one(name):
+    """Rays crossing triangles' planes just inside and just outside the
+    sigmoid's support (``_margin_rays``), on bunny and on sliver triangles:
+    every group holding a soft factor other than exactly 1.0f passes both
+    soft tests, so K5's walk twin with the per-ray test equals the walk over
+    every listed triangle bit for bit.  Some of those factors belong to
+    groups whose padded box, without the soft padding and the widening,
+    the segment misses: the padding is needed."""
+    rng = np.random.default_rng(5)
+    if name == "slivers":
+        tri, tris = _slivers(rng)
+    else:
+        scene = scenes.get(name).build("cpu")
+        tri, tris = packed.soft_packs(scene)[2], scene.triangles
+    boxes = accel.normal_boxes(tris, soft_beta=BETA)[2]
+    p, d, mag = _margin_rays(tri, rng, 2048)
+    f = _check_soft(tri, torch.arange(tri.shape[0]), p, d, mag, boxes)
+    assert bool((f != 1.0).any()) and bool((f == 1.0).any())
+    bare = accel.normal_boxes(tris)[2]
+    seg = accel.tight_segment_box_test(p, accel.inv_dir(d), mag, bare)
+    outside = (f != 1.0) & ~seg[:, torch.arange(tri.shape[0]) // accel.GROUP]
+    assert int(outside.sum()) > 0
+
+
+def test_cone_records_reduce_to_kappa():
+    """The normal records' scale is exactly 1 (kappa's widening) for a ray
+    parallel to one of the group's triangles, whose determinant is 0, and
+    for every ray where a triangle is degenerate; across the folded group a
+    ray narrows it far, and over a flat group the scale falls as the ray
+    turns from the plane.  A bundle's scale is at least each of its rays'."""
+    def record(verts):
+        v = verts.reshape(-1, 3, 3)
+        n = torch.nn.functional.normalize(torch.linalg.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                                                             dim=1), dim=1)
+        zeros = torch.zeros(v.shape[0], dtype=torch.int32)
+        tris = Triangles(v0=v[:, 0], v1=v[:, 1], v2=v[:, 2], normal=n, cull=zeros + 2,
+                         material=zeros)
+        boxes = accel.normal_boxes(tris)[2]
+        assert boxes.shape == (1, accel.NORMAL_COLS)
+        return boxes
+
+    folded = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],  # z-facing
+                           [0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0],  # y-facing
+                           [2.0, 0.0, 0.0], [2.0, 1.0, 0.0], [2.0, 0.0, 1.0]])  # x-facing
+    d = torch.tensor([[1.0, 0.0, 0.0], [0.6, 0.0, 0.8], [0.57735, 0.57735, 0.57735]])
+    got = accel._ray_scale(record(folded), d)
+    assert got[0] == 1.0 and got[1] == 1.0 and float(got[2]) < 1e-5
+    degenerate = torch.cat([folded[3:], torch.tensor([[3.0, 0.0, 0.0], [4.0, 1.0, 1.0],
+                                                      [3.0, 0.0, 0.0]])])
+    assert bool((accel._ray_scale(record(degenerate), d) == 1.0).all())
+    flat = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]).repeat(3, 1) + (
+        torch.tensor([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [1.0, 0.0, 0.0]]).repeat_interleave(3, 0))
+    c = torch.linspace(0.0, 1.0, 11)
+    turn = torch.stack([torch.sqrt(1.0 - c * c), torch.zeros(11), c], dim=1)
+    boxes = record(flat)
+    scale = accel._ray_scale(boxes, turn)
+    assert float(scale[0]) == 1.0 and float(scale[-1]) < 1e-5
+    assert bool((scale[1:] <= scale[:-1]).all())
+    for a, b in ((1, 4), (4, 8), (8, 11)):
+        bundle = accel._bundle_scale(boxes, turn[a:b].amin(dim=0), turn[a:b].amax(dim=0))
+        assert bool((bundle >= scale[a:b]).all())
+
+
+def test_chunk_groups_expand_every_listed_chunk():
+    """K10's walk expands each listed 128-triangle chunk into its 16
+    groups, in ascending order, dropping groups past the scene's end: the
+    groups of a worklist row cover exactly the triangles of its chunks."""
+    T = 1000  # 8 chunks, the last one of 104 triangles (13 groups)
+    chunks = torch.tensor([0, 3, 7], dtype=torch.int32)
+    g = accel.chunk_groups(chunks, T)
+    assert bool((g[1:] > g[:-1]).all()) and g.numel() == 16 + 16 + 13
+    tris = (g[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten()
+    want = torch.cat([torch.arange(c * 128, min(c * 128 + 128, T)) for c in chunks.tolist()])
+    assert torch.equal(tris[tris < T], want)
+    scene = scenes.get("optional").build("cpu")
+    glo, ghi = accel.chunk_bounds(scene.triangles, accel.GROUP)
+    merged = accel.merge_bounds(glo, ghi, chunked.CHUNK // accel.GROUP)
+    for a, b in zip(merged, accel.chunk_bounds(scene.triangles, chunked.CHUNK)):
+        assert torch.equal(a, b)
 
 
 def test_zero_direction_components_and_origins_on_faces():
