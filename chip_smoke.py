@@ -9,7 +9,9 @@ Phases (each passes or raises; nothing is caught):
      small scenes and the OBJ scene w4_test, K2a + K2b (the mega2 route) on
      bunny and optional, K3 and K4 (the packed route) on bunny50k's and
      bunny300k's camera rays at 640x480 (the main path's shapes), 160x128
-     and 50x37, and the packed route against the eager path; K5, K6 and K7
+     and 50x37 (K3 also equal, bit for bit, to its own launch over records
+     that pass every group), and the packed route against the eager path;
+     K5, K6 and K7
      (the soft-shadow kernels) on the soft shadow queries of optional at
      640x480 (the main path's shapes), of optional with a light just above
      its ceiling (so that g_mags is not zero) and of bunny50k at 160x128;
@@ -20,7 +22,8 @@ Phases (each passes or raises; nothing is caught):
      boundary (24 render, 25 raise); K11a and K11b (the streamed whole-frame
      route) on optional, bunny50k and bunny300k at 640x480 (every 10th tile)
      and 160x128, and against K2a and K2b on the same frames (buffer, boxes
-     and image equal, bit for bit); the tile ranges of K1, K2 and K11 (the
+     and image equal, bit for bit; K11a also equal to its own launch over
+     records that pass every group); the tile ranges of K1, K2 and K11 (the
      px-sharded render's per-rank bodies) against their whole frames; the
      probes: P1 in its four variants at T = 64, 384, 1024 over 300 tiles on
      raytpu's uniform triangles and on triangles in front of the rays, and
@@ -62,7 +65,13 @@ Phases (each passes or raises; nothing is caught):
      crosses, no box tests) and, per light on bunny50k and bunny300k, the
      groups listed per query, those whose padded box the segment crosses,
      those whose box widened for the ray it crosses (the kernels' test),
-     the union of the latter over each warp and the occluded share;
+     the union of the latter over each warp and the occluded share; for
+     K3 and K11a, which test each ray's segment up to its current closest
+     hit against the group records, the same two bounds (the box-culled
+     count: the triangles of the groups whose record, widened for the ray,
+     its segment up to its final closest hit crosses) and per scene the
+     groups listed per ray, those crossed up to the hit, those its whole
+     line crosses and the union over each warp;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
@@ -450,9 +459,14 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             buf, counts = plain.mega_pack(scene, cfg)
             blob = mega3.pack_groups(buf, counts)
             wl, cnt = mega2.primary_worklists(scene, cfg)
-            acc, bounds = mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg)
+            records = accel.normal_boxes(scene.triangles)[2]
+            acc, bounds = mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg)
+            # the walk over records that pass every group: the fold over every
+            # listed triangle, which the walk must equal bit for bit
+            acc_o, bounds_o = mega3.mega3_closest(buf, counts, blob, open_records(records), wl,
+                                                  cnt, cfg)
             wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
-            boxes = accel.group_boxes(scene.triangles)[2]
+            boxes = packed.shadow_records(records)
             img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
             img2 = mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc2, cfg)
@@ -463,6 +477,8 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             if not (torch.equal(acc, acc2) and torch.equal(bounds, bounds2)) or differ:
                 raise AssertionError(f"K11 {name} {w}x{h}: not K2's buffer, boxes or image "
                                      f"({differ} pixels differ)")
+            if not (_same_bits(acc, acc_o) and _same_bits(bounds, bounds_o)):
+                raise AssertionError(f"K11a {name} {w}x{h}: not its own launch over open records")
             nt = mega2.num_tiles(cfg)
             tiles = range(0, nt, CMP_TILE_STRIDE) if w * h > CMP_MAX_RAYS else range(nt)
             step = CMP_TILE_STRIDE if w * h > CMP_MAX_RAYS else nt
@@ -490,8 +506,8 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             _worst(worst["K11b"], b_worst, flips_worst)
             print(f"phase 2: K11 {name} {w}x{h} ({len(tiles)} of {nt} tiles checked): K11a vs "
                   f"plain max|diff| {a_worst:.3e}, K11b vs plain {b_worst:.3e} (flips "
-                  f"{flips_worst:.5f}); vs K2: buffer, boxes and image equal (0 pixels differ)",
-                  flush=True)
+                  f"{flips_worst:.5f}); vs K2: buffer, boxes and image equal (0 pixels differ); "
+                  f"K11a over open records: buffer and boxes equal, bit for bit", flush=True)
     cfg = RenderConfig(width=W, height=H)
     nt = mega2.num_tiles(cfg)
     for key, name, fn in (("K1", "reference", ck.render_image_mega_f32),
@@ -532,17 +548,35 @@ def _cmp_rays(R: int, dev):
     return rays[rays < R]
 
 
+def open_records(records):
+    """Closest-walk records like ``records`` that pass every group
+    (``accel.open_normal_boxes``): a walk over them folds every listed
+    triangle."""
+    from raytpu_torch.ops import accel
+
+    return accel.open_normal_boxes(records.shape[0], records.device)[:, :records.shape[1]] \
+        .contiguous()
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN patterns and signed zeros included)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
 def phase_compare_packed(dev, built: dict) -> dict:
     """K3 and K4 against their plain versions on bunny50k's and bunny300k's
     camera rays at 640x480 (the main path's shapes), 160x128 (tiled) and
     50x37: K3 must pick the plain version's winner on >= 99.99% of rays,
     with t within 1e-6 relative, the same material and the normal within
-    1e-6 where it does; K4, on the shadow rays of K3's hits, must agree on
+    1e-6 where it does, and equal its own launch over records that pass
+    every group bit for bit; K4, on the shadow rays of K3's hits, must agree on
     >= 99.9% of (light, ray) pairs.  Then the packed route against the
     eager path at 160x128: the pixels that differ are counted (raytpu's
     packed route equals its jnp path) and held to the megakernel budget."""
     from raytpu_torch.core import math3d
     from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
     from raytpu_torch.render import packed, renderer
 
     out = {"K3": {"max_abs_diff": 0.0, "flip_frac": 0.0},
@@ -553,7 +587,14 @@ def phase_compare_packed(dev, built: dict) -> dict:
         for w, h in PACKED_CMP_SIZES:
             cfg = RenderConfig(width=w, height=h)
             ro, rd = _folded_rays(scene, cfg)
-            t, idx, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, cfg.ray_min)
+            glo, ghi, records = accel.normal_boxes(scene.triangles)
+            wl, cnt = packed.closest_worklists(scene, ro, rd, cfg.ray_min, group_bounds=(glo, ghi))
+            t, idx, normal, mat = packed.winner_search(ro, rd, *blobs, records, wl, cnt,
+                                                       cfg.ray_min)
+            opened = packed.winner_search(ro, rd, *blobs, open_records(records), wl, cnt,
+                                          cfg.ray_min)
+            if not all(_same_bits(a, b) for a, b in zip((t, idx, normal, mat), opened)):
+                raise AssertionError(f"K3 {name} {w}x{h}: not its own launch over open records")
             sub = _cmp_rays(rd.shape[0], dev)
             tp, idxp, normalp, matp = packed.winner_search_plain(ro[sub], rd[sub], *blobs, cfg.ray_min)
             torch.cuda.synchronize()
@@ -582,7 +623,8 @@ def phase_compare_packed(dev, built: dict) -> dict:
                 raise AssertionError(f"K4 {name} {w}x{h}: {k4_flip:.5f} of (light, ray) pairs differ")
             print(f"phase 2: K3 {name} {w}x{h} ({sub.numel()} of {rd.shape[0]} rays checked): "
                   f"winners agree {agree:.6f}, max|t diff| {t_diff:.3e} (rel {t_rel:.3e}), "
-                  f"max|normal diff| {n_diff:.3e}; K4 on {tuple(occ.shape)} (L, R): {k4_flip:.6f} "
+                  f"max|normal diff| {n_diff:.3e}; equal to K3 over open records, bit for bit; "
+                  f"K4 on {tuple(occ.shape)} (L, R): {k4_flip:.6f} "
                   f"of pairs differ, occluded share {float(occp.float().mean()):.4f}", flush=True)
             _worst(out["K3"], max(t_diff, n_diff), 1.0 - agree)
             _worst(out["K4"], float((occ[:, sub] != occp).any()), k4_flip)
@@ -1619,11 +1661,92 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
     return out
 
 
-def _box_bound(ops: float, ops_listed: float, nbytes: float, stats: list) -> dict:
-    """A shadow-walk kernel's bound from its box-culled count ``ops``, with the count
-    of every listed triangle (``ops_listed``, Queue 2's yardstick) beside it
-    as ``bound_ms_listed``, and the box statistics."""
-    return {**_bound(ops, nbytes), "bound_ms_listed": _bound(ops_listed, nbytes)["bound_ms"],
+def closest_box_stats(ro, rd, t_final, queried, wl, cnt, boxes, T: int) -> dict:
+    """What the closest walk's box tests leave of each tile's worklist, for
+    K3's or K11a's rays: ``ro``, ``rd`` (R, 3) in tile order, ``t_final``
+    (R,) their closest hits (inf on a miss), ``queried`` (R,) the rays the
+    kernel answers, ``wl`` (nt, n) and ``cnt`` (nt,) the worklists,
+    ``boxes`` the walk's records.  Per ray: groups listed; groups whose
+    record, widened for the ray (``accel.segment_box_test``), its segment
+    [0, t_final] crosses, and the triangles in them; groups that its whole
+    line (mag = inf) crosses; the union of the former over each of the
+    kernels' warps (``accel.warp_slots``); and ``tris``, the triangles of
+    the groups crossed up to t_final summed over the rays: the box-culled
+    count of triangle tests, no box tests, a lower bound for a walk that
+    meets a ray's hit only after its t falls (the walk tests the segment up
+    to the current t, never shorter than t_final).  Over the frame:
+    ``listed_groups``, the groups some worklist lists (each record the walk
+    reads), and ``crossed_groups`` with ``crossed_group_tris``, the groups
+    some ray crosses up to t_final and their triangles (each triangle
+    record it must read), for the bound's bytes."""
+    from raytpu_torch.ops import accel
+
+    R, dev = rd.shape[0], rd.device
+    nt, step = -(-R // 1024), 2
+    ng = boxes.shape[0]
+    group_tris = _group_tris(T, dev)
+    slots = accel.warp_slots(dev).flatten()
+    inv = accel.inv_dir(rd)
+    acc = dict.fromkeys(("listed", "crossed", "line", "tris", "union", "warps"), 0.0)
+    listed_g = torch.zeros((ng,), dtype=torch.bool, device=dev)
+    crossed_g = torch.zeros((ng,), dtype=torch.bool, device=dev)
+    for t0 in range(0, nt, step):
+        t1 = min(nt, t0 + step)
+        k, r0, r1 = t1 - t0, t0 * 1024, min(t1 * 1024, R)
+        c = cnt[t0:t1].long()
+        cmax = int(c.max())
+
+        def tiles(x, fill):
+            pad = k * 1024 - (r1 - r0)
+            x = torch.cat([x[r0:r1], x.new_full((pad, *x.shape[1:]), fill)])
+            return x.reshape(k, 1024, *x.shape[1:])
+
+        q = tiles(queried, False)
+        if cmax == 0:
+            continue
+        e = torch.arange(cmax, device=dev)
+        g = wl[t0:t1, :cmax].long()
+        used = (e < c[:, None]) & (g >= 0) & (g < ng)
+        g = torch.where(used, g, 0)
+        keep = used[:, None, :] & q[..., None]
+        o, iv, d = tiles(ro, 0.0), tiles(inv, 1.0), tiles(rd, 0.0)
+        cross = accel.segment_box_test(o, iv, tiles(t_final, 0.0), boxes[g], d=d) & keep
+        line = accel.segment_box_test(o, iv, torch.full_like(tiles(t_final, 0.0), float("inf")),
+                                      boxes[g], d=d) & keep
+        listed_g[g[used & q.any(dim=1)[:, None]]] = True
+        crossed_g[g[:, None, :].expand_as(cross)[cross]] = True
+        acc["listed"] += float((used.sum(dim=1).to(torch.float64) * q.sum(dim=1)).sum())
+        acc["crossed"] += float(cross.sum())
+        acc["line"] += float(line.sum())
+        acc["tris"] += float((cross.to(torch.float64) * group_tris[g][:, None, :]).sum())
+        acc["union"] += float(cross[:, slots].reshape(k, 32, 32, -1).any(dim=2).sum())
+        acc["warps"] += float(q[:, slots].reshape(k, 32, 32).any(dim=2).sum())
+    n_q = max(float(queried.sum()), 1.0)
+    return {"listed_per_ray": acc["listed"] / n_q, "crossed_per_ray": acc["crossed"] / n_q,
+            "line_per_ray": acc["line"] / n_q, "crossed_tris_per_ray": acc["tris"] / n_q,
+            "union_per_warp": acc["union"] / max(acc["warps"], 1.0), "tris": acc["tris"],
+            "listed_groups": int(listed_g.sum()), "crossed_groups": int(crossed_g.sum()),
+            "crossed_group_tris": float(group_tris[crossed_g].sum())}
+
+
+def _print_closest_stats(key: str, name: str, st: dict) -> None:
+    print(f"phase 4: {key} {name} boxes: {st['listed_per_ray']:.1f} groups listed per ray, "
+          f"{st['crossed_per_ray']:.2f} whose record, widened for the ray, its segment up to the "
+          f"closest hit crosses ({st['crossed_tris_per_ray']:.1f} triangles), "
+          f"{st['line_per_ray']:.2f} that its whole line crosses, {st['union_per_warp']:.1f} "
+          f"crossed up to the hit in the union over a warp; over the frame "
+          f"{st['listed_groups']} groups listed, {st['crossed_groups']} crossed up to a hit "
+          f"({st['crossed_group_tris']:.0f} triangles)", flush=True)
+
+
+def _box_bound(ops: float, ops_listed: float, nbytes: float, stats: list,
+               nbytes_listed: float | None = None) -> dict:
+    """A walk kernel's bound from its box-culled count ``ops`` and bytes
+    ``nbytes``, with the count of every listed triangle (``ops_listed``,
+    Queue 2's yardstick, over ``nbytes_listed``, default ``nbytes``) beside
+    it as ``bound_ms_listed``, and the box statistics."""
+    listed = _bound(ops_listed, nbytes if nbytes_listed is None else nbytes_listed)
+    return {**_bound(ops, nbytes), "bound_ms_listed": listed["bound_ms"],
             "ops_listed": ops_listed, "box_stats": stats}
 
 
@@ -1668,10 +1791,11 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
           "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg),
                            iters=iters, warmup=3)}
     if k11:
-        boxes = accel.group_boxes(scene.triangles)[2]
+        records = accel.normal_boxes(scene.triangles)[2]
+        boxes = packed.shadow_records(records)
         blob = mega3.pack_groups(buf, counts)
-        ms["K11a"] = device_ms(lambda: mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg),
-                               iters=iters, warmup=3)
+        ms["K11a"] = device_ms(lambda: mega3.mega3_closest(buf, counts, blob, records, wl, cnt,
+                                                           cfg), iters=iters, warmup=3)
         ms["K11b"] = device_ms(lambda: mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc,
                                                          cfg), iters=iters, warmup=3)
     cfg_p = RenderConfig(width=plain_size[0], height=plain_size[1])
@@ -1716,7 +1840,18 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
     bytes_b = (buf.numel() + int(cnt_s.sum()) + cnt_s.numel() + acc.numel() + H * W * 3) * 4
     out = {}
     bounds_of = {"a": _bound(ops_a, bytes_a), "b": _bound(ops_b, bytes_b)}
-    if k11:  # K11b tests the group boxes: its count is the box-culled one
+    if k11:  # K11a and K11b test the group boxes: their counts are the box-culled ones
+        st = closest_box_stats(torch.stack(ro)[None, :].expand_as(rd), rd, acc[0], valid, wl,
+                               cnt, records, T)
+        _print_closest_stats("K11a", name, st)
+        ops_box = ops_a - float((tile_rays * _worklist_tris(wl, cnt, T)).sum()) * OPS_TRI
+        # bytes: the scene buffer but its triangles, the triangle records of
+        # the groups some ray crosses up to its hit, the records of the
+        # listed groups, the worklists and the answers
+        bytes_box = (bytes_a - T * plain.TRI_COLS * 4 + st["crossed_group_tris"] * plain.TRI_COLS * 4
+                     + st["listed_groups"] * records.shape[1] * 4)
+        bounds_of["K11a"] = _box_bound(ops_box + st["tris"] * OPS_TRI, ops_a, bytes_box, [st],
+                                       bytes_a + records.numel() * 4)
         stats = shadow_box_stats(p_off, dirs, mags, hit, wl_s, cnt_s, boxes, T, occ, S, P)
         _print_box_stats("K11b", name, stats)
         shadow_listed = sum(_shadow_ops(S, P, occ[li], hit, tris_s[:, li], nt) for li in range(L))
@@ -1769,14 +1904,15 @@ def time_packed(dev, built: dict, name: str):
             out["K3"]["plain_ms"], out["K4"]["plain_ms"] = ms3, ms4
             continue
         R, nt = rd.shape[0], -(-rd.shape[0] // 1024)
-        wl, cnt = packed.closest_worklists(scene, ro, rd, tmin)
-        t, idx, normal, mat = packed.winner_search(ro, rd, *blobs, wl, cnt, tmin)
-        ms3 = device_ms(lambda: packed.winner_search(ro, rd, *blobs, wl, cnt, tmin), iters=20,
-                        warmup=2)
+        glo, ghi, records = accel.normal_boxes(scene.triangles)
+        wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group_bounds=(glo, ghi))
+        t, idx, normal, mat = packed.winner_search(ro, rd, *blobs, records, wl, cnt, tmin)
+        ms3 = device_ms(lambda: packed.winner_search(ro, rd, *blobs, records, wl, cnt, tmin),
+                        iters=20, warmup=2)
         rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
         p_off, dirs, mags = renderer.shadow_query_inputs(scene, rec, cfg)
         p_off, dirs, mags = p_off.contiguous(), dirs.contiguous(), mags.contiguous()
-        glo, ghi, boxes = accel.group_boxes(scene.triangles)
+        boxes = packed.shadow_records(records)
         wl4, cnt4 = packed.shadow_worklists(scene, p_off, dirs, mags, tmin,
                                             group_bounds=(glo, ghi))
         occ = packed.any_hit_lights(p_off, dirs, mags, *blobs, boxes, wl4, cnt4, tmin)
@@ -1787,7 +1923,11 @@ def time_packed(dev, built: dict, name: str):
         tris3 = _worklist_tris(wl, cnt, T)
         ops3 = R * (S * OPS_SPHERE + P * OPS_PLANE) + float((tile_rays * tris3).sum()) * OPS_TRI
         blob_bytes = sum(b.numel() for b in blobs) * 4
-        bytes3 = R * 24 + blob_bytes + (int(cnt.sum()) + cnt.numel()) * 4 + R * 24
+        bytes3 = (R * 24 + blob_bytes + records.numel() * 4 + (int(cnt.sum()) + cnt.numel()) * 4
+                  + R * 24)
+        st3 = closest_box_stats(ro, rd, t, torch.ones((R,), dtype=torch.bool, device=dev), wl,
+                                cnt, records, T)
+        _print_closest_stats("K3", name, st3)
         tris4 = _worklist_tris(wl4, cnt4, T)
         every = torch.ones((R,), dtype=torch.bool, device=dev)
         ops4 = sum(_shadow_ops(S, P, occ[li], every, tris4[:, li], nt) for li in range(L))
@@ -1796,7 +1936,15 @@ def time_packed(dev, built: dict, name: str):
         bytes4 = (R * 12 + L * R * 16 + blob_bytes + boxes.numel() * 4
                   + (int(cnt4.sum()) + cnt4.numel()) * 4 + L * R)
         size = f"{plain_size[0]}x{plain_size[1]}"
-        out["K3"] = {"ms": ms3, "plain_size": size, **_bound(ops3, bytes3)}
+        # bytes: rays in, answers out, spheres and planes, the triangle
+        # records of the groups some ray crosses up to its hit, the records
+        # of the listed groups and the worklists
+        bytes3_box = (bytes3 - blobs[2].numel() * 4 - records.numel() * 4
+                      + st3["crossed_group_tris"] * blobs[2].shape[1] * 4
+                      + st3["listed_groups"] * records.shape[1] * 4)
+        out["K3"] = {"ms": ms3, "plain_size": size,
+                     **_box_bound(R * (S * OPS_SPHERE + P * OPS_PLANE) + st3["tris"] * OPS_TRI,
+                                  ops3, bytes3_box, [st3], bytes3)}
         out["K4"] = {"ms": ms4, "plain_size": size,
                      **_box_bound(sum(st["ops"] for st in stats), ops4, bytes4, stats)}
         out["tests_per_ray"] = float((tile_rays * tris3).sum()) / R

@@ -3,7 +3,7 @@ and the shadow-walk kernels' times and answers, for comparing two trees of
 the repo on one CUDA card.
 
     python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
-    python3 frame_ab.py --compare DIR # the trees' K4, K10 and K5 answers saved in DIR
+    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3 and K11a answers saved in DIR
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
@@ -28,13 +28,18 @@ of optional_l12, bunny18k_l12 and reference_s106 (K10_SCENES), saving its
 (R, 3) colors,
 and K5 (``soft.soft_trans_lights_cuda``, on the soft shadow queries of
 K3's hits, as the differentiable path forms them) on optional, bunny50k
-and bunny300k (K5_SCENES), saving its (L, R) transmittance.  Each wrapper
-is called with the box records where the tree's takes them.
+and bunny300k (K5_SCENES), saving its (L, R) transmittance; K3
+(``packed.winner_search``) on frame 0's folded camera rays of bunny50k and
+bunny300k (K3_SCENES), saving its (t, idx, normal, material); and K11a
+(``mega3.mega3_closest``) on frame 0 of optional, bunny50k and bunny300k
+(K11A_SCENES), saving its buffer and tile boxes.  Each wrapper is called
+with the box records where the tree's takes them.
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
-_work/parent``), then counts the (light, ray) pairs of K4 and K5 and the
-(pixel, channel) entries of K10 in which the trees' answers differ:
+_work/parent``), then counts the (light, ray) pairs of K4 and K5, the
+(pixel, channel) entries of K10 and the words of K3's and K11a's answers
+in which the trees' answers differ:
 
     for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
         --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
@@ -62,6 +67,10 @@ KERNEL_SCENES = ("bunny50k", "bunny300k")
 K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
 #: the scenes on which K5 is timed and its transmittance saved
 K5_SCENES = ("optional", "bunny50k", "bunny300k")
+#: the scenes on which K3 is timed and its answers saved
+K3_SCENES = ("bunny50k", "bunny300k")
+#: the scenes on which K11a is timed and its buffer and boxes saved
+K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -146,6 +155,10 @@ def main(argv=None) -> int:
             out[name + "_K10"] = _k10(built[name], cfg, tree, name, args.out)
     for name in K5_SCENES:
         out[name + "_K5"] = _k5(built[name], cfg, tree, name, args.out)
+    for name in K3_SCENES:
+        out[name + "_K3"] = _k3(built[name], cfg, tree, name, args.out)
+    for name in K11A_SCENES:
+        out[name + "_K11a"] = _k11a(built[name], cfg, tree, name, args.out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -228,6 +241,56 @@ def _k5(scene, cfg, tree: str, name: str, outdir) -> dict:
     return {**res, **_save(outdir, "k5", name, tree, trans, (p, dirs, mags))}
 
 
+def _k3(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K3's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's
+    folded camera rays of frame 0, its (t, idx, normal, material) saved as
+    one row of words."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import packed, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, cfg.height, cfg.width)
+    ro = ro.expand_as(rd).contiguous()
+    blobs = packed.soft_packs(scene)
+    if "boxes" in inspect.signature(packed.winner_search).parameters:  # K3 walks the records
+        glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+        wl, cnt = packed.closest_worklists(scene, ro, rd, cfg.ray_min, group_bounds=(glo, ghi))
+        args = [ro, rd, *blobs, boxes, wl, cnt, cfg.ray_min]
+    else:
+        args = [ro, rd, *blobs, *packed.closest_worklists(scene, ro, rd, cfg.ray_min),
+                cfg.ray_min]
+    t, idx, normal, mat = packed.winner_search(*args)
+    res = {"K3_ms": _spread([device_ms(lambda: packed.winner_search(*args), iters=KERNEL_ITERS,
+                                       warmup=1) for _ in range(REPEATS)])}
+    words = torch.cat([t, idx.view(torch.float32), normal.flatten(), mat.view(torch.float32)])
+    return {**res, **_save(outdir, "k3", name, tree, words, (ro, rd))}
+
+
+def _k11a(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K11a's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's
+    unanimated frame, its buffer and tile boxes saved as one row."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, mega3, plain
+    from raytpu_torch.utils.profiling import device_ms
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    blob = mega3.pack_groups(buf, counts)
+    wl, cnt = mega2.primary_worklists(scene, cfg)
+    args = [buf, counts, blob, wl, cnt, cfg]
+    if "boxes" in inspect.signature(mega3.mega3_closest).parameters:
+        args.insert(3, accel.normal_boxes(scene.triangles)[2])
+    acc, bounds = mega3.mega3_closest(*args)
+    res = {"K11a_ms": _spread([device_ms(lambda: mega3.mega3_closest(*args),
+                                         iters=KERNEL_ITERS, warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "k11a", name, tree,
+                           torch.cat([acc.flatten(), bounds.flatten()]), (buf, wl, cnt))}
+
+
 def _sharded(cases) -> dict:
     """Wall ms of one warm sharded call (two gloo ranks sharing the card,
     the slower rank's) of each of chip_smoke.py's SHARDED_WALL cases."""
@@ -250,6 +313,7 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
     import numpy as np
     import torch
 
+    from raytpu_torch.ops import accel
     from raytpu_torch.render import mega2, mega3, packed, plain, renderer
     from raytpu_torch.utils.profiling import device_ms
 
@@ -265,12 +329,16 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
     k4_args = [p, dirs, mags, *blobs, wl, cnt, tmin]
     buf, counts = plain.mega_pack(scene, cfg)
     blob = mega3.pack_groups(buf, counts)
-    acc, bounds = mega3.mega3_closest(buf, counts, blob, *mega2.primary_worklists(scene, cfg), cfg)
+    k11a_args = [buf, counts, blob, *mega2.primary_worklists(scene, cfg), cfg]
+    if "boxes" in inspect.signature(mega3.mega3_closest).parameters:
+        k11a_args.insert(3, accel.normal_boxes(scene.triangles)[2])
+    acc, bounds = mega3.mega3_closest(*k11a_args)
     k11b_args = [buf, counts, blob, *mega2.shadow_worklists(scene, cfg, bounds), acc, cfg]
     if "boxes" in inspect.signature(packed.any_hit_lights).parameters:
-        from raytpu_torch.ops import accel
-
-        boxes = accel.group_boxes(scene.triangles)[2]
+        if hasattr(packed, "shadow_records"):  # the route's: the normal records' first 8 columns
+            boxes = packed.shadow_records(accel.normal_boxes(scene.triangles)[2])
+        else:  # a tree before shadow_records
+            boxes = accel.group_boxes(scene.triangles)[2]
         k4_args.insert(6, boxes)
         k11b_args.insert(3, boxes)
     occ = packed.any_hit_lights(*k4_args)
@@ -299,7 +367,8 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
 def compare(outdir: str) -> int:
     """Count the entries in which two trees' answers differ, kernel by
     kernel and scene by scene, from the files ``--out`` wrote: K4's (light,
-    ray) pairs, K10's (pixel, channel) entries, K5's (light, ray) pairs.
+    ray) pairs, K10's (pixel, channel) entries, K5's (light, ray) pairs,
+    K3's and K11a's words.
     Non-zero unless every kernel and scene has both trees' answers, on the
     same inputs, and none differ."""
     import glob
@@ -307,7 +376,8 @@ def compare(outdir: str) -> int:
     import numpy as np
 
     ok, out = True, {}
-    for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES)):
+    for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES),
+                          ("k3", K3_SCENES), ("k11a", K11A_SCENES)):
         for name in names:
             prefix = os.path.join(outdir, f"{kernel}_{name}_")
             runs = {f[len(prefix):-4]: np.load(f) for f in sorted(glob.glob(prefix + "*.npz"))}

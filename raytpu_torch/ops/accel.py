@@ -367,6 +367,17 @@ def ray_tile_bounds(ro, rd, tmax, tile: int = 128):
 # group.  The fixed pad (BOX_PAD_REL, BOX_PAD_ABS) covers the few ulps, the
 # records' e1 = v1 - v0 rounding and the slab test's own rounding for
 # origins within a few hundred box extents of the box.
+#
+# Nothing above depends on the segment's length: a hit that tri_t reports
+# at any t lies within |r| of the segment's point at that t, and the length
+# mag enters the slab test only in its last comparison, tn <= mag, which
+# every tn passes when mag = inf.  So the bound holds for every mag, inf
+# included, and the closest walk of K3 and K11a may test each group against
+# the segment [0, t_cur] up to the ray's current closest hit (inf before
+# its first): a group holding a hit at tc < t_cur passes, as do the normal
+# records' narrowed boxes below, which do not depend on mag either
+# (tests/test_torch_shadow_boxes.py tests each closest hit at mag = its
+# own t, the shortest segment that must pass).
 
 #: each group box is widened on every side by BOX_PAD_REL times the largest
 #: coordinate magnitude of the box plus BOX_PAD_ABS (``shadow_boxes``)
@@ -380,17 +391,6 @@ HIT_SLACK = 14.0
 DIR_FLOOR = 1e-30
 #: floats of one box record: lo(3), hi(3), kappa, kappa * h
 BOX_COLS = 8
-
-
-def group_boxes(tris: Triangles, group: int = GROUP):
-    """``(glo, ghi, boxes)``: the group AABBs of ``chunk_bounds``, which the
-    worklist culls take, and the shadow kernels' box records built from
-    them (``shadow_boxes``)."""
-    glo, ghi = chunk_bounds(tris, group)
-    e = (torch.linalg.vector_norm((tris.v1 - tris.v0).double(), dim=1)
-         * torch.linalg.vector_norm((tris.v2 - tris.v0).double(), dim=1))
-    e = torch.nn.functional.pad(e, (0, glo.shape[0] * group - e.shape[0]))
-    return glo, ghi, shadow_boxes(glo, ghi, e.reshape(-1, group).amax(dim=1))
 
 
 def shadow_boxes(glo, ghi, edge_product):

@@ -34,7 +34,7 @@ import torch.distributed as dist
 from raytpu_torch.core import math3d
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.grad import diff_render
-from raytpu_torch.ops import intersect
+from raytpu_torch.ops import accel, intersect
 from raytpu_torch.render import chunked, cuda_kernel, mega2, mega3, packed, renderer
 
 #: elements of one eager (rays x primitives) t-matrix chunk past the kernels'
@@ -149,15 +149,17 @@ def _mega2_fits(scene: Scene) -> bool:
             and L * -(-T // 512) <= diff_render.WL_ENTRIES)
 
 
-def _local_closest_hit(scene: Scene, ro, rd, tmin, tri_prio_offset: int):
+def _local_closest_hit(scene: Scene, ro, rd, tmin, tri_prio_offset: int, records=None):
     """Closest hit over every sphere and plane and this shard's triangles,
     and each ray's global priority (sphere < plane < triangle, low index
     first) for the merge: K3 with its payload on a shard within its
-    limits, past them the eager t-matrix in ray chunks."""
+    limits, with the shard's own group records (``records``, from
+    ``accel.normal_boxes`` of the shard, where the caller has them),
+    past them the eager t-matrix in ray chunks."""
     S, P = scene.spheres.count, scene.planes.count
     ro_b = ro.expand_as(rd).contiguous()
     if _mega2_fits(scene):
-        t, idx, normal, mat = packed.scene_min_t_mega2(scene, ro_b, rd, tmin)
+        t, idx, normal, mat = packed.scene_min_t_mega2(scene, ro_b, rd, tmin, records)
         rec = packed.hit_records_from_payload(ro_b, rd, t, normal, mat)
         idx = idx.long()
     else:
@@ -211,12 +213,14 @@ def _shade_rays_sharded(scene: Scene, ro, rd, config: RenderConfig, tri_prio_off
     the kernels (their plain versions on the CPU): K3 for the closest hit,
     every light's occlusion at once by K4 within its limits and by K9 past
     them (which raises past 24 lights, as raytpu's does), one light at a
-    time by K8's shadow mode.  K4's group boxes come from the shard's own
-    triangles (``packed.any_hit_lights_mega2`` on ``scene``), so box g is
-    the shard's group g, the one its worklists and records index."""
+    time by K8's shadow mode.  K3's and K4's group records come from the
+    shard's own triangles (``accel.normal_boxes`` of ``scene``), computed
+    once for both, so record g is the shard's group g, the one its
+    worklists and triangle records index."""
+    records = accel.normal_boxes(scene.triangles) if _mega2_fits(scene) else None
 
     def closest_fn(s, ro_b, rd_b, tmin):
-        rec, prio = _local_closest_hit(s, ro_b, rd_b, tmin, tri_prio_offset)
+        rec, prio = _local_closest_hit(s, ro_b, rd_b, tmin, tri_prio_offset, records)
         return _merge_records(rec, prio, mesh)
 
     def any_fn(s, p, l, tmin, mag):
@@ -224,7 +228,7 @@ def _shade_rays_sharded(scene: Scene, ro, rd, config: RenderConfig, tri_prio_off
 
     def any_multi_fn(s, p, dirs, mags, tmin):
         if _mega2_fits(s):
-            occ = packed.any_hit_lights_mega2(s, p, dirs, mags, tmin)
+            occ = packed.any_hit_lights_mega2(s, p, dirs, mags, tmin, records)
         else:
             occ = chunked.any_hit_lights_chunked(s, p, dirs, mags, tmin)
         return _any_over_prim(occ, mesh)

@@ -107,16 +107,20 @@ def load():
         lib.raytpu_mega2_closest.restype = c_int
         lib.raytpu_mega2_shade.argtypes = [c_ptr, c_int, c_int, c_int, c_int] + tiles_in + shade_out
         lib.raytpu_mega2_shade.restype = c_int
-        lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr] + tiles_in
-                                             + closest_out)
+        # scene, S, P, T, blob, boxes | tiles_in | tmin, offset, acc, part, done, bounds,
+        # stream
+        lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr] + tiles_in
+                                             + [c_float, c_float] + [c_ptr] * 5)
         lib.raytpu_mega3_closest.restype = c_int
         # scene, S, P, T, L, blob, boxes
         lib.raytpu_mega3_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr]
                                            + tiles_in + shade_out)
         lib.raytpu_mega3_shade.restype = c_int
+        # ro, rd, R, spheres, S, planes, P, triangles, T, boxes, wl, cnt, wl_cols, tmin,
+        # t, idx, normal, material, stream
         lib.raytpu_packed_closest.argtypes = [c_ptr, c_ptr, c_int, c_ptr, c_int, c_ptr, c_int,
-                                              c_ptr, c_int, c_ptr, c_ptr, c_int, c_float, c_ptr,
-                                              c_ptr, c_ptr, c_ptr, c_ptr]
+                                              c_ptr, c_int, c_ptr, c_ptr, c_ptr, c_int, c_float,
+                                              c_ptr, c_ptr, c_ptr, c_ptr, c_ptr]
         lib.raytpu_packed_closest.restype = c_int
         # p, dirs, mags, R, L, spheres, S, planes, P, triangles, T, boxes, wl, cnt,
         # wl_cols, tmin, occ, stream

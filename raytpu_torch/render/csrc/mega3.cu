@@ -16,48 +16,33 @@
 //         material kinds -> 0.95 dim per occluded light -> MaxToOne ->
 //         (H, W, 3) float32, or a tile range's rays in feed order.
 //
-// What differs from K2 is how triangles reach the threads.  K2 reads each
-// group from device memory, every thread of the block the same address at
-// the same time, which the cache serves as a broadcast.  K11a's block walks
-// its worklist in stages of kStage groups: the stage's records (640 B a
-// group, 8 triangles x 20 floats) are copied into a ring of kRing stage
-// slots in shared memory with cp.async, 16 B a thread, while the block
-// folds the stage kRing - 1 entries behind, and every thread reads the
-// records from shared memory as a broadcast.  This is raytpu's DMA ring
-// (_mega3_stream) without its TPU layout: one worklist form (each tile's
-// passing groups in ascending order, the port's cull glue), no
-// fine/coarse/coarse2 modes, no SMEM entry budget.  The fold order is K2's
-// (ascending worklists, strict <, common.cuh's arithmetic), so K11a's
-// buffer equals K2a's bit for bit.
-//
-// K11b answers each light's shadow query with shadow.cuh's walk, a warp at
-// a time: each ray tests the boxes of its row's groups, padded and widened
-// for the ray (after a test of the warp's bundle of rays), and runs the
-// triangles of a group only where its segment crosses the box, and a warp
-// leaves the row once all its rays are resolved.  Warps then walk different entries, so a block-wide
-// ring no longer serves them: the records come from device memory through
-// the caches, and blocks are 128 threads, eight to a tile.  The any-hit
-// answer does not depend on which listed triangles are tested, so K11b's
-// image equals K2b's bit for bit as long as the box test is conservative
-// (shadow.cuh says why it is).
-//
-// Waiting on the ring: each thread commits one cp.async group per stage
-// (empty for threads that copy nothing) and waits until at most kRing - 2
-// are pending, so its copies of the stage it folds next have landed; the
-// barrier after the wait makes every thread's copies visible and proves
-// that every warp has finished the stage whose slot the next copy reuses.
-// The ring is drained (wait 0, barrier) before it is walked again.
+// What differs from K2 is which triangles each ray tests.  K2 folds every
+// triangle of its tile's worklist for every ray, a 1024-thread block a
+// tile.  K11a and K11b walk the worklists with shadow.cuh's group walk, a
+// warp at a time: each ray tests the boxes of its row's groups, padded and
+// widened for the ray (after a test of the warp's bundle of rays), and
+// runs the triangles of a group only where its segment crosses the box.
+// K11a's segment is the ray up to its current closest hit (the closest
+// walk: it shrinks as hits are found and never ends a row early); K11b's
+// is each light's shadow segment, and a warp leaves the row once all its
+// rays are resolved.  Warps then walk different entries, so a block-wide
+// shared-memory ring (raytpu's DMA ring, which K11a used to fold through)
+// no longer feeds them: the records come from device memory through the
+// caches, and blocks are 128 threads, eight to a tile.  The closest walk
+// returns the fold over every listed triangle bit for bit, and the any-hit
+// answer does not depend on which listed triangles are tested, so K11a's
+// buffer and boxes equal K2a's and K11b's image equals K2b's bit for bit
+// as long as the box tests are conservative (shadow.cuh says why they
+// are).  K11a's tile box of offset hit points comes from its eight blocks:
+// min and max are exact in any order.
 //
 // What bounds it.  As K2: FP32 arithmetic, ~50 operations for each
-// ray-triangle test that the worklists pass (chip_smoke.py counts them from
-// this frame's worklists, the same count as K2's) and ~100 of shading per
-// light; the bytes (scene, acc, image, worklists) are small beside it.
-// What the ring does about it (K11a): it takes the triangle records off the
-// L1/L2 path and out of the threads' load latency, at the cost of a
-// block-wide barrier per kStage groups.  What the box walk does about it
-// (K11b): it skips the triangle tests of the groups that no ray of a warp
-// can reach, most of a bunny300k row.  Measured by chip_smoke.py beside
-// K2's times on the same frames (PERF.md).
+// ray-triangle test and ~100 of shading per light; the bytes (scene, acc,
+// image, worklists, records) are small beside it.  The walk skips the
+// triangle tests of the groups that a ray's segment does not reach, most
+// of a bunny300k row: chip_smoke.py counts both the tests of every listed
+// triangle and the box-culled ones.  Measured by chip_smoke.py beside K2's
+// times on the same frames (PERF.md).
 
 #include "shadow.cuh"
 
@@ -66,90 +51,46 @@ namespace {
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
-constexpr int kShadeBlock = 128;  // K11b's threads a block: 4 warps
+constexpr int kShadeBlock = 128;  // K11a's and K11b's threads a block: 4 warps
 constexpr int kGroup = 8;
 constexpr int kAccRows = 11;  // t, normal(3), material(7)
-constexpr int kGroupFloats = kGroup * kTri;     // 160 floats, 640 B
-constexpr int kGroupCopies = kGroupFloats / 4;  // 16-byte copies a group
-constexpr int kStage = 8;                       // worklist entries a stage
-constexpr int kRing = 4;                        // stage slots in the ring
-constexpr int kStageFloats = kStage * kGroupFloats;
-constexpr int kRingFloats = kRing * kStageFloats;  // 20 KB
+constexpr int kBlocksPerTile = kTile / kShadeBlock;
 
-// Starts the copies of stage s (entries [s*kStage, s*kStage + kStage) of the
-// worklist `w` of `c` entries) into ring slot s % kRing.  Entries that are
-// not a group of the blob's `ng` are not copied (and not folded).
-__device__ __forceinline__ void issue_stage(float* ring, const float* __restrict__ blob,
-                                            const int* __restrict__ w, int c, int ng, int s) {
-  float* dst = ring + (s % kRing) * kStageFloats;
-  for (int q = threadIdx.x; q < kStage * kGroupCopies; q += blockDim.x) {
-    const int j = q / kGroupCopies, part = q % kGroupCopies;
-    const int e = s * kStage + j;
-    if (e >= c) continue;
-    const int g = w[e];
-    if (g < 0 || g >= ng) continue;
-    cp_async16(dst + j * kGroupFloats + part * 4, blob + (size_t)g * kGroupFloats + part * 4);
-  }
-}
-
-// K11a's walk of the worklist `w` (`c` entries) of the blob's groups through
-// the ring: fold(record, k) for every triangle k of every listed group, in
-// worklist order, each record read from shared memory.  All threads of the
-// block call it; the walk ends early once live() is false for every thread.
-template <typename Live, typename Fold>
-__device__ __forceinline__ void walk(float* ring, const float* __restrict__ blob,
-                                     const int* __restrict__ w, int c, int T, Live live,
-                                     Fold fold) {
-  const int ng = (T + kGroup - 1) / kGroup;
-  const int stages = (c + kStage - 1) / kStage;
-  for (int s = 0; s < kRing - 1; ++s) {  // prologue: kRing - 1 stages in flight
-    if (s < stages) issue_stage(ring, blob, w, c, ng, s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < stages; ++s) {
-    cp_async_wait<kRing - 2>();  // this thread's copies of stage s have landed
-    // every thread's have, and every warp is done with stage s - 1's slot
-    if (!__syncthreads_or(live())) break;
-    if (s + kRing - 1 < stages) issue_stage(ring, blob, w, c, ng, s + kRing - 1);
-    cp_async_commit();
-    const float* slot = ring + (s % kRing) * kStageFloats;
-    const int entries = min(c - s * kStage, kStage);
-    for (int j = 0; j < entries; ++j) {
-      const int g = w[s * kStage + j];
-      if (g < 0 || g >= ng) continue;  // not a group of this scene
-      const int n = min(kGroup, T - g * kGroup);
-      for (int m = 0; m < n; ++m) fold(slot + j * kGroupFloats + m * kTri, g * kGroup + m);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the next walk
-}
-
-__global__ void __launch_bounds__(kTile) mega3_closest_kernel(
+// K11a: one thread per ray slot, blocks of kShadeBlock threads, kTile /
+// kShadeBlock blocks to a tile; warp w of the tile takes slot warp_slot(w,
+// lane) and writes its ray to acc column tile * 1024 + slot, as K2a does.
+// In-kernel raygen, spheres and planes, then closest_walk over the tile's
+// worklist with the group records, the triangles read from the blob as
+// 20-float records.  Each block reduces the box of its rays' offset hit
+// points into part (tiles * kBlocksPerTile, 6); the last of a tile's
+// blocks to finish (a per-tile counter, zero before the launch) folds the
+// tile's partial boxes in block order into `bounds`.
+__global__ void __launch_bounds__(kShadeBlock, 4) mega3_closest_kernel(
     const float* __restrict__ scene, int S, int P, int T, const float* __restrict__ blob,
-    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, int W, int H,
-    int tiled, int tile0, float tmin, float normal_offset, float* __restrict__ acc,
+    const float* __restrict__ boxes, const int* __restrict__ wl, const int* __restrict__ cnt,
+    int wl_cols, int W, int H, int tiled, int tile0, float tmin, float normal_offset,
+    float* __restrict__ acc, float* __restrict__ part, unsigned* __restrict__ done,
     float* __restrict__ bounds) {
-  extern __shared__ float4 smem4[];  // ring | cam | spheres | planes
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* sm = ring + kRingFloats;
-  __shared__ float part[6][32];
+  extern __shared__ float sm[];  // cam | spheres | planes
+  __shared__ float wpart[6][kShadeBlock / 32];
   const int n = kCam + S * kSph + P * kPln;
   for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
   __syncthreads();
   const float* cam = sm;
   const float* sph = cam + kCam;
   const float* pln = sph + S * kSph;
-  const int tile = blockIdx.x;
-  const int slots = gridDim.x * kTile;
+  const int tile = blockIdx.x / kBlocksPerTile;
+  const int slots = (gridDim.x / kBlocksPerTile) * kTile;
+  const int lane = threadIdx.x % 32, warp_in = threadIdx.x / 32;
+  const int j = warp_slot((blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + warp_in, lane);
 
   int pxi = 0, pyi = 0;
-  const bool valid = tile_pixel(tile0 + tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
+  const bool valid = tile_pixel(tile0 + tile, j, W, H, tiled, &pxi, &pyi);
   const float rox = cam[0], roy = cam[1], roz = cam[2];
   float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
   float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   bool is_sph = false;
-  const float* mat = nullptr;  // shared memory or the blob, never the ring
+  const float* mat = nullptr;  // shared memory or the blob
   if (valid) {
     raygen(cam, pxi, pyi, W, H, &rdx, &rdy, &rdz);
     for (int s = 0; s < S; ++s) {
@@ -177,24 +118,22 @@ __global__ void __launch_bounds__(kTile) mega3_closest_kernel(
       }
     }
   }
-  walk(ring, blob, wl + (size_t)tile * wl_cols, min(cnt[tile], wl_cols), T,
-       [&] { return valid; },
-       [&](const float* r, int k) {
-         if (!valid) return;
-         const float tc = tri_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY, false);
-         if (tc < t) {
-           t = tc;
-           nx = r[9];
-           ny = r[10];
-           nz = r[11];
-           is_sph = false;
-           mat = blob + (size_t)k * kTri + 13;
-         }
-       });
+  ClosestVisit<kTri> visit{rox, roy, roz, rdx, rdy, rdz, tmin, t};
+  closest_walk<kTri>(blob, T, boxes, wl + (size_t)tile * wl_cols, min(cnt[tile], wl_cols), valid,
+                     visit);
+  if (visit.k >= 0) {
+    const float* r = blob + (size_t)visit.k * kTri;
+    t = visit.t;
+    nx = r[9];
+    ny = r[10];
+    nz = r[11];
+    is_sph = false;
+    mat = r + 13;
+  }
 
-  float* a = acc + (size_t)tile * kTile + threadIdx.x;  // row q at a[q * slots]
+  float* a = acc + (size_t)tile * kTile + j;  // row q at a[q * slots]
   float box[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  if (t < INFINITY) {
+  if (t < INFINITY) {  // never for a slot past the frame
     if (is_sph) {  // normalized after the selection (reference: source/Scene.cpp:40)
       const float n_len = sqrtf(fmaxf(sqn(nx, ny, nz), 1e-20f));
       nx = nx / n_len;
@@ -218,23 +157,32 @@ __global__ void __launch_bounds__(kTile) mega3_closest_kernel(
     for (int q = 1; q < kAccRows; ++q) a[q * slots] = 0.0f;
   }
 
-  // the tile's box: min/max over warps by shuffles, then over the 32 warps
+  // the block's box: min/max over each warp by shuffles, then over its warps
   for (int off = 16; off > 0; off >>= 1) {
-    for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-    for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+    for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(kFullWarp, box[q], off));
+    for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(kFullWarp, box[q], off));
   }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (lane == 0)
-    for (int q = 0; q < 6; ++q) part[q][warp] = box[q];
+    for (int q = 0; q < 6; ++q) wpart[q][warp_in] = box[q];
   __syncthreads();
-  if (warp == 0) {
-    for (int q = 0; q < 6; ++q) box[q] = part[q][lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-      for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kShadeBlock / 32; ++w) {
+      for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], wpart[q][w]);
+      for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], wpart[q][w]);
     }
-    if (lane == 0)
+    for (int q = 0; q < 6; ++q) part[(size_t)blockIdx.x * 6 + q] = box[q];
+    __threadfence();  // the partial box is visible before the count says so
+    // the tile's last block: every block of the tile has written its box
+    if (atomicAdd(done + tile, 1u) == kBlocksPerTile - 1) {
+      __threadfence();
+      const volatile float* tp = part + (size_t)tile * kBlocksPerTile * 6;
+      for (int q = 0; q < 6; ++q) box[q] = tp[q];
+      for (int b = 1; b < kBlocksPerTile; ++b) {
+        for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], tp[b * 6 + q]);
+        for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], tp[b * 6 + q]);
+      }
       for (int q = 0; q < 6; ++q) bounds[tile * 6 + q] = box[q];
+    }
   }
 }
 
@@ -260,7 +208,6 @@ __global__ void __launch_bounds__(kShadeBlock, 4) mega3_shade_kernel(
   const float* sph = cam + kCam;
   const float* pln = sph + S * kSph;
   const float* lit = sm + n;
-  constexpr int kBlocksPerTile = kTile / kShadeBlock;
   const int tile = blockIdx.x / kBlocksPerTile;
   const int slots = (gridDim.x / kBlocksPerTile) * kTile;
   const int warp = (blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + threadIdx.x / 32;
@@ -336,19 +283,26 @@ extern "C" {
 // Launches K11a on `stream` over the frame's tiles [tile0, tile0 + tiles).
 // `scene` is the whole-frame kernels' buffer (plain.py), `blob` the
 // triangles as (ceil(T/8), 160) float32 groups padded with all-zero
-// triangles, 16-byte aligned; `wl` (tiles, wl_cols) and `cnt` (tiles,) the
-// tiles' group worklists; `acc` 11 x tiles*1024 float32, `bounds` tiles x 6.
-// Returns the CUDA error of the launch.
+// triangles, `boxes` (ceil(T/8), 32) float32 the normal records
+// (accel.normal_boxes), both 16-byte aligned; `wl` (tiles, wl_cols) and
+// `cnt` (tiles,) the tiles' group worklists; `acc` 11 x tiles*1024
+// float32, `bounds` tiles x 6;
+// `part` (tiles * 8, 6) float32 scratch for the blocks' partial boxes and
+// `done` (tiles,) uint32 zeros, the blocks' counts (nonzero after it).  Returns the CUDA
+// error of the launch.
 int raytpu_mega3_closest(const float* scene, int S, int P, int T, const float* blob,
-                         const int* wl, const int* cnt, int wl_cols, int W, int H, int tiled,
-                         int tile0, int tiles, float ray_min, float normal_offset, float* acc,
+                         const float* boxes, const int* wl, const int* cnt, int wl_cols, int W,
+                         int H, int tiled, int tile0, int tiles, float ray_min,
+                         float normal_offset, float* acc, float* part, unsigned* done,
                          float* bounds, void* stream) {
-  const size_t smem = sizeof(float) * (kRingFloats + kCam + S * kSph + P * kPln);
+  if (tiles == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln);
   const cudaError_t err = allow_smem(mega3_closest_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mega3_closest_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, blob, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset, acc,
-      bounds);
+  mega3_closest_kernel<<<tiles * kBlocksPerTile, kShadeBlock, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      scene, S, P, T, blob, boxes, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset,
+      acc, part, done, bounds);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,8 +20,8 @@
 // cull material_id (pallas_soft.py:_soft_packs).
 //
 // A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
-// pixel blocks).  K3 runs one block of 1024 threads per tile, one thread
-// per ray; K4 eight blocks of 128 per tile and light (below).  Worklists
+// pixel blocks).  K3 runs eight blocks of 128 threads per tile, K4 eight
+// per tile and light, one thread per ray (below).  Worklists
 // list each tile's passing groups in ascending order, and the
 // strict < update then gives a tie to the first primitive: the eager
 // argmin's order, stricter than raytpu's streamed K3, which may break
@@ -32,25 +32,28 @@
 // entries the tiles read and a triangle table of 56 B per triangle (17 MB
 // at 299k).  The work is ~50 FP32 operations per ray-triangle test that a
 // worklist passes, so the bound is the card's FP32 rate (chip_smoke.py
-// counts the tests from this run's worklists).  Measured by chip_smoke.py on
-// an NVIDIA H100 80GB HBM3 at 700 W, bunny300k at 640x480 (2,135 triangle
-// tests per camera ray): K3 37.9 ms and the 1024-thread K4 that walked
-// every listed triangle 142.4 ms, 73x and 56x their bounds of 0.52 and
-// 2.54 ms; PERF.md has K4's times since.
+// counts the tests from this run's worklists, and the box-culled ones).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// bunny300k at 640x480 (2,135 triangle tests per camera ray): the
+// 1024-thread K3 and K4 that walked every listed triangle 37.9 and 142.4
+// ms, 73x and 56x their bounds of 0.52 and 2.54 ms; PERF.md has the times
+// of the walks since.
 //
 // What the design does about it.  The TPU's split between an SMEM launch
 // chain up to 9,600 triangles and a DMA-streamed kernel past it is a layout
 // artifact: here one kernel reads the triangles from device memory at any T,
-// and all threads of a block read the same group at the same time, which
-// the cache serves as a broadcast.  Spheres and planes sit in shared memory.
-// K4 is shadow.cuh's walk: a shadow ray tests only the groups whose box,
-// padded and widened for the ray, its segment crosses (a warp tests the
-// listed boxes against the bounds of its 32 rays first), stops at its first
-// occluder, and its warp leaves the row once every lane is resolved; small
-// blocks, one grid row a light, leave no 27%-full last wave of 1024-thread
-// blocks.  The arithmetic is common.cuh's,
-// so K3 agrees bit for bit with its plain version and with the eager closest
-// hit (raytpu_torch/ops/intersect.py) where their formulas agree.
+// through the caches.  Spheres and planes sit in shared memory.  Both kernels
+// are shadow.cuh's walk: a ray tests only the groups whose box, padded and
+// widened for the ray, its segment crosses (a warp tests the listed boxes
+// against the bounds of its 32 rays first).  K3's segment ends at the
+// ray's current closest hit, so it shrinks as the walk finds hits (the
+// closest walk, which returns the fold over every listed triangle bit for
+// bit); K4's is the light's, it stops at its first occluder and its warp
+// leaves the row once every lane is resolved.  Small blocks leave no
+// 27%-full last wave of 1024-thread blocks and let a warp finish without
+// its block's slowest.  The arithmetic is common.cuh's, so K3 agrees bit
+// for bit with its plain version and with the eager closest hit
+// (raytpu_torch/ops/intersect.py) where their formulas agree.
 
 #include <stdint.h>
 
@@ -61,60 +64,62 @@ namespace {
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
-constexpr int kBlock = 128;  // K4's threads a block: 4 warps
+constexpr int kBlock = 128;  // K3's and K4's threads a block: 4 warps
 constexpr int kGroup = 8;
 constexpr int kSp = 5;    // sphere / plane record
 constexpr int kTr = 14;   // triangle record
 
-__global__ void __launch_bounds__(kTile) packed_closest_kernel(
+// K3: one thread per ray, blocks of kBlock threads, kTile / kBlock blocks
+// to a tile; warp w of the tile takes slots warp_slot(w, lane) (one answer
+// a ray: the order of a tile's rays changes none).  Spheres and planes
+// first, then closest_walk over the tile's worklist with the group
+// records, then the winner's payload.
+__global__ void __launch_bounds__(kBlock, 4) packed_closest_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd, int R,
     const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ n_out, int* __restrict__ mat_out) {
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin,
+    float* __restrict__ t_out, int* __restrict__ idx_out, float* __restrict__ n_out,
+    int* __restrict__ mat_out) {
   extern __shared__ float sm[];  // spheres | planes
   for (int k = threadIdx.x; k < S * kSp; k += blockDim.x) sm[k] = sph_g[k];
   for (int k = threadIdx.x; k < P * kSp; k += blockDim.x) sm[S * kSp + k] = pln_g[k];
   __syncthreads();
   const float* sph = sm;
   const float* pln = sm + S * kSp;
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = ro[3 * rid], oy = ro[3 * rid + 1], oz = ro[3 * rid + 2];
-  const float dx = rd[3 * rid], dy = rd[3 * rid + 1], dz = rd[3 * rid + 2];
+  const int tile = blockIdx.x / (kTile / kBlock);
+  const int warp = (blockIdx.x % (kTile / kBlock)) * (kBlock / 32) + threadIdx.x / 32;
+  const int rid = tile * kTile + warp_slot(warp, threadIdx.x % 32);
+  const bool valid = rid < R;  // lanes past the rays vote, never write
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (valid) {
+    ox = ro[3 * rid], oy = ro[3 * rid + 1], oz = ro[3 * rid + 2];
+    dx = rd[3 * rid], dy = rd[3 * rid + 1], dz = rd[3 * rid + 2];
+  }
 
   // strict < keeps the first primitive on ties
   float t = INFINITY;
   int idx = 0;
-  for (int s = 0; s < S; ++s) {
+  for (int s = 0; s < S && valid; ++s) {
     const float tc = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, INFINITY);
     if (tc < t) {
       t = tc;
       idx = s;
     }
   }
-  for (int p = 0; p < P; ++p) {
+  for (int p = 0; p < P && valid; ++p) {
     const float tc = plane_t(pln + p * kSp, ox, oy, oz, dx, dy, dz, tmin, INFINITY);
     if (tc < t) {
       t = tc;
       idx = S + p;
     }
   }
-  const int* w = wl + (size_t)tile * wl_cols;
-  const int c = min(cnt[tile], wl_cols);
-  for (int e = 0; e < c; ++e) {
-    const int g = w[e];
-    if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-    const int k1 = min(g * kGroup + kGroup, T);
-    for (int k = g * kGroup; k < k1; ++k) {
-      const float tc = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, INFINITY, false);
-      if (tc < t) {
-        t = tc;
-        idx = S + P + k;
-      }
-    }
-  }
+  ClosestVisit<kTr> visit{ox, oy, oz, dx, dy, dz, tmin, t};
+  closest_walk<kTr>(tri, T, boxes, wl + (size_t)tile * wl_cols, min(cnt[tile], wl_cols), valid,
+                    visit);
+  if (!valid) return;
+  t = visit.t;
+  if (visit.k >= 0) idx = S + P + visit.k;
 
   // the winner's payload, as intersect.assemble_hit_records forms it
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, mat = 0.0f;
@@ -198,17 +203,20 @@ __global__ void __launch_bounds__(kBlock, 4) packed_anyhit_kernel(
 extern "C" {
 
 // Launches K3 on `stream` over ceil(R/1024) tiles.  ro, rd, n_out (R, 3)
-// float32; t_out (R,) float32; idx_out, mat_out (R,) int32; `wl` (nt,
-// wl_cols) and `cnt` (nt,) the tiles' group worklists.  Returns
-// cudaGetLastError() after the launch.
+// float32; t_out (R,) float32; idx_out, mat_out (R,) int32; `boxes`
+// (ceil(T/8), 32) float32 the normal records (accel.normal_boxes), 16-byte
+// aligned; `wl` (nt, wl_cols) and `cnt` (nt,) the tiles' group worklists.
+// Returns cudaGetLastError() after the launch.
 int raytpu_packed_closest(const float* ro, const float* rd, int R, const float* sph, int S,
-                          const float* pln, int P, const float* tri, int T, const int* wl,
-                          const int* cnt, int wl_cols, float ray_min, float* t_out, int* idx_out,
-                          float* n_out, int* mat_out, void* stream) {
+                          const float* pln, int P, const float* tri, int T, const float* boxes,
+                          const int* wl, const int* cnt, int wl_cols, float ray_min, float* t_out,
+                          int* idx_out, float* n_out, int* mat_out, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
   const int tiles = (R + kTile - 1) / kTile;
   const size_t smem = sizeof(float) * (S + P) * kSp;
-  packed_closest_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      ro, rd, R, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, t_out, idx_out, n_out,
+  packed_closest_kernel<<<tiles * (kTile / kBlock), kBlock, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      ro, rd, R, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, ray_min, t_out, idx_out, n_out,
       mat_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,16 @@
-// The group walk of the shadow kernels: one warp's 32 shadow rays toward one
-// light against the 8-triangle groups of their (tile, light) worklist.  Four
-// kernels walk it:
+// The group walk of the box-culled kernels: one warp's 32 rays against the
+// 8-triangle groups of their worklist row.  Six kernels walk it:
 //
-//   K4 (packed.cu) and K11b (mega3.cu): any-hit, 8-triangle groups, the
-//     8-float box records (accel.shadow_boxes);
+//   K4 (packed.cu) and K11b (mega3.cu): any-hit toward one light,
+//     8-triangle groups, the 8-float box records (accel.shadow_boxes);
 //   K10 (chunked.cu): any-hit, 128-triangle chunks, each entry expanded to
 //     its 16 groups in ascending order, the 32-float normal records
 //     (accel.normal_boxes);
 //   K5 (soft.cu): the soft transmittance, 8-triangle groups, the normal
-//     records padded for the sigmoid's support (normal_boxes(soft_beta=...)).
+//     records padded for the sigmoid's support (normal_boxes(soft_beta=...));
+//   K3 (packed.cu) and K11a (mega3.cu): the closest hit, 8-triangle
+//     groups, the normal records (kappa's are 2.6-4.7x slower there:
+//     shadow_ablation.py).
 //
 // A worklist row is the union over a whole 1024-ray tile (the glue's cull,
 // raytpu_torch/render/packed.py and mega2.py), hundreds to thousands of
@@ -27,8 +29,8 @@
 //      (__any_sync); a lane visits them only where its own test passed.
 //
 // Both tests are conservative: neither rejects a group in which tri_t
-// reports a hit, nor, with the soft records, one holding a triangle whose
-// soft factor 1 - occ is not exactly 1.0f.  A box record is the group's
+// reports a hit in [0, mag], nor, with the soft records, one holding a
+// triangle whose soft factor 1 - occ is not exactly 1.0f.  A box record is the group's
 // AABB padded by 1e-4 of its largest coordinate plus 1e-4, and two numbers
 // by which each ray widens it further: tri_t's float32 Cramer solve can
 // name a hit point as far as 13.2 |e1| |e2| |o - v0| off the segment when
@@ -52,11 +54,28 @@
 // twins of the two tests, held against the plain triangle tests by
 // tests/test_torch_shadow_boxes.py).
 //
+// The closest walk (ClosestVisit) shrinks each lane's segment as it goes:
+// mag is the lane's current closest t, inf until its first hit (spheres
+// and planes are folded before the walk, so a wall usually sets it), and
+// the bundle's longest segment is taken again, over the live lanes'
+// current t, for every batch of 32 entries.  A hit that tri_t reports at
+// tc < t_cur lies on the segment [0, t_cur], so it lies inside the box
+// widened for that segment: the derivation in ops/accel.py bounds where
+// tri_t places a hit for a hit at any t, and mag enters only the slab
+// test's last comparison tn <= mag, so it holds for every mag, inf
+// included.  A group is skipped only where no triangle of it can report a
+// t below t_cur, and t_cur only falls, so a skipped group never holds the
+// winner; a group that could tie the current t is entered by t_cur and so
+// visited, and the entries keep the row's ascending order with the strict
+// < update, so a tie still goes to the first primitive.  The walk returns
+// what the fold over every listed triangle returns, bit for bit.
+//
 // An any-hit warp leaves the row as soon as every lane is resolved
 // (__all_sync over occluded, out of the frame or not queried), instead of
-// waiting for the whole block; the soft walk never stops early.  The walk
+// waiting for the whole block; the soft and the closest walks never stop
+// early (a closest query is resolved only at the end of its row).  The walk
 // keeps common.cuh's tri_t with its IEEE division: it decides every
-// shadow.
+// shadow and every winner.
 #pragma once
 
 #include "common.cuh"
@@ -261,6 +280,7 @@ __device__ __forceinline__ int warp_slot(int warp, int lane) {
 template <int kRec>
 struct AnyHitVisit {
   static constexpr bool kStops = true;  // a lane is resolved at its first occluder
+  static constexpr bool kShrinks = false;
   float ox, oy, oz, dx, dy, dz, tmin, mag;
   bool occ = false;
   __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
@@ -274,13 +294,47 @@ struct AnyHitVisit {
   __device__ __forceinline__ bool resolved() const { return occ; }
 };
 
-// One warp's walk toward one light; every lane of the warp calls it
+// The closest visit: tri_t on triangles [k0, k1) of the group, culling not
+// inverted, with the strict < update that keeps the first triangle on a
+// tie.  `t` starts at the spheres' and planes' winner; `k` is the winning
+// triangle, -1 while none has won.
+template <int kRec>
+struct ClosestVisit {
+  static constexpr bool kStops = false;   // resolved only at the end of the row
+  static constexpr bool kShrinks = true;  // the segment ends at the current t
+  float ox, oy, oz, dx, dy, dz, tmin, t;
+  int k = -1;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    for (int j = k0; j < k1; ++j) {
+      const float tc = tri_t(tri + (size_t)j * kRec, ox, oy, oz, dx, dy, dz, tmin, INFINITY, false);
+      if (tc < t) {
+        t = tc;
+        k = j;
+      }
+    }
+  }
+  __device__ __forceinline__ bool resolved() const { return false; }
+};
+
+// The end of a lane's segment: the visit's current t for the closest walk,
+// else the query's fixed length.
+template <class Visit>
+__device__ __forceinline__ float seg_end(const Visit& visit, float mag) {
+  if constexpr (Visit::kShrinks) {
+    return visit.t;
+  } else {
+    return mag;
+  }
+}
+
+// One warp's walk over one worklist row; every lane of the warp calls it
 // together.  kRec: floats a triangle record, v0 e1 e2 n cull first; kCols:
 // kBoxCols or kNormalCols; kExpand: groups an entry (1 for a list of groups,
 // 16 for a list of 128-triangle chunks); `visit` is called with each group
-// this lane's segment crosses, in the row's order (AnyHitVisit above, or
-// soft.cu's product).  `live`: this lane's ray is queried and not yet
-// resolved (occluded by a sphere or plane).  boxes: (ceil(T/8), kCols)
+// this lane's segment crosses, in the row's order (AnyHitVisit or
+// ClosestVisit above, or soft.cu's product).  `live`: this lane's ray is
+// queried and not yet resolved (occluded by a sphere or plane).  `mag`: the
+// segment's length, unless the visit shrinks it (seg_end).  boxes: (ceil(T/8), kCols)
 // records, 16-byte aligned; w: the row's `c` entries.
 template <int kRec, int kCols, int kExpand, class Visit>
 __device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
@@ -295,9 +349,12 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
   const int ng = (T + kGroupTris - 1) / kGroupTris;
 
   const float inv[3] = {inv_dir(d[0]), inv_dir(d[1]), inv_dir(d[2])};
-  const Bundle q = warp_bundle<kNormals>(live, o, inv, d, mag);
+  Bundle q = warp_bundle<kNormals>(live, o, inv, d, seg_end(visit, mag));
   const int n = c * kExpand;
   for (int base = 0; base < n; base += 32) {
+    if constexpr (Visit::kShrinks) {  // the live lanes' current t
+      if (base) q.tmax = warp_max(live ? seg_end(visit, mag) : -INFINITY);
+    }
     const int e = base + lane;
     // a negative entry gives g < 0, a chunk past the scene g >= ng
     int g = e < n ? w[e / kExpand] * kExpand + e % kExpand : -1;
@@ -320,7 +377,8 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
       const int gj = __shfl_sync(kFullWarp, g, j);
       float bj[kBoxCols];
       for (int i = 0; i < kBoxCols; ++i) bj[i] = __shfl_sync(kFullWarp, b[i], j);
-      const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d, mag);
+      const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d,
+                                                  seg_end(visit, mag));
       if (!__any_sync(kFullWarp, pass)) continue;
       if (pass) visit(tri, gj * kGroupTris, min(gj * kGroupTris + kGroupTris, T));
       if constexpr (Visit::kStops) {
@@ -344,6 +402,18 @@ __device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T
   const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
   group_walk<kRec, kBoxCols, 1>(tri, T, boxes, w, c, live, o, d, mag, visit);
   return visit.occ;
+}
+
+// K3's and K11a's closest walk over 8-triangle groups with the normal
+// records: the lane's closest triangle hit below `visit.t`, folded into
+// `visit` (t, k), for the lanes that are live (valid rays).
+template <int kRec>
+__device__ __forceinline__ void closest_walk(const float* __restrict__ tri, int T,
+                                             const float* __restrict__ boxes,
+                                             const int* __restrict__ w, int c, bool live,
+                                             ClosestVisit<kRec>& visit) {
+  const float o[3] = {visit.ox, visit.oy, visit.oz}, d[3] = {visit.dx, visit.dy, visit.dz};
+  group_walk<kRec, kNormalCols, 1>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);
 }
 
 }  // namespace raytpu_dev

@@ -198,6 +198,7 @@ __device__ __forceinline__ void load_sp(float* sm, const float* sph_g, int S, co
 template <int kRec>
 struct SoftVisit {
   static constexpr bool kStops = false;
+  static constexpr bool kShrinks = false;
   float ox, oy, oz, dx, dy, dz, tmin, mag, beta, tr;
   __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
     for (int k = k0; k < k1; ++k)

@@ -17,11 +17,12 @@ directly.  The kernels are ``csrc/mega3.cu``:
 
 They read the same worklists as K2 (each tile's passing 8-triangle groups
 in ascending order, ``mega2.primary_worklists``) and take the triangles
-from ``pack_groups``'s blob: K11a through a ring of shared-memory slots
-filled by asynchronous copies, in K2's fold order; K11b ray by ray, only
-from the groups whose padded box (``accel.shadow_boxes``), widened for
-the ray, the shadow segment crosses.  The image is K2's bit for bit.  The
-group boxes are computed once a frame, for both culls and for K11b.
+from ``pack_groups``'s blob ray by ray, only from the groups whose padded
+box, widened for the ray, the ray's segment crosses: K11a's up to its
+current closest hit (``accel.normal_boxes``), K11b's each shadow
+segment (their first columns, ``accel.shadow_boxes``).  The buffer, the tile boxes and the
+image are K2's bit for bit.  The group bounds and records are computed
+once a frame, for both culls and both kernels.
 raytpu's worklist modes (fine, coarse, coarse2), ring depths and SMEM
 entry budget fit Mosaic's scalar memory and are not ported; its
 1,048,576-triangle ceiling is kept.
@@ -38,11 +39,12 @@ import torch
 
 from raytpu_torch.core.types import RenderConfig, Scene
 from raytpu_torch.ops import accel
-from raytpu_torch.render import build, mega2, plain
+from raytpu_torch.render import build, mega2, packed, plain
 
 GROUP = 8  #: triangles in a group: one worklist entry, 640 bytes of the blob
 MAX_TRIS = 1048576  #: raytpu's MEGA3_MAX_TRIS
 MAX_LIGHTS = 32  #: K11b keeps each light's shadow answer in one bit of a word
+BLOCK = 128  #: K11a's and K11b's threads a block, eight blocks a 1024-ray tile
 
 #: Launches of K11a and of K11b, counted where the wrappers launch them.
 MEGA3_CLOSEST_LAUNCHES = 0
@@ -85,13 +87,14 @@ def render_image_mega3_f32(scene: Scene, config: RenderConfig, tile0: int | None
     tile0 = tile0 or 0
     buf, counts = plain.mega_pack(scene, config)
     blob = pack_groups(buf, counts)
-    glo, ghi, boxes = accel.group_boxes(scene.triangles)  # once, for every cull and K11b
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)  # once: both culls, both kernels
     wl, cnt = mega2.primary_worklists(scene, config, tile0, tiles, (glo, ghi))
-    acc, bounds = mega3_closest(buf, counts, blob, wl, cnt, config, tile0, tiles)
+    acc, bounds = mega3_closest(buf, counts, blob, boxes, wl, cnt, config, tile0, tiles)
     if counts[3] == 0:  # no lights: black (W1)
         return mega2.black(config, tiles, buf.device)
     wl_s, cnt_s = mega2.shadow_worklists(scene, config, bounds, (glo, ghi))
-    return mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, config, tile0, tiles)
+    return mega3_shade(buf, counts, blob, packed.shadow_records(boxes), wl_s, cnt_s, acc, config,
+                       tile0, tiles)
 
 
 def _launch_args(buf, counts, blob, wl, cnt, config: RenderConfig, tiles, what, extra):
@@ -109,26 +112,36 @@ def _launch_args(buf, counts, blob, wl, cnt, config: RenderConfig, tiles, what, 
     return nt, S, P, T, L
 
 
-def mega3_closest(buf, counts, blob, wl, cnt, config: RenderConfig, tile0: int = 0,
+def mega3_closest(buf, counts, blob, boxes, wl, cnt, config: RenderConfig, tile0: int = 0,
                   tiles: int | None = None):
     """K11a -> ``(acc (11, nt*1024) float32, bounds (nt, 6) float32)`` over
     the frame's tiles, or the ``tiles`` from ``tile0``.  ``blob`` is
-    ``pack_groups``'s, ``wl`` (nt, n) int32 and ``cnt`` (nt,) int32 the
-    tiles' group worklists.  A CPU buffer takes K2a's plain version."""
+    ``pack_groups``'s, ``boxes`` (ceil(T/8), 32) float32 the normal
+    records (``accel.normal_boxes``) each ray tests up to its
+    current closest hit before a group's triangles, ``wl`` (nt, n) int32
+    and ``cnt`` (nt,) int32 the tiles' group worklists.  A CPU buffer
+    takes K2a's plain version, which needs no boxes."""
     global MEGA3_CLOSEST_LAUNCHES
     if buf.device.type == "cpu":
         _check(counts, config)
         return mega2.mega2_closest_plain(buf, counts, config, tile0, tiles)
-    nt, S, P, T, _ = _launch_args(buf, counts, blob, wl, cnt, config, tiles, "K11a", {})
-    acc = torch.empty((mega2.ACC_ROWS, nt * mega2.TILE), dtype=torch.float32, device=buf.device)
-    bounds = torch.empty((nt, 6), dtype=torch.float32, device=buf.device)
+    nt, S, P, T, _ = _launch_args(
+        buf, counts, blob, wl, cnt, config, tiles, "K11a",
+        {"boxes": (boxes, torch.float32, (-(-counts[2] // GROUP), accel.NORMAL_COLS))})
+    build.check_aligned("K11a", "boxes", boxes, 16)
+    dev = buf.device
+    acc = torch.empty((mega2.ACC_ROWS, nt * mega2.TILE), dtype=torch.float32, device=dev)
+    bounds = torch.empty((nt, 6), dtype=torch.float32, device=dev)
+    part = torch.empty((nt * mega2.TILE // BLOCK, 6), dtype=torch.float32, device=dev)
+    done = torch.zeros((nt,), dtype=torch.int32, device=dev)  # the tiles' block counts
     lib = build.load()
-    with torch.cuda.device(buf.device):
+    with torch.cuda.device(dev):
         err = lib.raytpu_mega3_closest(
-            buf.data_ptr(), S, P, T, blob.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[1],
-            config.width, config.height, int(mega2.is_tiled(config)), tile0, nt,
-            float(config.ray_min), float(config.normal_offset), acc.data_ptr(), bounds.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            buf.data_ptr(), S, P, T, blob.data_ptr(), boxes.data_ptr(), wl.data_ptr(),
+            cnt.data_ptr(), wl.shape[1], config.width, config.height,
+            int(mega2.is_tiled(config)), tile0, nt, float(config.ray_min),
+            float(config.normal_offset), acc.data_ptr(), part.data_ptr(), done.data_ptr(),
+            bounds.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K11a launch failed: {build.cuda_error_name(lib, err)}")
     MEGA3_CLOSEST_LAUNCHES += 1

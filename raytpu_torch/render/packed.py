@@ -8,8 +8,10 @@ and of the parts of ``raytpu/render/pallas_soft.py`` it runs:
 ``csrc/packed.cu``:
 
   * K3 (``winner_search``): the closest hit of arbitrary rays, culled by
-    per-tile worklists -> t, the winner's global index, its unit normal and
-    material id;
+    per-tile worklists and, ray by ray, by the normal records
+    (``accel.normal_boxes``) widened for the ray up to its current closest
+    hit -> t, the
+    winner's global index, its unit normal and material id;
   * K4 (``any_hit_lights``): every light's occlusion for the shadow rays,
     culled by per-(tile, light) worklists and, ray by ray, by the padded
     group boxes widened for the ray (``accel.shadow_boxes``), triangle
@@ -24,6 +26,8 @@ CPU; for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -68,15 +72,27 @@ def mega2_unfold_rows(x, h: int, w: int):
     return x.reshape(h // 32, w // 32, 32, 32, c).permute(0, 2, 1, 3, 4).reshape(h * w, c)
 
 
-def closest_worklists(scene: Scene, ro, rd, tmin, tmax=float("inf"), group=accel.GROUP):
+def shadow_records(boxes):
+    """K4's and K11b's 8-float box records (``accel.shadow_boxes``) from
+    the normal records (``accel.normal_boxes``) of K3 and K11a: their
+    first columns."""
+    return boxes[:, :accel.BOX_COLS].contiguous()
+
+
+def closest_worklists(scene: Scene, ro, rd, tmin, tmax=float("inf"), group=accel.GROUP,
+                      group_bounds=None):
     """K3's worklists ``(wl (nt, ng) int32, cnt (nt,) int32)`` for rays
     ``ro``, ``rd`` (R,3) up to ``tmax`` (a number or (R,)): each 1024-ray
     tile's groups of ``group`` triangles that its rays may hit, in
-    ascending order.  K8 takes 128-triangle chunks."""
+    ascending order.  K8 takes 128-triangle chunks.  ``group_bounds`` is
+    the 8-triangle groups' ``(glo, ghi)`` where the caller has them."""
     nt = -(-rd.shape[0] // TILE)
     if not accel.culls_groups(scene.triangles, group):
         return accel.full_worklist(nt, scene.triangles, group)
-    glo, ghi = accel.chunk_bounds(scene.triangles, group)
+    if group_bounds is None:
+        glo, ghi = accel.chunk_bounds(scene.triangles, group)
+    else:
+        glo, ghi = accel.merge_bounds(*group_bounds, group // accel.GROUP)
     rb = accel.ray_tile_bounds(ro, rd, tmax, tile=TILE)
     return accel.chunk_worklist(accel.cull_matrix(rb, glo, ghi, float(tmin)))
 
@@ -113,22 +129,27 @@ def shadow_worklists(scene: Scene, p, dirs, mags, tmin, soft_beta=None, group=ac
             torch.stack([c for _, c in per_light], dim=1).contiguous())
 
 
-def scene_min_t_mega2(scene: Scene, ro, rd, tmin):
+def scene_min_t_mega2(scene: Scene, ro, rd, tmin, records=None):
     """Closest-hit winner search for arbitrary rays with its payload:
     ``(t (R,), idx (R,) i32, normal (R,3), material (R,) i32)``, t = inf
     and zeros on a miss, idx over spheres -> planes -> triangles
     (reference: source/Scene.cpp:29-66).  ``ro`` broadcasts against ``rd``
-    (R,3).  A tie goes to the first primitive."""
+    (R,3).  A tie goes to the first primitive.  ``records`` is
+    ``accel.normal_boxes(scene.triangles)`` where the caller has it."""
     ro_b, rd = ro.expand_as(rd).contiguous(), rd.contiguous()
-    wl, cnt = closest_worklists(scene, ro_b, rd, tmin)
-    return winner_search(ro_b, rd, *soft_packs(scene), wl, cnt, float(tmin))
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles) if records is None else records
+    wl, cnt = closest_worklists(scene, ro_b, rd, tmin, group_bounds=(glo, ghi))
+    return winner_search(ro_b, rd, *soft_packs(scene), boxes, wl, cnt, float(tmin))
 
 
-def winner_search(ro, rd, sph, pln, tri, wl, cnt, tmin):
+def winner_search(ro, rd, sph, pln, tri, boxes, wl, cnt, tmin):
     """K3 over rays ``ro``, ``rd`` (R,3) and the records of ``soft_packs``,
     walking each 1024-ray tile's worklist ``wl`` (nt, n) int32 up to ``cnt``
-    (nt,) int32 -> ``(t, idx, normal, material)`` as ``scene_min_t_mega2``
-    returns them.  CPU tensors take ``winner_search_plain``."""
+    (nt,) int32 and testing each ray's segment up to its current closest
+    hit against ``boxes`` (ceil(T/8), NORMAL_COLS) float32, the normal
+    records (``accel.normal_boxes``), before a group's triangles -> ``(t, idx, normal,
+    material)`` as ``scene_min_t_mega2`` returns them.  CPU tensors take
+    ``winner_search_plain``, which needs no boxes."""
     global PACKED_CLOSEST_LAUNCHES
     if rd.device.type == "cpu":
         return winner_search_plain(ro, rd, sph, pln, tri, tmin)
@@ -138,7 +159,9 @@ def winner_search(ro, rd, sph, pln, tri, wl, cnt, tmin):
         "ro": (ro, torch.float32, (R, 3)), "rd": (rd, torch.float32, (R, 3)),
         "spheres": (sph, torch.float32, (S, SP_COLS)), "planes": (pln, torch.float32, (P, SP_COLS)),
         "triangles": (tri, torch.float32, (T, TRI_COLS)),
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS)),
         "wl": (wl, torch.int32, (nt, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt,))})
+    build.check_aligned("K3", "boxes", boxes, 16)
     dev = rd.device
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     idx = torch.empty((R,), dtype=torch.int32, device=dev)
@@ -148,7 +171,8 @@ def winner_search(ro, rd, sph, pln, tri, wl, cnt, tmin):
     with torch.cuda.device(dev):
         err = lib.raytpu_packed_closest(
             ro.data_ptr(), rd.data_ptr(), R, sph.data_ptr(), S, pln.data_ptr(), P, tri.data_ptr(),
-            T, wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin), t.data_ptr(),
+            T, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin),
+            t.data_ptr(),
             idx.data_ptr(), normal.data_ptr(), mat.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -160,8 +184,15 @@ def winner_search(ro, rd, sph, pln, tri, wl, cnt, tmin):
 def winner_search_plain(ro, rd, sph, pln, tri, tmin):
     """What K3 computes, over every primitive (``plain``'s docstring says
     how it rounds)."""
+    t, idx = plain.closest_plain(sph, pln, tri, ro.unbind(1), rd.unbind(1), float(tmin))
+    return winner_payload(ro, rd, sph, pln, tri, t, idx)
+
+
+def winner_payload(ro, rd, sph, pln, tri, t, idx):
+    """``(t, idx, normal, material)`` of the winners ``t``, ``idx`` (R,) of
+    a winner search over the records of ``soft_packs``, the payload formed
+    as ``intersect.assemble_hit_records`` forms it (K3's, after its walk)."""
     ro3, rd3 = ro.unbind(1), rd.unbind(1)
-    t, idx = plain.closest_plain(sph, pln, tri, ro3, rd3, float(tmin))
     hit = t < plain.INF
     pay = torch.cat([sph[:, [0, 1, 2, 4]], pln[:, [0, 1, 2, 4]], tri[:, [9, 10, 11, 13]]])
     if pay.shape[0] == 0:
@@ -185,15 +216,18 @@ def hit_records_from_payload(ro_b, rd, t, normal, mat):
                                 material=mat)
 
 
-def any_hit_lights_mega2(scene: Scene, p, dirs, mags, tmin):
+def any_hit_lights_mega2(scene: Scene, p, dirs, mags, tmin, records=None):
     """(L, R) bool occlusion for every light: shadow origins ``p`` (R,3),
     directions ``dirs`` (L,R,3), segment lengths ``mags`` (L,R); shadow rays
     invert triangle culling (reference: source/Utils.h:114-127).  The group
-    boxes are computed once, for the worklists and for K4's per-ray test."""
+    bounds and normal records (``records``, ``accel.normal_boxes`` of the
+    scene's triangles where the caller has them) serve the worklists and
+    K4's per-ray test (the records' first columns)."""
     p, dirs, mags = p.contiguous(), dirs.contiguous(), mags.contiguous()
-    glo, ghi, boxes = accel.group_boxes(scene.triangles)
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles) if records is None else records
     wl, cnt = shadow_worklists(scene, p, dirs, mags, tmin, group_bounds=(glo, ghi))
-    return any_hit_lights(p, dirs, mags, *soft_packs(scene), boxes, wl, cnt, float(tmin))
+    return any_hit_lights(p, dirs, mags, *soft_packs(scene), shadow_records(boxes), wl, cnt,
+                          float(tmin))
 
 
 def any_hit_lights(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, tmin):
@@ -238,7 +272,8 @@ def any_hit_lights_plain(p, dirs, mags, sph, pln, tri, tmin):
 
 def render_image_packed_f32(scene: Scene, config: RenderConfig):
     """Packed render -> (H, W, 3) float32: K3 over the camera rays, the
-    eager shade tail with K4 for every light's occlusion."""
+    eager shade tail with K4 for every light's occlusion.  The group bounds
+    and records are computed once, for both kernels and their worklists."""
     if config.soft_shadows:
         raise ValueError("the packed route renders hard shadows only")
     W, H = config.width, config.height
@@ -247,9 +282,12 @@ def render_image_packed_f32(scene: Scene, config: RenderConfig):
     if tiled:
         rd = mega2_fold(rd, H, W)  # 32x32 pixel tiles: tight per-tile cones
     ro_b = ro.expand_as(rd).contiguous()
-    t, _, normal, mat = scene_min_t_mega2(scene, ro_b, rd, config.ray_min)
+    records = accel.normal_boxes(scene.triangles)
+    t, _, normal, mat = scene_min_t_mega2(scene, ro_b, rd, config.ray_min, records)
     rec = hit_records_from_payload(ro_b, rd, t, normal, mat)
-    colors = renderer.shade_from_records(scene, rec, rd, config, any_multi_fn=any_hit_lights_mega2)
+    colors = renderer.shade_from_records(
+        scene, rec, rd, config,
+        any_multi_fn=functools.partial(any_hit_lights_mega2, records=records))
     if tiled:
         colors = mega2_unfold_rows(colors, H, W)
     return colors.reshape(H, W, 3)

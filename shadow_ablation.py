@@ -1,36 +1,45 @@
-"""The shadow walk's kernels K4, K10 and K5 on one CUDA card with parts of
-their design taken out: what each part of the walk
+"""The group walk's kernels K4, K10, K5, K3 and K11a on one CUDA card with
+parts of their design taken out: what each part of the walk
 (raytpu_torch/render/csrc/shadow.cuh) buys.
 
     python3 shadow_ablation.py       # prints one JSON line
 
 Each variant is the kernels' sources built with one change to shadow.cuh,
-packed.cu, chunked.cu or soft.cu (nvcc, the package's flags, one library
-per variant under raytpu_torch/_build/ablation, all compiled at once).
-The kernels run on frame 0 at 640x480, their inputs formed as
+packed.cu, chunked.cu, soft.cu or mega3.cu (nvcc, the package's flags, one
+library per variant under raytpu_torch/_build/ablation, all compiled at
+once).  The kernels run on frame 0 at 640x480, their inputs formed as
 chip_smoke.py phase 4 forms them: K4 on the shadow queries of bunny50k and
 bunny300k, K10 on those of optional_l12, bunny18k_l12 and reference_s106
-(the chunked route), K5 on the soft shadow queries of optional, bunny50k and bunny300k;
-each is timed with CUDA events (REPEATS runs of ITERS launches), and each
-variant's answer (K4's and K5's (L, R), K10's (R, 3) colors) must equal
-the design's bit for bit, and the design's the package wrapper's on the
-same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
-``soft.soft_trans_lights_cuda``):
+(the chunked route), K5 on the soft shadow queries of optional, bunny50k
+and bunny300k, K3 on the camera rays of bunny50k and bunny300k (the packed
+route's), K11a on the frames of optional, bunny50k and bunny300k (the
+mega3 route's); each is timed with CUDA events (REPEATS runs of ITERS
+launches), and each variant's answer (K4's and K5's (L, R), K10's (R, 3)
+colors, K3's (t, idx, normal, material), K11a's buffer and tile boxes)
+must equal the design's bit for bit, and the design's the package
+wrapper's on the same inputs (``packed.any_hit_lights``,
+``chunked.shadow_shade``, ``soft.soft_trans_lights_cuda``,
+``packed.winner_search``, ``mega3.mega3_closest``):
 
   design        the kernels as committed;
   no_bundle     (K4) no test of the warp's bundle: every listed entry goes
                 to each ray's box test;
-  no_ray_box    (K4, K10, K5) no per-ray box test: a warp visits a group's
-                triangles for every live lane wherever the bundle test
-                passes;
+  no_ray_box    (K4, K10, K5, K3, K11a) no per-ray box test: a warp visits
+                a group's triangles for every live lane wherever the
+                bundle test passes;
   no_boxes      (K4) neither test: every listed triangle, with the
                 warp-granular exit, 128-thread blocks and 8x4 pixel warps
                 kept;
   no_warp_exit  (K4) a warp walks its whole row even when every lane is
                 resolved;
   rows          (K4) each warp takes a row of 32 pixels, not an 8x4 block;
-  block1024     (K4, K10, K5) one 1024-thread block per (tile, light) (K4,
-                K5) or per tile (K10), not eight of 128;
+  block1024     (K4, K10, K5, K3, K11a) one 1024-thread block per (tile,
+                light) (K4, K5) or per tile (K10, K3, K11a), not eight of
+                128;
+  kappa_records (K3, K11a) kappa's 8-float records (``packed.shadow_records``)
+                instead of the 32-float normal records;
+  whole_line    (K3, K11a) each ray's box test on the whole line (mag =
+                inf), not on the segment up to its current closest hit;
   kappa         (K10, K5) the normal records' widening replaced by kappa's
                 (K4's widening on the same records): the triangles'
                 normals taken out;
@@ -68,24 +77,32 @@ REPEATS, ITERS = 3, 5
 K4_SCENES = ("bunny50k", "bunny300k")
 K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
 K5_SCENES = ("optional", "bunny50k", "bunny300k")
-RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d, "
-           "mag);")
+RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d,\n"
+           "                                                  seg_end(visit, mag));")
 BUNDLE = "cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);"
+CLOSEST_WALK = "group_walk<kRec, kNormalCols, 1>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);"
 #: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": ("K4 K10 K5", []),
+    "design": ("K4 K10 K5 K3 K11a", []),
     "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
-    "no_ray_box": ("K4 K10 K5", [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_ray_box": ("K4 K10 K5 K3 K11a", [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
     "no_boxes": ("K4", [("shadow.cuh", BUNDLE, "cand = true;"),
                         ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
     "no_warp_exit": ("K4", [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return;", "")]),
     "rows": ("K4", [("shadow.cuh",
                      "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
                      "return warp * 32 + lane;")]),
-    "block1024": ("K4 K10 K5", [
+    "block1024": ("K4 K10 K5 K3 K11a", [
         ("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
         ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
          "__launch_bounds__(kBlock, 1) packed_anyhit_kernel"),
+        ("packed.cu", "__launch_bounds__(kBlock, 4) packed_closest_kernel",
+         "__launch_bounds__(kBlock, 1) packed_closest_kernel"),
+        ("mega3.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
+        ("mega3.cu", "__launch_bounds__(kShadeBlock, 4) mega3_closest_kernel",
+         "__launch_bounds__(kShadeBlock, 1) mega3_closest_kernel"),
+        ("mega3.cu", "__launch_bounds__(kShadeBlock, 4) mega3_shade_kernel",
+         "__launch_bounds__(kShadeBlock, 1) mega3_shade_kernel"),
         ("chunked.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
         ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
          "__launch_bounds__(kShadeBlock, 1) chunked_shadow_shade_kernel"),
@@ -101,6 +118,10 @@ VARIANTS = {
         ("shadow.cuh", "if (!seg_box<false>(b, rec, o, inv, d, mag)) return false;", ""),
         ("shadow.cuh", "if (!bundle_box<false>(q, b, rec)) return false;", "")]),
     "no_direct": ("K10", []),  # the same library, given the normal records (k10_launcher)
+    # the launchers pass kappa's records to this variant (k3_launcher, k11a_launcher)
+    "kappa_records": ("K3 K11a", [("shadow.cuh", CLOSEST_WALK,
+                                   CLOSEST_WALK.replace("kNormalCols", "kBoxCols"))]),
+    "whole_line": ("K3 K11a", [("shadow.cuh", "    return visit.t;", "    return INFINITY;")]),
     "regs64": ("K10 K5", [
         ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
          "__launch_bounds__(kShadeBlock, 8) chunked_shadow_shade_kernel"),
@@ -110,7 +131,11 @@ VARIANTS = {
 #: each kernel's source and the kernel entry whose ptxas line is kept
 SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
            "K10": ("chunked.cu", "chunked_shadow_shade_kernelILb1E"),  # the walk's instance
-           "K5": ("soft.cu", "soft_trans")}
+           "K5": ("soft.cu", "soft_trans"),
+           "K3": ("packed.cu", "packed_closest"),
+           "K11a": ("mega3.cu", "mega3_closest")}
+K3_SCENES = ("bunny50k", "bunny300k")
+K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 
 
 def build_variants(out: Path) -> dict:
@@ -125,7 +150,7 @@ def build_variants(out: Path) -> dict:
     for name, (kernels, patches) in VARIANTS.items():
         src = out / name
         src.mkdir(parents=True)
-        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu"):
+        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu", "mega3.cu"):
             shutil.copy(csrc / f, src / f)
         for f, old, new in patches:
             text = (src / f).read_text()
@@ -133,7 +158,7 @@ def build_variants(out: Path) -> dict:
                 raise RuntimeError(f"{name}: {f} no longer holds {old!r}")
             (src / f).write_text(text.replace(old, new))
         lib = src / "libwalk.so"
-        files = [str(src / SOURCES[k][0]) for k in kernels.split()]
+        files = sorted({str(src / SOURCES[k][0]) for k in kernels.split()})
         procs[name] = (lib, kernels.split(), subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", *files, "-o", str(lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -180,7 +205,8 @@ def k4_launcher(scene, cfg, dev):
     from raytpu_torch.render import packed
 
     _, _, (p, dirs, mags) = _frame_queries(scene, cfg, _packed_closest)
-    glo, ghi, boxes = accel.group_boxes(scene.triangles)
+    glo, ghi, records = accel.normal_boxes(scene.triangles)
+    boxes = packed.shadow_records(records)
     wl, cnt = packed.shadow_worklists(scene, p, dirs, mags, cfg.ray_min, group_bounds=(glo, ghi))
     sph, pln, tri = packed.soft_packs(scene)
     L, R = dirs.shape[:2]
@@ -265,6 +291,74 @@ def k5_launcher(scene, cfg, dev):
     return torch.empty((L, R), dtype=torch.float32, device=dev), launch, glue, want
 
 
+def k3_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K3 on the scene's folded camera rays of frame 0: the answer flat, t,
+    idx, normal (R, 3), material, each R or 3R words.  The variant
+    kappa_records gets kappa's records."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import packed, renderer
+
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, cfg.height, cfg.width)
+    ro = ro.expand_as(rd).contiguous()
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    kappa = packed.shadow_records(boxes)
+    wl, cnt = packed.closest_worklists(scene, ro, rd, cfg.ray_min, group_bounds=(glo, ghi))
+    sph, pln, tri = packed.soft_packs(scene)
+    R = rd.shape[0]
+
+    def launch(lib, out, variant):
+        b = kappa if variant == "kappa_records" else boxes
+        ptr = out.data_ptr()
+        return lib.raytpu_packed_closest(
+            ro.data_ptr(), rd.data_ptr(), R, sph.data_ptr(), sph.shape[0], pln.data_ptr(),
+            pln.shape[0], tri.data_ptr(), tri.shape[0], b.data_ptr(), wl.data_ptr(),
+            cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min), ptr, ptr + 4 * R, ptr + 8 * R,
+            ptr + 20 * R, torch.cuda.current_stream().cuda_stream)
+
+    t, idx, normal, mat = packed.winner_search(ro, rd, sph, pln, tri, boxes, wl, cnt, cfg.ray_min)
+    want = torch.cat([t, idx.view(torch.float32), normal.flatten(), mat.view(torch.float32)])
+    return torch.empty((6 * R,), dtype=torch.float32, device=dev), launch, None, want
+
+
+def k11a_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K11a on the scene's frame 0: the buffer (11, nt * 1024) and the tile
+    boxes (nt, 6), flat.  The variant kappa_records gets kappa's
+    records."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, mega3, packed, plain
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    S, P, T, _ = counts
+    blob = mega3.pack_groups(buf, counts)
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    kappa = packed.shadow_records(boxes)
+    wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
+    nt = wl.shape[0]
+    part = torch.empty((nt * 8, 6), dtype=torch.float32, device=dev)
+    done = torch.zeros((nt,), dtype=torch.int32, device=dev)  # the tiles' block counts
+    n_acc = mega2.ACC_ROWS * nt * mega2.TILE
+
+    def launch(lib, out, variant):
+        b = kappa if variant == "kappa_records" else boxes
+        done.zero_()  # as the wrapper's fresh zeros
+        return lib.raytpu_mega3_closest(
+            buf.data_ptr(), S, P, T, blob.data_ptr(), b.data_ptr(), wl.data_ptr(),
+            cnt.data_ptr(), wl.shape[1], cfg.width, cfg.height, int(mega2.is_tiled(cfg)), 0, nt,
+            float(cfg.ray_min), float(cfg.normal_offset), out.data_ptr(), part.data_ptr(),
+            done.data_ptr(), out.data_ptr() + 4 * n_acc, torch.cuda.current_stream().cuda_stream)
+
+    acc, bounds = mega3.mega3_closest(buf, counts, blob, boxes, wl, cnt, cfg)
+    want = torch.cat([acc.flatten(), bounds.flatten()])
+    return torch.empty((n_acc + nt * 6,), dtype=torch.float32, device=dev), launch, None, want
+
+
 def glue_ms(records, inputs) -> dict:
     """The median ms of REPEATS timings of ITERS back-to-back calls of
     ``records()`` and of ``inputs()``."""
@@ -290,6 +384,14 @@ def _bind(lib_path: str, kernels: list):
         lib.raytpu_soft_trans.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int] + sp_tri
                                           + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_float, c_ptr,
                                              c_ptr])
+    if "K3" in kernels:
+        lib.raytpu_packed_closest.argtypes = ([c_ptr, c_ptr, c_int] + sp_tri
+                                              + [c_ptr, c_ptr, c_ptr, c_int, c_float]
+                                              + [c_ptr] * 5)
+    if "K11a" in kernels:
+        lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr,
+                                              c_ptr] + [c_int] * 6 + [c_float, c_float]
+                                             + [c_ptr] * 5)
     return lib
 
 
@@ -325,7 +427,8 @@ def main() -> int:
         return scenes.get(name).build(dev)
 
     for key, names, make in (("K4", K4_SCENES, k4_launcher), ("K10", K10_SCENES, k10_launcher),
-                             ("K5", K5_SCENES, k5_launcher)):
+                             ("K5", K5_SCENES, k5_launcher), ("K3", K3_SCENES, k3_launcher),
+                             ("K11a", K11A_SCENES, k11a_launcher)):
         variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
         for scene_name in names:
             template, launch, glue, want = make(scene(scene_name), cfg, dev)

@@ -38,6 +38,7 @@ from raytpu.ops import intersect as jintersect
 from raytpu.render import renderer as jrenderer
 from raytpu_torch.core import convert, math3d, scenes
 from raytpu_torch.core.types import CullMode, LightingMode, RenderConfig, SceneBuilder
+from raytpu_torch.ops import accel
 from raytpu_torch.render import cuda_kernel, mega2, packed, plain, renderer
 
 torch.set_num_threads(2)
@@ -255,6 +256,7 @@ def test_route_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="K3 runs on CUDA"):
         packed.winner_search(ro.to("meta"), rd.to("meta"),
                              *(b.to("meta") for b in packed.soft_packs(scene)),
+                             accel.normal_boxes(scene.triangles)[2].to("meta"),
                              wl.to("meta"), cnt.to("meta"), 1e-4)
     with pytest.raises(ValueError, match="rd must be a contiguous"):
         build.check_tensors("K3", torch.device("cuda"), {"rd": (rd, torch.float32, (4, 3))})

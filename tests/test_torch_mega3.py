@@ -213,16 +213,17 @@ def test_limits_raise_before_any_launch():
     scene = _scene("bunny")
     buf, counts = plain.mega_pack(scene, cfg)
     blob = mega3.pack_groups(buf, counts)
+    records = accel.normal_boxes(scene.triangles)[2]
     wl, cnt = mega2.primary_worklists(scene, cfg)
     before = (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES)
     for bad in ((0, 5, mega3.MAX_TRIS + 1, 3), (0, 5, 292, mega3.MAX_LIGHTS + 1)):
         with pytest.raises(ValueError, match="mega3 takes"):
-            mega3.mega3_closest(buf, bad, blob, wl, cnt, cfg)
+            mega3.mega3_closest(buf, bad, blob, records, wl, cnt, cfg)
     with pytest.raises(ValueError, match="hard shadows"):
         mega3.render_image_mega3_f32(scene, RenderConfig(width=32, height=24, soft_shadows=True))
     with pytest.raises(ValueError, match="CUDA"):
-        mega3.mega3_closest(buf.to("meta"), counts, blob.to("meta"), wl.to("meta"),
-                            cnt.to("meta"), cfg)
+        mega3.mega3_closest(buf.to("meta"), counts, blob.to("meta"), records.to("meta"),
+                            wl.to("meta"), cnt.to("meta"), cfg)
     assert (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES) == before
     for name in ("reference", "bunny", "optional"):
         assert cuda_kernel.route_kind(_scene(name), cfg) != "mega3"
@@ -297,14 +298,15 @@ def test_k11_matches_plain_versions_and_k2_on_the_card():
             buf, counts = plain.mega_pack(scene, cfg)
             blob = mega3.pack_groups(buf, counts)
             wl, cnt = mega2.primary_worklists(scene, cfg)
+            records = accel.normal_boxes(scene.triangles)[2]
             before = (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES)
-            acc, bounds = mega3.mega3_closest(buf, counts, blob, wl, cnt, cfg)
+            acc, bounds = mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg)
             acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
             assert torch.equal(acc, acc2) and torch.equal(bounds, bounds2)
             acc_p, _ = mega2.mega2_closest_plain(buf, counts, cfg)
             assert (acc[0] == acc_p[0]).float().mean() >= 0.9999
             wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
-            boxes = accel.group_boxes(scene.triangles)[2]
+            boxes = packed.shadow_records(records)
             img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             assert (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES) == (
                 before[0] + 1, before[1] + 1)

@@ -1,8 +1,9 @@
-"""The group-box tests of the shadow walk (``render/csrc/shadow.cuh``),
-through their torch twins in ``ops/accel.py``, for its three kinds of box
-record: kappa (``accel.group_boxes``, K4 and K11b), cone
-(``accel.normal_boxes``, K10: the normals that span each group's cone of
-normals) and soft (``accel.normal_boxes`` with beta, K5).
+"""The group-box tests of the group walk (``render/csrc/shadow.cuh``),
+through their torch twins in ``ops/accel.py``, for its four kinds of query
+and box record: kappa (``packed.shadow_records``, K4 and K11b), cone
+(``accel.normal_boxes``, K10's normal records), soft
+(``accel.normal_boxes`` with beta, K5) and closest (K3's and K11a's
+``accel.normal_boxes``, tested up to each ray's current closest hit).
 
 A kernel skips a group's triangles for a shadow ray whose segment misses the
 group's padded box widened for the ray (``accel.segment_box_test``), and
@@ -22,15 +23,27 @@ bit.  The normal records narrow that widening by a bound of each ray's
 determinant (never past kappa's); the soft records must pass every group
 holding a triangle whose soft factor ``1 - occ`` is not exactly 1.0f, so
 that K5's product equals the walk over every listed group bit for bit.
-Torch only.  The test marked ``cuda`` holds K4 and K11b against their plain
-versions on a card (``pytest -m cuda tests/test_torch_shadow_boxes.py``).
+The closest walk skips a group only where the ray's segment up to its
+current closest hit misses the group's record widened for the ray: every
+group holding a hit of the plain triangle test at t must pass the test
+with mag = t (then it passes for every current t above it), and a torch
+twin of the walk (groups ascending, the strict < update) must equal
+``packed.winner_search_plain`` bit for bit on grazing, adversarial and
+scene rays, and raytpu's ``scene_min_t_mega2`` (interpret mode, in a
+worker process started with the module) within the tolerance of
+tests/test_torch_bigmesh.py: the same winner on every ray, t within 1e-6
+relative, the normal within 1e-6.  The tests marked ``cuda`` hold K4,
+K11b, K3 and K11a against their plain versions on a card (``pytest -m
+cuda tests/test_torch_shadow_boxes.py``).
 """
+
+import functools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
 import torch
-
-import functools
 
 from raytpu_torch.core import scenes
 from raytpu_torch.core.types import RenderConfig, Triangles
@@ -42,15 +55,70 @@ torch.set_num_threads(2)
 TMIN = RenderConfig().ray_min
 BETA = RenderConfig().soft_beta
 #: the box records: K4's and K11b's (kappa), K10's normal records (cone),
-#: K5's (soft)
-KINDS = ("kappa", "cone", "soft")
+#: K5's (soft), K3's and K11a's (closest: the normal records too, tested up
+#: to each ray's current closest hit)
+KINDS = ("kappa", "cone", "soft", "closest")
+#: the scene rays: camera rays at this size, each 1024-ray tile walking its
+#: closest-hit worklist
+SCENE_SIZE = (64, 48)
+#: raytpu's reference compiles at XLA's lowest backend optimization level
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+_JOBS = {}
 
 
 def _boxes(tris, kind):
     """(glo, ghi, boxes) of ``kind`` for the triangles ``tris``."""
-    if kind == "kappa":
-        return accel.group_boxes(tris)
-    return accel.normal_boxes(tris, soft_beta=BETA if kind == "soft" else None)
+    glo, ghi, boxes = accel.normal_boxes(tris, soft_beta=BETA if kind == "soft" else None)
+    return glo, ghi, packed.shadow_records(boxes) if kind == "kappa" else boxes
+
+
+# -- raytpu's winner search, computed in a worker process ----------------------
+
+
+def _raytpu_closest(name):
+    """raytpu's ``scene_min_t_mega2`` with its payload (its Pallas kernel in
+    interpret mode) on ``name``'s camera rays at SCENE_SIZE, as numpy."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from raytpu.core import types as jtypes
+    from raytpu.render import pallas_soft
+    from raytpu_torch.core import convert
+
+    jax.config.update("jax_platforms", "cpu")
+    scene, ro, rd, _, _ = _camera_rays(name)
+    arrays = convert.scene_to_arrays(scene)
+    js = jtypes.Scene(**{g: getattr(jtypes, cls.__name__)(**{
+        f.name: jnp.asarray(arrays[f"{g}.{f.name}"]) for f in dataclasses.fields(cls)})
+        for g, cls in convert.GROUPS.items()})
+    o, d = jnp.asarray(ro.numpy()), jnp.asarray(rd.numpy())
+    fn = jax.jit(lambda s, o, d: pallas_soft.scene_min_t_mega2(s, o, d, TMIN, payload=True))
+    out = fn.lower(js, o, d).compile(compiler_options=FAST_COMPILE)(js, o, d)
+    return tuple(np.asarray(x) for x in out)
+
+
+def _worker_init():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _raytpu_jobs(request):
+    """Submit raytpu's winner searches to worker processes as the module
+    starts (the port-only tests run meanwhile), unless no selected test of
+    the module needs them; stop the workers when it ends."""
+    mine = [i for i in request.session.items if i.module is request.module]
+    if not any("matches_raytpu" in i.name for i in mine):
+        yield
+        return
+    ex = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_worker_init)
+    _JOBS.update({name: ex.submit(_raytpu_closest, name) for name in ("optional", "bunny")})
+    try:
+        yield
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
 #: bunny50k's 640x480 tiles: one on the bunny whose shadow worklists list
 #: 1,290-2,391 of its 9,344 groups, and one of floor beside it
 BUNNY50K_TILES = (171, 285)
@@ -158,12 +226,110 @@ def _check_soft(tri, tri_ids, p, d, mag, boxes):
     return f
 
 
+def _closest_t(tri, ro, rd):
+    """(R, T) float32: t of the plain closest-hit triangle test (culling
+    not inverted, [TMIN, inf)), inf where it reports no hit, in plain's
+    chunks of triangles."""
+    o3 = tuple(x[:, None] for x in ro.unbind(1))
+    d3 = tuple(x[:, None] for x in rd.unbind(1))
+    return torch.cat([plain.tri_t(plain._rows(tri[a:b], 13), o3, d3, TMIN, plain.INF,
+                                  shadow=False)
+                      for a, b in plain._tri_chunks(tri.shape[0], ro.shape[0], ro.device)], dim=1)
+
+
+def _check_closest(tri, tri_ids, ro, rd, boxes):
+    """The closest walk's box tests against the plain triangle test of the
+    triangles ``tri_ids`` (ascending): every group holding a hit at t of
+    some ray passes that ray's test with mag = t (``segment_box_test``;
+    the test can only pass more as mag grows, so a group is never skipped
+    while the ray's current t lies above its hit, and no group that the
+    test rejects for [0, t_final] holds a t below t_final), and the bundle
+    test of each 32 consecutive rays, with each ray's t_final, passes the
+    group of each ray's winner.  Returns the (ray, group) hits that the
+    padded box, without the widening, misses at mag = t: the widening is
+    needed where that count is not 0."""
+    t = _closest_t(tri[tri_ids], ro, rd)
+    groups, col = torch.unique(tri_ids // accel.GROUP, return_inverse=True)
+    tg = torch.full((ro.shape[0], groups.numel()), float("inf")).scatter_reduce(
+        1, col.expand(ro.shape[0], -1), t, "amin")
+    r, gi = torch.nonzero(torch.isfinite(tg), as_tuple=True)
+    inv = accel.inv_dir(rd)
+    args = (ro[r][:, None], inv[r][:, None], tg[r, gi][:, None])
+    own = boxes[groups[gi]][:, None]
+    assert bool(accel.segment_box_test(*args, own, d=rd[r][:, None]).all()), \
+        "the closest walk's box test rejected a group holding a hit below the ray's t"
+    t_final = tg.amin(dim=1)
+    _check_bundles(ro, rd, t_final, torch.ones(ro.shape[0], dtype=torch.bool), boxes[groups],
+                   tg == t_final[:, None])
+    return int((~accel.tight_segment_box_test(*args, own)).sum())
+
+
+def _closest_walk(sph, pln, tri, ro, rd, boxes, groups):
+    """The torch twin of K3's and K11a's closest walk (shadow.cuh:
+    ClosestVisit through group_walk) for rays ``ro``, ``rd`` (R, 3) over
+    the groups ``groups`` (ascending): spheres and planes folded first
+    (``plain.closest_plain``), then each group whose record, widened for
+    the ray, its segment up to its current closest hit crosses
+    (``segment_box_test`` with mag = the current t), its triangles in order
+    with the strict < update.  Returns ``(t, idx)`` as
+    ``plain.closest_plain`` does and the (ray, group) visits."""
+    S, P, T = sph.shape[0], pln.shape[0], tri.shape[0]
+    t, idx = plain.closest_plain(sph, pln, tri[:0], ro.unbind(1), rd.unbind(1), TMIN)
+    inv = accel.inv_dir(rd)
+    visits = 0
+    for g in groups.tolist():
+        live = accel.segment_box_test(ro, inv, t, boxes[g:g + 1], d=rd)[:, 0]
+        visits += int(live.sum())
+        k0 = g * accel.GROUP
+        tc = torch.where(live[:, None], _closest_t(tri[k0:k0 + accel.GROUP], ro, rd), plain.INF)
+        m, j = tc.min(dim=1)  # the first minimum: the strict < fold in order
+        better = m < t
+        t = torch.where(better, m, t)
+        idx = torch.where(better, S + P + k0 + j, idx)
+    return t, idx, visits
+
+
+def _closest_rays(name, rays):
+    """``(scene, ro, rd, rows)`` of ``name``'s ``rays``: "grazing" and
+    "adversarial" (``_scene_rays``, as closest-hit rays: their segment
+    lengths dropped) each walking every group of the scene, "scene" its
+    camera rays at SCENE_SIZE (``_camera_rays``) each tile walking its
+    worklist; ``rows`` lists (ray slice, ascending groups)."""
+    if rays == "scene":
+        scene, ro, rd, wl, cnt = _camera_rays(name)
+        rows = [(slice(i * 1024, (i + 1) * 1024), wl[i, :cnt[i]].long().sort().values)
+                for i in range(wl.shape[0])]
+        return scene, ro, rd, rows
+    scene, tri, _, grazing, adversarial = _scene_rays(name)
+    p, d = (grazing if rays == "grazing" else adversarial)[:2]
+    return scene, p, d, [(slice(None), torch.arange(-(-tri.shape[0] // accel.GROUP)))]
+
+
+def _twin_answers(name, rays):
+    """The twin walk's ``(t, idx, normal, material)`` on ``name``'s
+    ``rays``, with the payload formed as K3 forms it
+    (``packed.winner_payload``), the plain version's, and the share of
+    (ray, listed group) pairs the twin visited."""
+    scene, ro, rd, rows = _closest_rays(name, rays)
+    sph, pln, tri = packed.soft_packs(scene)
+    boxes = _boxes(scene.triangles, "closest")[2]
+    t = torch.empty(ro.shape[0])
+    idx = torch.empty(ro.shape[0], dtype=torch.long)
+    visits = listed = 0
+    for sl, groups in rows:
+        t[sl], idx[sl], v = _closest_walk(sph, pln, tri, ro[sl], rd[sl], boxes, groups)
+        visits += v
+        listed += groups.numel() * ro[sl].shape[0]
+    got = packed.winner_payload(ro, rd, sph, pln, tri, t, idx)
+    return got, packed.winner_search_plain(ro, rd, sph, pln, tri, TMIN), visits / listed
+
+
 @functools.lru_cache(maxsize=None)
-def _tile_queries(name, size, tiles=None):
-    """``name``'s scene and the shadow queries ``(p, dirs, mags)`` of the
-    packed route's camera rays at ``size`` (32x32 blocks when they fit) in
-    the 1024-ray ``tiles`` given, or in all, the closest hit over the
-    triangles their worklists list.  Each kind's cases share them."""
+def _camera_rays(name, size=SCENE_SIZE, tiles=None):
+    """``name``'s scene, the packed route's camera rays ``ro``, ``rd`` at
+    ``size`` (32x32 blocks when they fit) in the 1024-ray ``tiles`` given,
+    or in all, and their closest-hit worklists ``wl``, ``cnt``.  The shadow
+    and the closest cases share them."""
     scene = scenes.get(name).build("cpu")
     cfg = RenderConfig(width=size[0], height=size[1])
     ro, rd = renderer.generate_rays(scene.camera, cfg)
@@ -173,8 +339,19 @@ def _tile_queries(name, size, tiles=None):
     if tiles is not None:
         rays = (torch.as_tensor(tiles)[:, None] * 1024 + torch.arange(1024)).flatten()
         ro, rd = ro[rays], rd[rays]
+    return (scene, ro, rd, *packed.closest_worklists(scene, ro, rd, TMIN))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_queries(name, size, tiles=None):
+    """``name``'s scene and the shadow queries ``(p, dirs, mags)`` of the
+    packed route's camera rays at ``size`` in the 1024-ray ``tiles`` given,
+    or in all (``_camera_rays``), the closest hit over the triangles their
+    worklists list.  Each kind's cases share them."""
+    scene, ro, rd, wl, cnt = _camera_rays(name, size, tiles)
+    cfg = RenderConfig(width=size[0], height=size[1])
     sph, pln, tri = packed.soft_packs(scene)
-    ids = _listed(*packed.closest_worklists(scene, ro, rd, TMIN), tri.shape[0])
+    ids = _listed(wl, cnt, tri.shape[0])
     t, _, normal, mat = packed.winner_search_plain(ro, rd, sph, pln, tri[ids], TMIN)
     rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
     return (scene, *renderer.shadow_query_inputs(scene, rec, cfg))
@@ -411,7 +588,8 @@ def _scene_rays(name):
     them."""
     scene = scenes.get(name).build("cpu")
     _, _, tri = packed.soft_packs(scene)
-    glo, ghi, kappa = accel.group_boxes(scene.triangles)
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    kappa = packed.shadow_records(boxes)
     return (scene, tri, kappa, _grazing_rays(tri, kappa, np.random.default_rng(11), 4096),
             _adversarial_rays(tri, glo, ghi, np.random.default_rng(7)))
 
@@ -424,12 +602,18 @@ def test_box_test_passes_every_hit_of_grazing_rays(name, kind):
     box (``accel.shadow_boxes``) must still take in every hit.  Some of
     these hits lie outside the padded box without the widening, so the
     check has teeth.  The normal records never widen past kappa's; the soft
-    records pass every group whose soft factor is not 1."""
+    records pass every group whose soft factor is not 1; the closest
+    records pass every group holding a closest-hit t below the ray's
+    current t (``_check_closest``), and here too some of those hits lie
+    outside the padded box."""
     scene, tri, kappa, (p, d, mag, k), _ = _scene_rays(name)
     boxes = _boxes(scene.triangles, kind)[2]
     groups = torch.unique(k // accel.GROUP)
     ids = (groups[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten()
     ids = ids[ids < tri.shape[0]]
+    if kind == "closest":
+        assert _check_closest(tri, ids, p, d, boxes) > 0
+        return
     if kind == "soft":
         assert bool((_check_soft(tri, ids, p, d, mag, boxes) != 1.0).any())
         return
@@ -453,11 +637,14 @@ def test_box_test_passes_every_hit_of_grazing_rays(name, kind):
 def test_box_test_passes_every_hit_of_adversarial_rays(name, kind):
     """The adversarial rays against every triangle of the scene; the normal
     records narrow the widening for most of them (the check has teeth) and
-    never past kappa's."""
+    never past kappa's; for the closest records, as closest-hit rays."""
     scene, tri, _, _, (p, d, mag) = _scene_rays(name)
     empty = torch.zeros((0, packed.SP_COLS))
     boxes = _boxes(scene.triangles, kind)[2]
     every = torch.arange(tri.shape[0])
+    if kind == "closest":
+        _check_closest(tri, every, p, d, boxes)
+        return
     if kind == "soft":
         assert bool((_check_soft(tri, every, p, d, mag, boxes) != 1.0).any())
         return
@@ -627,7 +814,8 @@ def test_zero_direction_components_and_origins_on_faces():
 def test_shadow_boxes_pad_every_side():
     """The fixed pad on every side; kappa = HIT_SLACK * the largest |e1| |e2|
     and kappa * h (h the padded box's half diagonal), rounded up, and the
-    widening they give a ray: ``group_boxes`` takes |e1| |e2| per group."""
+    widening they give a ray: K4's and K11b's records (``packed.shadow_records``
+    of ``accel.normal_boxes``) take |e1| |e2| per group."""
     glo = torch.tensor([[1.0, -2.0, 0.0]])
     ghi = torch.tensor([[3.0, -1.0, 0.0]])
     b = accel.shadow_boxes(glo, ghi, torch.tensor([0.25]))
@@ -646,11 +834,44 @@ def test_shadow_boxes_pad_every_side():
     assert not bool(accel.tight_segment_box_test(o, inv, mag, b)[0, 0])
     assert bool(accel.segment_box_test(o, inv, mag, b)[0, 0])
     tris = scenes.get("bunny").build("cpu").triangles
-    glo, ghi, boxes = accel.group_boxes(tris)
+    glo, ghi, boxes = accel.normal_boxes(tris)
+    boxes = packed.shadow_records(boxes)
     e = (torch.linalg.vector_norm((tris.v1 - tris.v0).double(), dim=1)
          * torch.linalg.vector_norm((tris.v2 - tris.v0).double(), dim=1))
     assert boxes.shape == (glo.shape[0], accel.BOX_COLS)
     assert bool((boxes[:, 6].double() >= accel.HIT_SLACK * e[::accel.GROUP]).all())
+
+
+@pytest.mark.parametrize("rays", ["grazing", "adversarial", "scene"])
+@pytest.mark.parametrize("name", ["bunny", "optional"])
+def test_closest_walk_twin_equals_plain_version(name, rays):
+    """The twin of the closest walk (``_closest_walk``) against
+    ``packed.winner_search_plain``: (t, idx, normal, material) equal bit
+    for bit.  On the scene rays it visits a small share of the listed
+    (ray, group) pairs: the test skips groups."""
+    got, want, share = _twin_answers(name, rays)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert bool(torch.isfinite(want[0]).any())
+    if rays == "scene":
+        assert share < 0.5
+
+
+@pytest.mark.parametrize("name", ["bunny", "optional"])
+def test_closest_walk_twin_matches_raytpu(name):
+    """The twin of the closest walk on the scene rays against raytpu's
+    ``scene_min_t_mega2`` with its payload (interpret mode, in a worker):
+    the same winner and material on every ray, t within 1e-6 relative, the
+    normal within 1e-6 (tests/test_torch_bigmesh.py's K3 tolerance)."""
+    (t, idx, normal, mat), _, _ = _twin_answers(name, "scene")
+    t_r, idx_r, n_r, m_r = _JOBS[name].result()
+    hit = np.isfinite(t_r)
+    assert hit.mean() > 0.5
+    np.testing.assert_array_equal(torch.isfinite(t).numpy(), hit)
+    np.testing.assert_array_equal(idx.numpy()[hit], idx_r[hit])
+    np.testing.assert_allclose(t.numpy()[hit], t_r[hit], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(normal.numpy(), n_r, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(mat.numpy(), m_r)
 
 
 @pytest.mark.cuda
@@ -684,3 +905,44 @@ def test_k4_and_k11b_match_plain_versions_on_the_card():
             assert int((occ != want).sum()) == 0
             img = mega3.render_image_mega3_f32(scene, cfg)
             assert torch.equal(img, mega2.render_image_mega2_f32(scene, cfg))
+
+
+@pytest.mark.cuda
+def test_k3_and_k11a_match_plain_versions_on_the_card():
+    """K3 on bunny50k's and bunny's camera rays at 160x128 and 50x37: the
+    plain version's winner on >= 99.99% of rays, and its own launch over
+    records that pass every group bit for bit; K11a's buffer and tile boxes
+    equal K2a's and its own launch over open records, bit for bit.
+    Run on a machine with a card with
+    ``pytest -m cuda tests/test_torch_shadow_boxes.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from raytpu_torch.render import mega2, mega3
+
+    dev = torch.device("cuda")
+    for name in ("bunny50k", "bunny"):
+        scene = scenes.get(name).build(dev)
+        blobs = packed.soft_packs(scene)
+        glo, ghi, records = accel.normal_boxes(scene.triangles)
+        opened = accel.open_normal_boxes(records.shape[0], dev)[:, :records.shape[1]].contiguous()
+        for w, h in ((160, 128), (50, 37)):
+            cfg = RenderConfig(width=w, height=h)
+            ro, rd = renderer.generate_rays(scene.camera, cfg)
+            if w % 32 == 0 and h % 32 == 0:
+                rd = packed.mega2_fold(rd, h, w)
+            ro = ro.expand_as(rd).contiguous()
+            wl, cnt = packed.closest_worklists(scene, ro, rd, TMIN, group_bounds=(glo, ghi))
+            got = packed.winner_search(ro, rd, *blobs, records, wl, cnt, TMIN)
+            every = packed.winner_search(ro, rd, *blobs, opened, wl, cnt, TMIN)
+            want = packed.winner_search_plain(ro, rd, *blobs, TMIN)
+            assert float((got[1] == want[1]).float().mean()) >= 0.9999
+            for a, b in zip(got, every):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            buf, counts = plain.mega_pack(scene, cfg)
+            blob = mega3.pack_groups(buf, counts)
+            wl2, cnt2 = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
+            acc, bounds = mega3.mega3_closest(buf, counts, blob, records, wl2, cnt2, cfg)
+            acc_o, bounds_o = mega3.mega3_closest(buf, counts, blob, opened, wl2, cnt2, cfg)
+            acc2, bounds2 = mega2.mega2_closest(buf, counts, wl2, cnt2, cfg)
+            for a, b in ((acc, acc2), (bounds, bounds2), (acc, acc_o), (bounds, bounds_o)):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
