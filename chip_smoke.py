@@ -7,7 +7,9 @@ Phases (each passes or raises; nothing is caught):
   1. build every kernel from raytpu_torch/render/csrc with nvcc;
   2. each kernel against its plain PyTorch version on the card: K1 on the
      small scenes and the OBJ scene w4_test, K2a + K2b (the mega2 route) on
-     bunny and optional, K3 and K4 (the packed route) on bunny50k's and
+     bunny and optional (K2b bit for bit, and equal to K11b's image and to
+     its own launch over records that pass every group), K3 and K4 (the
+     packed route) on bunny50k's and
      bunny300k's camera rays at 640x480 (the main path's shapes), 160x128
      and 50x37 (K3 also equal, bit for bit, to its own launch over records
      that pass every group), and the packed route against the eager path;
@@ -18,8 +20,10 @@ Phases (each passes or raises; nothing is caught):
      and the autograd Function around them, with its sphere and plane
      cotangents, against plain autograd on reference at 160x128; K8 (both
      modes), K9 and K10 (the chunked route) on optional_l12 at 640x480 and
-     on bunny18k_l12 and reference_s106 at 160x128, and the route's 24-light
-     boundary (24 render, 25 raise); K11a and K11b (the streamed whole-frame
+     on bunny18k_l12 and reference_s106 at 160x128 (K9 exactly, and equal to
+     its launches over every listed triangle), K9 on shade_rays' row-major
+     rays of optional_l12 at 640x480, and the route's 24-light boundary (24
+     render, 25 raise); K11a and K11b (the streamed whole-frame
      route) on optional, bunny50k and bunny300k at 640x480 (every 10th tile)
      and 160x128, and against K2a and K2b on the same frames (buffer, boxes
      and image equal, bit for bit; K11a also equal to its own launch over
@@ -71,7 +75,12 @@ Phases (each passes or raises; nothing is caught):
      count: the triangles of the groups whose record, widened for the ray,
      its segment up to its final closest hit crosses) and per scene the
      groups listed per ray, those crossed up to the hit, those its whole
-     line crosses and the union over each warp;
+     line crosses and the union over each warp; for K2b and K9, on the
+     same walk with the normal records (8-triangle groups; 128-triangle
+     chunks), the same two bounds and statistics, the bytes of the
+     box-culled one counting only the triangles of the groups some query
+     crosses and the listed groups' records (K9 also timed on row-major
+     rays);
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
@@ -392,11 +401,15 @@ def phase_compare_mega2(dev, built: dict) -> dict:
     """K2a and K2b against their plain versions on bunny and optional at
     640x480 in the four lighting modes, without shadows, at t=1.25, and at
     50x37 (untiled, ragged).  K2a's buffer and boxes against the plain
-    version's; K2b against its plain version on K2a's buffer; the route
-    (K2a then K2b) against the plain route, under the megakernel budget."""
+    version's; K2b equal bit for bit to its plain version on K2a's buffer,
+    to K11b's image on the same buffer and worklists and to its own launch
+    over records that pass every group (the box tests drop no occluder);
+    the route (K2a then K2b) against the plain route, under the megakernel
+    budget."""
     from raytpu_torch.core import math3d, scenes
     from raytpu_torch.core.types import LightingMode, RenderConfig
-    from raytpu_torch.render import mega2, plain
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, mega3, packed, plain
 
     worst = {k: {"max_abs_diff": 0.0, "flip_frac": 0.0} for k in ("K2a", "K2b", "route")}
     for name in ("bunny", "optional"):
@@ -408,12 +421,19 @@ def phase_compare_mega2(dev, built: dict) -> dict:
                   ("50x37", scene, RenderConfig(width=50, height=37))]
         for case, sc, cfg in cases:
             buf, counts = plain.mega_pack(sc, cfg)
-            wl, cnt = mega2.primary_worklists(sc, cfg)
+            glo, ghi, records = accel.normal_boxes(sc.triangles)
+            wl, cnt = mega2.primary_worklists(sc, cfg, group_bounds=(glo, ghi))
             acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
-            wl_s, cnt_s = mega2.shadow_worklists(sc, cfg, bounds)
-            img = mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg)
+            wl_s, cnt_s = mega2.shadow_worklists(sc, cfg, bounds, (glo, ghi))
+            img = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg)
+            img_o = mega2.mega2_shade(buf, counts, open_records(records), wl_s, cnt_s, acc, cfg)
+            img11 = mega3.mega3_shade(buf, counts, mega3.pack_groups(buf, counts),
+                                      packed.shadow_records(records), wl_s, cnt_s, acc, cfg)
             acc_p, bounds_p = mega2.mega2_closest_plain(buf, counts, cfg)
             img_on_acc = mega2.mega2_shade_plain(buf, counts, acc, cfg)
+            if not all(_same_bits(img, x) for x in (img_o, img11, img_on_acc)):
+                raise AssertionError(f"K2b {name} {case}: not its plain version's image, its own "
+                                     f"launch's over open records or K11b's, bit for bit")
             img_p = (img_on_acc if torch.equal(acc, acc_p)
                      else mega2.mega2_shade_plain(buf, counts, acc_p, cfg))
             torch.cuda.synchronize()
@@ -432,7 +452,8 @@ def phase_compare_mega2(dev, built: dict) -> dict:
                 _worst(worst[key], diff, flips)
                 got[key] = f"max|f32 diff| {diff:.3e} flips {flips:.5f} mean {mean:.5f}"
             print(f"phase 2: K2 {name} {case:11s} K2a max|diff| {a_diff:.3e} (row {a_row}), boxes "
-                  f"{box_diff:.3e}, rays differing {a_flips:.5f}; K2b {got['K2b']}; route "
+                  f"{box_diff:.3e}, rays differing {a_flips:.5f}; K2b {got['K2b']}, equal bit for "
+                  f"bit to its plain version, K11b's image and K2b over open records; route "
                   f"{got['route']}", flush=True)
     return worst
 
@@ -469,7 +490,7 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             boxes = packed.shadow_records(records)
             img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
-            img2 = mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc2, cfg)
+            img2 = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc2, cfg)
             torch.cuda.synchronize()
             if img.shape != (h, w, 3) or not torch.isfinite(img).all():
                 raise AssertionError(f"K11 {name} {w}x{h}: output {tuple(img.shape)} not finite")
@@ -807,7 +828,11 @@ def phase_compare_chunked(dev, built: dict) -> dict:
     relative and the same material and normal (within 1e-6) where it
     agrees; its shadow mode on every light's shadow queries of those hits,
     flattened into one batch: the same first occluder on >= 99.99% of
-    queries.  K9 on the same queries: >= 99.9% of (light, ray) pairs equal.
+    queries.  K9 on the same queries: every (light, ray) pair equal, and
+    equal on the whole frame to its launches over every listed triangle
+    (without records, and over records that pass every group); and so on
+    optional_l12's row-major camera rays at 640x480 (``shade_rays``'
+    order), with the share of its warps that mix misses and hits.
     K10 on K8's records: the megakernel budget, and equal bit for bit to
     itself over records that pass every group of every listed chunk (the box
     tests drop no occluder).  Also optional_l12 at 50x37, a frame that does
@@ -851,14 +876,18 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         occ = chunked.any_hit_lights_chunked(scene, p_off, dirs, mags, tmin)
         occp = packed.any_hit_lights_plain(p_off[sub].contiguous(), dirs[:, sub].contiguous(),
                                            mags[:, sub].contiguous(), *blobs, tmin)
+        boxes_s, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
+        occ_every = _k9_every(p_off, dirs, mags, blobs, boxes_s, wl_s, cnt_s, tmin)
         torch.cuda.synchronize()
         s_agree, s_diff, s_rel, _ = _first_hit_diff(t_s[sub_s], tp_s)
         k9_flip = float((occ[:, sub] != occp).float().mean())
         if s_agree < 0.9999 or s_rel > 1e-6:
             raise AssertionError(f"K8 shadow mode {name}: {s_agree:.6f} of queries agree, first "
                                  f"occluder's t within {s_rel:.3e}")
-        if k9_flip > 0.001:
-            raise AssertionError(f"K9 {name}: {k9_flip:.5f} of (light, ray) pairs differ")
+        if k9_flip or not all(torch.equal(occ, x) for x in occ_every):
+            raise AssertionError(f"K9 {name}: {k9_flip:.5f} of (light, ray) pairs differ from "
+                                 f"the plain version, or its answers from its own launches "
+                                 f"over every listed triangle")
         # K10 on K8's records, launched on the whole frame
         colors = chunked.shadow_shade_chunked(scene, rec, rd, cfg)
         colors_p = plain.shadow_shade_plain(
@@ -871,7 +900,6 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         k10_diff = float((colors[sub] - colors_p).abs().max())
         flips, mean = close_u8(math3d.quantize_u8(colors[sub]).cpu().numpy()[None],
                                math3d.quantize_u8(colors_p).cpu().numpy()[None], 0.01, 0.5)
-        _, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
         every = chunked.shadow_shade(
             rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd, p_off,
             dirs, mags, plain.pack_lights(scene.lights), plain.material_table(scene.materials),
@@ -884,12 +912,38 @@ def phase_compare_chunked(dev, built: dict) -> dict:
               f"{agree:.6f}, max|t diff| {t_diff:.3e} (rel {t_rel:.3e}), max|normal diff| "
               f"{n_diff:.3e}; shadow mode on {L} x {sub.numel()} queries: first occluders agree "
               f"{s_agree:.6f} (max|t diff| {s_diff:.3e}); K9 on {tuple(occ.shape)} (L, R): "
-              f"{k9_flip:.6f} of pairs differ, occluded share {float(occp.float().mean()):.4f}; "
+              f"{k9_flip:.6f} of pairs differ, occluded share {float(occp.float().mean()):.4f}, "
+              f"equal to its launches over every listed triangle; "
               f"K10 max|f32 diff| {k10_diff:.3e} flips {flips:.5f} mean {mean:.5f}, equal bit "
               f"for bit to its walk over every listed group", flush=True)
         _worst(out["K8"], max(t_diff, n_diff, s_diff), max(1.0 - agree, 1.0 - s_agree))
         _worst(out["K9"], float((occ[:, sub] != occp).any()), k9_flip)
         _worst(out["K10"], k10_diff, flips)
+    # K9 on shade_rays' rays: row-major, unfolded, at the main path's size
+    scene, cfg = built["optional_l12"], RenderConfig(width=W, height=H)
+    blobs = packed.soft_packs(scene)
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    ro = ro.expand_as(rd).contiguous()
+    rec = chunked.closest_hit_chunked(scene, ro, rd, cfg.ray_min)
+    p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    sub = _cmp_rays(rd.shape[0], dev)
+    occ = chunked.any_hit_lights_chunked(scene, p_off, dirs, mags, cfg.ray_min)
+    occp = packed.any_hit_lights_plain(p_off[sub].contiguous(), dirs[:, sub].contiguous(),
+                                       mags[:, sub].contiguous(), *blobs, cfg.ray_min)
+    occ_every = _k9_every(p_off, dirs, mags, blobs,
+                          *chunked.shadow_inputs(scene, p_off, dirs, mags, cfg.ray_min),
+                          cfg.ray_min)
+    torch.cuda.synchronize()
+    differ = int((occ[:, sub] != occp).sum())
+    if differ or not all(torch.equal(occ, x) for x in occ_every):
+        raise AssertionError(f"K9 on shade_rays' rays: {differ} (light, ray) pairs differ from "
+                             f"the plain version, or from its launches over every listed triangle")
+    warps = rec.hit[:rd.shape[0] // 32 * 32].reshape(-1, 32)
+    mixed = float((warps.any(dim=1) & ~warps.all(dim=1)).float().mean())
+    print(f"phase 2: K9 optional_l12 {W}x{H} on shade_rays' row-major rays ({sub.numel()} of "
+          f"{rd.shape[0]} rays checked): 0 pairs differ, equal to its launches over every listed "
+          f"triangle; misses {int((~rec.hit).sum())}, warps mixing misses and hits {mixed:.4f}",
+          flush=True)
     # the light cap: 24 lights render through the route, 25 raise
     cfg = RenderConfig(width=CHUNKED_PLAIN_SIZE[0], height=CHUNKED_PLAIN_SIZE[1])
     more = [(-3.0 + 1.5 * (k % 5), 8.0, float(k // 5)) for k in range(22)]
@@ -914,6 +968,21 @@ def phase_compare_chunked(dev, built: dict) -> dict:
     print(f"phase 2: chunked route with 24 lights: {tuple(img.shape)} frame, mean "
           f"{float(img.float().mean()):.2f}; with 25: ValueError ({refused[0]}; {refused[1]})",
           flush=True)
+    return out
+
+
+def _k9_every(p, dirs, mags, blobs, boxes, wl, cnt, tmin) -> list:
+    """K9's answers over every listed triangle: its launch without records
+    and, where the scene has records, over records that pass every group
+    (``accel.open_normal_boxes``)."""
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import chunked
+
+    out = [chunked.any_hit_lights(p, dirs, mags, *blobs, None, wl, cnt, tmin)]
+    if boxes is not None:
+        out.append(chunked.any_hit_lights(p, dirs, mags, *blobs,
+                                          accel.open_normal_boxes(boxes.shape[0], p.device), wl,
+                                          cnt, tmin))
     return out
 
 
@@ -1567,7 +1636,7 @@ def _shadow_ops(S: int, P: int, occ, hit, tris, tiles: int):
 
 
 def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int, P: int,
-                     chunk: int = 8, soft_ops=None):
+                     chunk: int = 8, soft_ops=None, frame: dict | None = None, slots=None):
     """What the box tests leave of each light's shadow worklists, for the
     queries of a kernel on the shadow walk (K4, K11b, K10, K5): origins
     ``p`` (R, 3) in tile order, ``dirs`` (L, R, 3), ``mags`` (L, R),
@@ -1584,14 +1653,21 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
     boxes (what the kappa walk would leave) and the share of (query, listed
     group) pairs whose widening the triangles' normals narrow;
     the union of the widened groups over each of the kernels' warps
-    (``accel.warp_slots``); the occluded share; and the box-culled count of
+    (``slots`` (32, 32), the tile slot of each warp's lanes, by default
+    ``accel.warp_slots``; K9's warps take 32 consecutive rays); the
+    occluded share; and the box-culled count of
     FP32 operations: every sphere and plane, and the triangle test on every
     triangle of every group whose padded box the segment crosses, for a
     query that finds no occluder, one test for one that does (where it is
     found is not counted).  No box test is counted, and the triangles are
     counted per ray, not per warp, with the padded box and not the wider one
     the kernels need for the triangle test's rounding: a lower bound for
-    any walk over these groups."""
+    any walk over these groups.  ``frame``, if given, receives the union
+    over every light: ``listed_groups``, the groups some queried row lists
+    (each record the walk reads), and ``crossed_groups`` with
+    ``crossed_group_tris``, the groups whose padded box some query's
+    segment crosses and their triangles (each triangle record the walk
+    must read), for the bound's bytes."""
     from raytpu_torch.ops import accel
 
     L, R = dirs.shape[:2]
@@ -1599,9 +1675,11 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
     nt, step, dev = -(-R // 1024), 1 if normals else 4, p.device
     ng, k_exp = boxes.shape[0], chunk // accel.GROUP
     group_tris = _group_tris(T, dev)
-    slots = accel.warp_slots(dev).flatten()
+    slots = (accel.warp_slots(dev) if slots is None else slots).flatten()
     tri_ops, sp_ops = ((soft_ops[2], S * soft_ops[0] + P * soft_ops[1]) if soft_ops
                        else (OPS_TRI_SHADOW, S * OPS_SPHERE + P * OPS_PLANE))
+    listed_g = torch.zeros((ng,), dtype=torch.bool, device=dev)
+    crossed_g = torch.zeros((ng,), dtype=torch.bool, device=dev)
     out = []
     for li in range(L):
         inv = accel.inv_dir(dirs[li])
@@ -1633,6 +1711,8 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
             keep = used[:, None, :] & q[..., None]
             cross = accel.tight_segment_box_test(*args) & keep
             wide = accel.segment_box_test(*args, d=d) & keep
+            listed_g[g[used & q.any(dim=1)[:, None]]] = True
+            crossed_g[g[:, None, :].expand_as(cross)[cross]] = True
             if normals:
                 acc["kappa"] += float((accel.segment_box_test(*args[:3], boxes[g][..., :8])
                                        & keep).sum())
@@ -1658,6 +1738,9 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
             st["kappa_widened_per_query"] = acc["kappa"] / per_q
             st["narrowed_share"] = acc["narrowed"] / max(acc["listed"], 1.0)
         out.append(st)
+    if frame is not None:
+        frame.update(listed_groups=int(listed_g.sum()), crossed_groups=int(crossed_g.sum()),
+                     crossed_group_tris=float(group_tris[crossed_g].sum()))
     return out
 
 
@@ -1755,6 +1838,12 @@ def _listed_note(e: dict) -> str:
             f"({e['ops_listed']:.4e} FP32 ops)" if "bound_ms_listed" in e else "")
 
 
+def _print_frame_groups(key: str, name: str, frame: dict) -> None:
+    print(f"phase 4: {key} {name} boxes over the frame: {frame['listed_groups']} groups listed, "
+          f"{frame['crossed_groups']} whose padded box some query crosses "
+          f"({frame['crossed_group_tris']:.0f} triangles)", flush=True)
+
+
 def _print_box_stats(key: str, name: str, stats: list) -> None:
     for li, st in enumerate(stats):
         kappa = (f" (kappa's widening: {st['kappa_widened_per_query']:.2f}; narrowed on "
@@ -1782,16 +1871,16 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
     cfg = RenderConfig(width=W, height=H)
     buf, counts = plain.mega_pack(scene, cfg)
     S, P, T, L = counts
-    wl, cnt = mega2.primary_worklists(scene, cfg)
+    glo, ghi, records = accel.normal_boxes(scene.triangles)  # as the routes build them
+    wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
     acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
-    wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
+    wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi))
     iters = 50 if T < 10000 else 5
     ms = {"K2a": device_ms(lambda: mega2.mega2_closest(buf, counts, wl, cnt, cfg), iters=iters,
                            warmup=3),
-          "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg),
+          "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg),
                            iters=iters, warmup=3)}
     if k11:
-        records = accel.normal_boxes(scene.triangles)[2]
         boxes = packed.shadow_records(records)
         blob = mega3.pack_groups(buf, counts)
         ms["K11a"] = device_ms(lambda: mega3.mega3_closest(buf, counts, blob, records, wl, cnt,
@@ -1840,6 +1929,21 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
     bytes_b = (buf.numel() + int(cnt_s.sum()) + cnt_s.numel() + acc.numel() + H * W * 3) * 4
     out = {}
     bounds_of = {"a": _bound(ops_a, bytes_a), "b": _bound(ops_b, bytes_b)}
+    shadow_listed = sum(_shadow_ops(S, P, occ[li], hit, tris_s[:, li], nt) for li in range(L))
+    # K2b tests the normal records of 8-triangle groups: its count is the
+    # box-culled one, its bytes the scene buffer but its triangles, the
+    # triangle records of the groups some query crosses and the records of
+    # the listed groups, besides the worklists, the buffer in and the image
+    # out; every listed triangle and the whole scene buffer in brackets
+    frame_b = {}
+    stats_b = shadow_box_stats(p_off, dirs, mags, hit, wl_s, cnt_s, records, T, occ, S, P,
+                               frame=frame_b)
+    _print_box_stats("K2b", name, stats_b)
+    _print_frame_groups("K2b", name, frame_b)
+    bytes_b_box = (bytes_b - T * plain.TRI_COLS * 4 + frame_b["crossed_group_tris"] * plain.TRI_COLS
+                   * 4 + frame_b["listed_groups"] * records.shape[1] * 4)
+    bounds_of["K2b"] = _box_bound(ops_b - shadow_listed + sum(st["ops"] for st in stats_b), ops_b,
+                                  bytes_b_box, stats_b, bytes_b + records.numel() * 4)
     if k11:  # K11a and K11b test the group boxes: their counts are the box-culled ones
         st = closest_box_stats(torch.stack(ro)[None, :].expand_as(rd), rd, acc[0], valid, wl,
                                cnt, records, T)
@@ -1854,7 +1958,6 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
                                        bytes_a + records.numel() * 4)
         stats = shadow_box_stats(p_off, dirs, mags, hit, wl_s, cnt_s, boxes, T, occ, S, P)
         _print_box_stats("K11b", name, stats)
-        shadow_listed = sum(_shadow_ops(S, P, occ[li], hit, tris_s[:, li], nt) for li in range(L))
         bounds_of["K11b"] = _box_bound(ops_b - shadow_listed + sum(st["ops"] for st in stats),
                                        ops_b, bytes_b + boxes.numel() * 4, stats)
     for key in ms:
@@ -2049,10 +2152,13 @@ def time_chunked(dev, built: dict, name: str):
     """K8's (closest mode), K9's and K10's times at 640x480 on the route's
     camera rays and their shadow queries, beside their bounds, counted from
     this frame's worklists as for K3 and K4 (a shadow query that finds an
-    occluder counts one plane test: a lower bound); K10's bound is
-    box-culled, as K4's, with the count of every listed triangle beside it,
-    and its box statistics are printed; the plain versions' times on the
-    whole frame at CHUNKED_PLAIN_SIZE."""
+    occluder counts one plane test: a lower bound).  K9 is timed on the
+    shadow queries of the unfolded, row-major camera rays, the order of its
+    callers (``shade_rays``, the stage profiler); its time on the folded
+    queries, K10's, stands beside it (``ms_folded``).  K9's and K10's
+    bounds are box-culled, as K4's, with the count of every listed triangle
+    beside them, and their box statistics are printed; the plain versions'
+    times on the whole frame at CHUNKED_PLAIN_SIZE."""
     from raytpu_torch.core.types import LightKind, RenderConfig
     from raytpu_torch.render import chunked, packed, plain, renderer
     from raytpu_torch.utils.profiling import device_ms
@@ -2072,11 +2178,15 @@ def time_chunked(dev, built: dict, name: str):
         p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
         k10_args = (rec.hit, rec.normal.contiguous(), rec.point.contiguous(), rec.material, rd,
                     p_off, dirs, mags, lights, mats, *blobs)
+        ro_r, rd_r = renderer.generate_rays(scene.camera, cfg)  # shade_rays' order
+        ro_r = ro_r.expand_as(rd_r).contiguous()
+        p_r, dirs_r, mags_r = (x.contiguous() for x in renderer.shadow_query_inputs(
+            scene, chunked.closest_hit_chunked(scene, ro_r, rd_r, tmin), cfg))
         if (w, h) == CHUNKED_PLAIN_SIZE:
             out["K8"]["plain_ms"] = device_ms(
                 lambda: plain.chunked_min_t_plain(ro, rd, None, *blobs, tmin, False), 1, 0)
             out["K9"]["plain_ms"] = device_ms(
-                lambda: packed.any_hit_lights_plain(p_off, dirs, mags, *blobs, tmin), 1, 0)
+                lambda: packed.any_hit_lights_plain(p_r, dirs_r, mags_r, *blobs, tmin), 1, 0)
             out["K10"]["plain_ms"] = device_ms(
                 lambda: plain.shadow_shade_plain(*k10_args, cfg), 1, 0)
             continue
@@ -2084,11 +2194,16 @@ def time_chunked(dev, built: dict, name: str):
         boxes, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
         ms8 = device_ms(lambda: chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False),
                         iters=20, warmup=2)
-        occ = chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s, tmin)
-        ms9 = device_ms(lambda: chunked.any_hit_lights(p_off, dirs, mags, *blobs, wl_s, cnt_s,
-                                                       tmin), iters=20, warmup=2)
+        occ = chunked.any_hit_lights(p_off, dirs, mags, *blobs, boxes, wl_s, cnt_s, tmin)
+        ms9_folded = device_ms(lambda: chunked.any_hit_lights(p_off, dirs, mags, *blobs, boxes,
+                                                              wl_s, cnt_s, tmin),
+                               iters=20, warmup=2)
         ms10 = device_ms(lambda: chunked.shadow_shade(*k10_args, boxes, wl_s, cnt_s, cfg),
                          iters=20, warmup=2)
+        boxes_r, wl_r, cnt_r = chunked.shadow_inputs(scene, p_r, dirs_r, mags_r, tmin)
+        args9 = (p_r, dirs_r, mags_r, *blobs, boxes_r, wl_r, cnt_r, tmin)
+        occ_r = chunked.any_hit_lights(*args9)
+        ms9 = device_ms(lambda: chunked.any_hit_lights(*args9), iters=20, warmup=2)
         tile_rays = _tile_rays(R, dev)
         tris8 = _worklist_tris(wl, cnt, T, chunked.CHUNK)
         n_hit = float(rec.hit.sum())
@@ -2097,11 +2212,13 @@ def time_chunked(dev, built: dict, name: str):
         blob_bytes = sum(b.numel() for b in blobs) * 4
         bytes8 = R * 24 + blob_bytes + (int(cnt.sum()) + cnt.numel()) * 4 + R * 24
         tris_s = _worklist_tris(wl_s, cnt_s, T, chunked.CHUNK)
+        tris_r = _worklist_tris(wl_r, cnt_r, T, chunked.CHUNK)
         every = torch.ones((R,), dtype=torch.bool, device=dev)
-        ops9 = sum(_shadow_ops(S, P, occ[li], every, tris_s[:, li], len(tile_rays))
+        # K9 answers every query, a miss's from the camera too
+        ops9 = sum(_shadow_ops(S, P, occ_r[li], every, tris_r[:, li], len(tile_rays))
                    for li in range(L))
+        bytes9 = R * 12 + L * R * 16 + blob_bytes + (int(cnt_r.sum()) + cnt_r.numel()) * 4 + L * R
         wl_s_bytes = (int(cnt_s.sum()) + cnt_s.numel()) * 4
-        bytes9 = R * 12 + L * R * 16 + blob_bytes + wl_s_bytes + L * R
         kind = mats[rec.material.long(), 0]
         metal = mats[rec.material.long(), 4] != 0.0
         ops10 = ops_shade = n_hit * OPS_K10_TAIL
@@ -2114,25 +2231,46 @@ def time_chunked(dev, built: dict, name: str):
         bytes10 = (R * (1 + 12 + 12 + 4 + 12 + 12) + L * R * 16 + lights.numel() * 4
                    + mats.numel() * 4 + blob_bytes + wl_s_bytes + R * 12)
         size = f"{CHUNKED_PLAIN_SIZE[0]}x{CHUNKED_PLAIN_SIZE[1]}"
-        for key, ms, ops, nbytes in (("K8", ms8, ops8, bytes8), ("K9", ms9, ops9, bytes9)):
-            out[key] = {"ms": ms, "plain_size": size, **_bound(ops, nbytes)}
-        if boxes is None:  # a scene of a few groups: K10 tests every listed triangle
+        out["K8"] = {"ms": ms8, "plain_size": size, **_bound(ops8, bytes8)}
+        if boxes is None:  # a scene of a few groups: K9 and K10 test every listed triangle
+            out["K9"] = {"ms": ms9, "plain_size": size, **_bound(ops9, bytes9)}
             out["K10"] = {"ms": ms10, "plain_size": size, **_bound(ops10, bytes10)}
-        else:  # K10 walks the chunks' groups with the normal records (chunk -> 16 groups)
+        else:  # K9 and K10 walk the chunks' groups with the normal records (chunk -> 16)
+            # K9's bytes count the triangle records of the groups some query
+            # crosses and the records of the listed groups, besides rays in,
+            # answers out, spheres, planes and worklists; every record in
+            # brackets.  Its warps take 32 consecutive rays.
+            frame9 = {}
+            stats9 = shadow_box_stats(p_r, dirs_r, mags_r, every, wl_r, cnt_r, boxes_r, T, occ_r,
+                                      S, P, chunk=chunked.CHUNK, frame=frame9,
+                                      slots=torch.arange(1024, device=dev).reshape(32, 32))
+            _print_box_stats("K9", name, stats9)
+            _print_frame_groups("K9", name, frame9)
+            bytes9_box = (bytes9 - blobs[2].numel() * 4
+                          + frame9["crossed_group_tris"] * blobs[2].shape[1] * 4
+                          + frame9["listed_groups"] * boxes_r.shape[1] * 4)
+            out["K9"] = {"ms": ms9, "plain_size": size,
+                         **_box_bound(sum(st["ops"] for st in stats9), ops9, bytes9_box, stats9,
+                                      bytes9 + boxes_r.numel() * 4)}
             stats = shadow_box_stats(p_off, dirs, mags, rec.hit, wl_s, cnt_s, boxes, T, occ, S,
                                      P, chunk=chunked.CHUNK)
             _print_box_stats("K10", name, stats)
             out["K10"] = {"ms": ms10, "plain_size": size,
                           **_box_bound(ops_shade + sum(st["ops"] for st in stats), ops10,
                                        bytes10 + boxes.numel() * 4, stats)}
+        out["K9"]["ms_folded"] = ms9_folded
         out["tests_per_ray"] = float((tile_rays * tris8).sum()) / R
         out["shadow_tests_per_query"] = float((tile_rays[:, None] * tris_s).sum()) / (L * R)
         out["occluded_share"] = float((occ & rec.hit[None]).sum()) / max(n_hit * L, 1.0)
     for key in ("K8", "K9", "K10"):
         e = out[key]
-        print(f"phase 4: {key} {name}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+        print(f"phase 4: {key} {name}: {e['ms']:.4f} ms"
+              + (" on row-major queries" if key == "K9" else "")
+              + f", bound {e['bound_ms']:.4f} ms by "
               f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B)" + _listed_note(e)
-              + f", plain {e['plain_ms']:.2f} ms at {e['plain_size']}", flush=True)
+              + f", plain {e['plain_ms']:.2f} ms at {e['plain_size']}"
+              + (f"; on the folded queries {e['ms_folded']:.4f} ms" if key == "K9" else ""),
+              flush=True)
     print(f"phase 4: {name}: {out['tests_per_ray']:.1f} triangle tests per camera ray, "
           f"{out['shadow_tests_per_query']:.1f} per (shadow ray, light) before any stop, "
           f"occluded share {out['occluded_share']:.4f}", flush=True)

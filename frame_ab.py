@@ -3,7 +3,7 @@ and the shadow-walk kernels' times and answers, for comparing two trees of
 the repo on one CUDA card.
 
     python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
-    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3 and K11a answers saved in DIR
+    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3, K11a, K9 and K2b answers in DIR
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
@@ -32,14 +32,20 @@ and bunny300k (K5_SCENES), saving its (L, R) transmittance; K3
 (``packed.winner_search``) on frame 0's folded camera rays of bunny50k and
 bunny300k (K3_SCENES), saving its (t, idx, normal, material); and K11a
 (``mega3.mega3_closest``) on frame 0 of optional, bunny50k and bunny300k
-(K11A_SCENES), saving its buffer and tile boxes.  Each wrapper is called
-with the box records where the tree's takes them.
+(K11A_SCENES), saving its buffer and tile boxes; K9
+(``chunked.any_hit_lights``) on the shadow queries of K8's hits of
+optional_l12, bunny18k_l12 and reference_s106, of the camera rays in 32x32
+blocks and, for the first two, row-major (``chunked.shade_rays``' order)
+(K9_SCENES), saving its (L, R) answer; and K2b (``mega2.mega2_shade``) on
+K2a's buffer of bunny and optional (K2B_SCENES), saving its image.  Each
+wrapper is called with the box records where the tree's takes them, built
+as the tree's route builds them.
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
-_work/parent``), then counts the (light, ray) pairs of K4 and K5, the
-(pixel, channel) entries of K10 and the words of K3's and K11a's answers
-in which the trees' answers differ:
+_work/parent``), then counts the (light, ray) pairs of K4, K5 and K9, the
+(pixel, channel) entries of K10 and K2b and the words of K3's and K11a's
+answers in which the trees' answers differ:
 
     for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
         --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
@@ -71,6 +77,12 @@ K5_SCENES = ("optional", "bunny50k", "bunny300k")
 K3_SCENES = ("bunny50k", "bunny300k")
 #: the scenes on which K11a is timed and its buffer and boxes saved
 K11A_SCENES = ("optional", "bunny50k", "bunny300k")
+#: the chunked fixtures on which K9 is timed and its answers saved: of the
+#: camera rays in 32x32 blocks, and (" rows") row-major
+K9_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106", "optional_l12 rows",
+             "bunny18k_l12 rows")
+#: the scenes on which K2b is timed and its image saved
+K2B_SCENES = ("bunny", "optional")
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -159,6 +171,13 @@ def main(argv=None) -> int:
         out[name + "_K3"] = _k3(built[name], cfg, tree, name, args.out)
     for name in K11A_SCENES:
         out[name + "_K11a"] = _k11a(built[name], cfg, tree, name, args.out)
+    for key in K9_SCENES:
+        name, *order = key.split()
+        if name in built:
+            out["-".join(key.split()) + "_K9"] = _k9(built[name], cfg, tree, key, args.out,
+                                                     rows=bool(order))
+    for name in K2B_SCENES:
+        out[name + "_K2b"] = _k2b(built[name], cfg, tree, name, args.out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -175,7 +194,7 @@ def _save(outdir, kernel: str, name: str, tree: str, x, inputs) -> dict:
     res = {"inputs_sha256": digest.hexdigest()}
     if outdir:
         os.makedirs(outdir, exist_ok=True)
-        path = os.path.join(outdir, f"{kernel}_{name}_{tree}.npz")
+        path = os.path.join(outdir, f"{kernel}_{'-'.join(name.split())}_{tree}.npz")
         a = x.cpu().numpy()
         if os.path.exists(path):  # this tree's earlier run: the kernel answers the same each run
             res["entries_differ_from_earlier_run"] = int((np.load(path)["x"] != a).sum())
@@ -210,6 +229,61 @@ def _k10(scene, cfg, tree: str, name: str, outdir) -> dict:
                                         warmup=1) for _ in range(REPEATS)])}
     torch.cuda.synchronize()
     return {**res, **_save(outdir, "k10", name, tree, colors, (rec.hit, rec.normal, p, dirs, mags))}
+
+
+def _k9(scene, cfg, tree: str, name: str, outdir, rows: bool = False) -> dict:
+    """K9's ms (REPEATS runs of KERNEL_ITERS launches) on the shadow queries
+    of K8's hits of the scene's unanimated frame, its camera rays in 32x32
+    blocks or with ``rows`` row-major, through the chunked route's glue;
+    its (L, R) answer saved as bytes."""
+    import torch
+
+    from raytpu_torch.render import chunked, packed, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    W, H, tmin = cfg.width, cfg.height, cfg.ray_min
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    if not rows:
+        rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    args = [p, dirs, mags, *packed.soft_packs(scene)]
+    if "boxes" in inspect.signature(chunked.any_hit_lights).parameters:  # K9 walks the records
+        args += chunked.shadow_inputs(scene, p, dirs, mags, tmin)
+    else:
+        args += packed.shadow_worklists(scene, p, dirs, mags, tmin, group=chunked.CHUNK)
+    args.append(tmin)
+    occ = chunked.any_hit_lights(*args)
+    res = {"K9_ms": _spread([device_ms(lambda: chunked.any_hit_lights(*args),
+                                       iters=KERNEL_ITERS, warmup=1) for _ in range(REPEATS)])}
+    torch.cuda.synchronize()
+    return {**res, **_save(outdir, "k9", name, tree, occ.to(torch.uint8), (p, dirs, mags))}
+
+
+def _k2b(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K2b's ms (REPEATS runs of KERNEL_ITERS launches) on K2a's buffer of
+    the scene's unanimated frame, its inputs built as the tree's mega2
+    route builds them; its image saved."""
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, plain
+    from raytpu_torch.utils.profiling import device_ms
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    if "boxes" in inspect.signature(mega2.mega2_shade).parameters:  # K2b walks the records
+        glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+        wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
+        acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+        args = [buf, counts, boxes, *mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi)), acc,
+                cfg]
+    else:
+        wl, cnt = mega2.primary_worklists(scene, cfg)
+        acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+        args = [buf, counts, *mega2.shadow_worklists(scene, cfg, bounds), acc, cfg]
+    img = mega2.mega2_shade(*args)
+    res = {"K2b_ms": _spread([device_ms(lambda: mega2.mega2_shade(*args), iters=KERNEL_ITERS,
+                                        warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "k2b", name, tree, img, (buf, acc))}
 
 
 def _k5(scene, cfg, tree: str, name: str, outdir) -> dict:
@@ -366,8 +440,8 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
 
 def compare(outdir: str) -> int:
     """Count the entries in which two trees' answers differ, kernel by
-    kernel and scene by scene, from the files ``--out`` wrote: K4's (light,
-    ray) pairs, K10's (pixel, channel) entries, K5's (light, ray) pairs,
+    kernel and scene by scene, from the files ``--out`` wrote: K4's, K5's
+    and K9's (light, ray) pairs, K10's and K2b's (pixel, channel) entries,
     K3's and K11a's words.
     Non-zero unless every kernel and scene has both trees' answers, on the
     same inputs, and none differ."""
@@ -377,8 +451,10 @@ def compare(outdir: str) -> int:
 
     ok, out = True, {}
     for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES),
-                          ("k3", K3_SCENES), ("k11a", K11A_SCENES)):
+                          ("k3", K3_SCENES), ("k11a", K11A_SCENES), ("k9", K9_SCENES),
+                          ("k2b", K2B_SCENES)):
         for name in names:
+            name = "-".join(name.split())  # "optional_l12 rows" -> optional_l12-rows
             prefix = os.path.join(outdir, f"{kernel}_{name}_")
             runs = {f[len(prefix):-4]: np.load(f) for f in sorted(glob.glob(prefix + "*.npz"))}
             key = f"{kernel.upper()} {name}"
@@ -391,9 +467,10 @@ def compare(outdir: str) -> int:
             if kernel == "k4":
                 entries = int(np.prod(a["shape"]))
                 differ = int(np.unpackbits(a["bits"] ^ b["bits"]).sum())
-            else:  # bit for bit: the float32 patterns
+            else:  # bit for bit: the float32 patterns, or K9's bytes
                 entries = int(a["x"].size)
-                differ = int((a["x"].view(np.uint32) != b["x"].view(np.uint32)).sum())
+                word = np.uint32 if a["x"].dtype.itemsize == 4 else np.uint8
+                differ = int((a["x"].view(word) != b["x"].view(word)).sum())
             out[key] = {"trees": [ta, tb], "entries": entries, "entries_differ": differ,
                         "same_inputs": same_inputs}
             ok = ok and same_inputs and differ == 0

@@ -105,7 +105,9 @@ def load():
         shade_out = [c_int, c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr, c_ptr]
         lib.raytpu_mega2_closest.argtypes = [c_ptr, c_int, c_int, c_int] + tiles_in + closest_out
         lib.raytpu_mega2_closest.restype = c_int
-        lib.raytpu_mega2_shade.argtypes = [c_ptr, c_int, c_int, c_int, c_int] + tiles_in + shade_out
+        # scene, S, P, T, L, boxes
+        lib.raytpu_mega2_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr] + tiles_in
+                                           + shade_out)
         lib.raytpu_mega2_shade.restype = c_int
         # scene, S, P, T, blob, boxes | tiles_in | tmin, offset, acc, part, done, bounds,
         # stream
@@ -140,8 +142,9 @@ def load():
         lib.raytpu_chunked_min_t.argtypes = ([c_ptr, c_ptr, c_ptr, c_int] + sp_tri
                                              + [c_ptr, c_ptr, c_int, c_float, c_int] + [c_ptr] * 5)
         lib.raytpu_chunked_min_t.restype = c_int
-        lib.raytpu_chunked_anyhit_lights.argtypes = (soft_in + sp_tri
-                                                     + [c_ptr, c_ptr, c_int, c_float, c_ptr, c_ptr])
+        # ... boxes, wl, cnt, wl_cols, tmin, occ, stream
+        lib.raytpu_chunked_anyhit_lights.argtypes = (soft_in + sp_tri + [c_ptr, c_ptr, c_ptr, c_int,
+                                                                         c_float, c_ptr, c_ptr])
         lib.raytpu_chunked_anyhit_lights.restype = c_int
         lib.raytpu_chunked_shadow_shade.argtypes = (
             [c_ptr] * 8 + [c_int, c_int, c_ptr, c_ptr, c_int] + sp_tri

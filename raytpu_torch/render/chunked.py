@@ -15,10 +15,11 @@ chunked branch of ``render_image_f32``.  The kernels are
   * K9 (``any_hit_lights``): every light's occlusion for the shadow rays,
     culled per (tile, light), at most 24 lights as in raytpu;
   * K10 (``shadow_shade``): after K8, every light's shadow query, the
-    shading, the dim per occluded light and MaxToOne, in one launch; its
-    shadow queries walk the 8-triangle groups of their chunks with
-    ``csrc/shadow.cuh``'s box tests and the normal records of
-    ``accel.normal_boxes``.
+    shading, the dim per occluded light and MaxToOne, in one launch.
+
+K9's and K10's shadow queries walk the 8-triangle groups of their chunks
+with ``csrc/shadow.cuh``'s box tests and the normal records of
+``accel.normal_boxes`` (``shadow_inputs``).
 
 The worklists come from ``ops/accel.py`` through ``packed``'s worklist
 helpers, with raytpu's 128-triangle chunks; a scene under 256 triangles
@@ -41,13 +42,15 @@ TILE = packed.TILE
 CHUNK = 128  #: triangles per worklist chunk (raytpu's CT), culled from two on
 MAX_LIGHTS = 24  #: raytpu's bitmask cap (pallas_kernel.py:395, 566)
 MAX_TRIS = 32768  #: the route's triangle cap (pallas_kernel.py:MAX_VMEM_TRIS)
-#: K10 on a scene of at most this many 8-triangle groups (reference_s106:
-#: one) takes no box records: its kernel then tests every listed triangle,
-#: without the walk's box tests, which cost more there than they skip, at
-#: twice the walk's occupancy (csrc/chunked.cu; shadow_ablation.py).  The
-#: walk's kernel is 1.28x slower at one group and faster at hundreds
-#: (optional_l12, bunny18k_l12); where between them it starts to pay is not
-#: measured, so 8 is a guess inside that range.
+#: K9 and K10 on a scene of at most this many 8-triangle groups
+#: (reference_s106: one) take no box records: their kernels then test every
+#: listed triangle, without the walk's box tests, which cost more there
+#: than they skip (csrc/chunked.cu; shadow_ablation.py's no_direct).  With
+#: the records, reference_s106 takes 1.11x K9's time (both kernels at 8
+#: blocks of 128 an SM) and 1.29x K10's (whose kernel without records also
+#: runs at twice the walk's occupancy); the walks are faster at hundreds of
+#: groups (optional_l12, bunny18k_l12).  Where between them they start to
+#: pay is not measured, so 8 is a guess inside that range.
 FEW_GROUPS = 8
 
 #: Launches of K8, K9 and K10, counted where the wrappers launch them.
@@ -136,19 +139,22 @@ def any_hit_chunked(scene: Scene, ro, rd, tmin, tmax):
 def any_hit_lights_chunked(scene: Scene, p, dirs, mags, tmin):
     """(L, R) bool occlusion for every light (pallas_kernel.py:
     any_hit_lights_pallas): shadow origins ``p`` (R,3), directions ``dirs``
-    (L,R,3), segment lengths ``mags`` (L,R), at most 24 lights."""
+    (L,R,3), segment lengths ``mags`` (L,R), at most 24 lights.  The records
+    and the worklists come from ``shadow_inputs``, as K10's."""
     _check_lights(dirs.shape[0], "K9")
     p, dirs, mags = p.contiguous(), dirs.contiguous(), mags.contiguous()
-    wl, cnt = packed.shadow_worklists(scene, p, dirs, mags, tmin, group=CHUNK)
-    return any_hit_lights(p, dirs, mags, *packed.soft_packs(scene), wl, cnt, float(tmin))
+    boxes, wl, cnt = shadow_inputs(scene, p, dirs, mags, tmin)
+    return any_hit_lights(p, dirs, mags, *packed.soft_packs(scene), boxes, wl, cnt, float(tmin))
 
 
-def any_hit_lights(p, dirs, mags, sph, pln, tri, wl, cnt, tmin):
+def any_hit_lights(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, tmin):
     """K9 over shadow rays and the records of ``packed.soft_packs``, walking
     each (tile, light) chunk worklist ``wl`` (nt, L, n) int32 up to ``cnt``
-    (nt, L) int32 -> (L, R) bool.  CPU tensors take K4's plain version,
-    ``packed.any_hit_lights_plain``: the two kernels compute one function
-    over groups of different sizes."""
+    (nt, L) int32 -> (L, R) bool, with the normal records ``boxes``
+    (ceil(T/8), 32) of ``accel.normal_boxes``, or None to test every listed
+    triangle (``shadow_inputs`` chooses).  CPU tensors take K4's plain
+    version, ``packed.any_hit_lights_plain``: the two kernels compute one
+    function over groups of different sizes."""
     global CHUNKED_ANYHIT_LAUNCHES
     L, R, S, P, T = dirs.shape[0], p.shape[0], sph.shape[0], pln.shape[0], tri.shape[0]
     _check_lights(L, "K9")
@@ -162,13 +168,18 @@ def any_hit_lights(p, dirs, mags, sph, pln, tri, wl, cnt, tmin):
         "planes": (pln, torch.float32, (P, packed.SP_COLS)),
         "triangles": (tri, torch.float32, (T, packed.TRI_COLS)),
         "wl": (wl, torch.int32, (nt, L, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt, L))})
+    if boxes is not None:
+        build.check_tensors("K9", p.device, {
+            "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS))})
+        build.check_aligned("K9", "boxes", boxes, 16)
     occ = torch.empty((L, R), dtype=torch.bool, device=p.device)  # one byte, 0 or 1
     lib = build.load()
     with torch.cuda.device(p.device):
         err = lib.raytpu_chunked_anyhit_lights(
             p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), S,
-            pln.data_ptr(), P, tri.data_ptr(), T, wl.data_ptr(), cnt.data_ptr(), wl.shape[-1],
-            float(tmin), occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            pln.data_ptr(), P, tri.data_ptr(), T, None if boxes is None else boxes.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin), occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K9 launch failed: {build.cuda_error_name(lib, err)}")
     CHUNKED_ANYHIT_LAUNCHES += 1
@@ -199,10 +210,11 @@ def shadow_shade_chunked(scene: Scene, rec, rd, config: RenderConfig):
 
 
 def shadow_inputs(scene: Scene, p_off, dirs, mags, tmin):
-    """K10's shadow inputs for the queries ``p_off``, ``dirs``, ``mags``:
-    ``(boxes, wl, cnt)``, the normal records of ``accel.normal_boxes`` (None
-    for a scene of at most FEW_GROUPS groups) and each (tile, light)
-    worklist of 128-triangle chunks, from one set of group bounds."""
+    """K9's and K10's shadow inputs for the queries ``p_off``, ``dirs``,
+    ``mags``: ``(boxes, wl, cnt)``, the normal records of
+    ``accel.normal_boxes`` (None for a scene of at most FEW_GROUPS groups)
+    and each (tile, light) worklist of 128-triangle chunks, from one set of
+    group bounds."""
     if -(-scene.triangles.count // accel.GROUP) <= FEW_GROUPS:
         return (None, *packed.shadow_worklists(scene, p_off, dirs, mags, tmin, group=CHUNK))
     glo, ghi, boxes = accel.normal_boxes(scene.triangles)

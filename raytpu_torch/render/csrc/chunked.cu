@@ -34,11 +34,13 @@
 // scene under 256 triangles walks every chunk (raytpu's CULL_MIN_TRIS).
 //
 // A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
-// pixel blocks, raytpu in 512-ray 16x32 blocks).  K8 and K9: one block of
-// 1024 threads per tile, one thread per ray.  K10: eight blocks of 128 a
-// tile, each warp on an 8x4 pixel block, its shadow queries on
-// shadow.cuh's group walk (below).  With the strict < update a tie goes to
-// the first primitive in sphere -> plane -> triangle order.
+// pixel blocks, raytpu in 512-ray 16x32 blocks).  K8: one block of 1024
+// threads per tile, one thread per ray.  K9: eight blocks of 128 a (tile,
+// light), each warp on 32 consecutive rays, one thread per (ray, light).
+// K10: eight blocks of 128 a tile, each warp on an 8x4 pixel block.  K9's
+// and K10's shadow queries walk shadow.cuh's groups (below).  With the
+// strict < update a tie goes to the first primitive in sphere -> plane ->
+// triangle order.
 //
 // What bounds it.  The work is FP32 arithmetic: ~50 operations for each
 // ray-triangle test that a worklist passes, ~15 for each sphere and plane,
@@ -55,14 +57,16 @@
 // the threads read them from device memory; triangles stay in device
 // memory, and all threads of a block read the same chunk at the same time,
 // which the cache serves as a broadcast.  A shadow query stops at its
-// first occluder.  K10's worklist rows are the union over a whole tile,
-// 126-541 groups a query, so it walks each chunk's 16 groups of 8 with
-// shadow.cuh: the warp's bundle, then
-// each ray, test the groups' boxes, widened for the ray by a bound of
-// tri_t's error that its triangles' normals narrow for rays far from
-// grazing (accel.normal_boxes), so a query visits
-// the triangles of a few groups; the occlusion is the same, so the colors
-// equal the walk over every listed triangle bit for bit.  The arithmetic
+// first occluder.  K9's and K10's worklist rows are the union over a
+// whole tile, 126-541 groups a query, so they walk each chunk's 16 groups
+// of 8 with shadow.cuh: the warp's bundle, then each ray, test the groups'
+// boxes, widened for the ray by a bound of tri_t's error that its
+// triangles' normals narrow for rays far from grazing
+// (accel.normal_boxes), so a query visits the triangles of a few groups;
+// the occlusion is the same, so K9's answers and K10's colors equal the
+// walk over every listed triangle bit for bit.  A scene of a few groups
+// (render/chunked.py: FEW_GROUPS) takes no records, and the kernels then
+// fold every listed triangle, lane by lane.  The arithmetic
 // is common.cuh's, so the kernels agree with their plain versions
 // (raytpu_torch/render/plain.py) up to powf's last bit.
 
@@ -76,7 +80,7 @@ namespace {
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
-constexpr int kShadeBlock = 128;  // K10's threads a block: 4 warps
+constexpr int kShadeBlock = 128;  // K9's and K10's threads a block: 4 warps
 constexpr int kChunk = 128;
 constexpr int kSp = 5;    // sphere / plane record
 constexpr int kTr = 14;   // triangle record
@@ -98,29 +102,6 @@ __device__ __forceinline__ void stage_sp(float* sm, const float* sph_g, int S, c
     *sph = sph_g;
     *pln = pln_g;
   }
-}
-
-// Shadow any-hit of one query against every sphere and plane and the
-// chunks of worklist row `w` (`c` entries), triangle culling inverted,
-// stopping at the first occluder.
-__device__ __forceinline__ bool occluded(const float* sph, int S, const float* pln, int P,
-                                         const float* __restrict__ tri, int T,
-                                         const int* __restrict__ w, int c, float ox, float oy,
-                                         float oz, float dx, float dy, float dz, float tmin,
-                                         float mag) {
-  for (int s = 0; s < S; ++s)
-    if (sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY) return true;
-  for (int q = 0; q < P; ++q)
-    if (plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY) return true;
-  for (int e = 0; e < c; ++e) {
-    const int ch = w[e];
-    if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
-    const int k1 = min(ch * kChunk + kChunk, T);
-    for (int k = ch * kChunk; k < k1; ++k)
-      if (tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY)
-        return true;
-  }
-  return false;
 }
 
 __global__ void __launch_bounds__(kTile) chunked_min_t_kernel(
@@ -217,25 +198,63 @@ __global__ void __launch_bounds__(kTile) chunked_min_t_kernel(
   mat_out[rid] = (int)mat;
 }
 
-__global__ void __launch_bounds__(kTile) chunked_anyhit_kernel(
+// K9: one thread per (ray, light), blocks of kShadeBlock threads, kTile /
+// kShadeBlock blocks to a tile and one grid row per light.  Warp w of the
+// tile takes its rays w * 32 to w * 32 + 31: the callers feed row-major
+// rays (chunked.shade_rays, the stage profiler), of which these are 32
+// neighbours on one row (shadow_ablation.py measures warp_slot's 8x4
+// blocks against them; any permutation of a tile's rays gives the same
+// answers).  Spheres and planes first, then the (tile, light) worklist of
+// 128-triangle chunks: with the normal records (kWalk) shadow.cuh's walk,
+// each chunk expanded to its 16 groups, as K10; else every triangle of
+// every listed chunk, lane by lane.  Lanes past R vote and never write.
+// At most 64 registers a thread (8 blocks of 128 an SM): the walk's kernel
+// takes 84 at 4 blocks, and is 1.06-1.14x slower there (shadow_ablation.py).
+template <bool kWalk>
+__global__ void __launch_bounds__(kShadeBlock, 8) chunked_anyhit_kernel(
     const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
-    int R, int L, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, uint8_t* __restrict__ occ) {
+    int R, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin,
+    uint8_t* __restrict__ occ) {
   extern __shared__ float sm[];
   const float *sph, *pln;
   stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
-  for (int l = 0; l < L; ++l) {
-    const size_t lr = (size_t)l * R + rid;
-    const int row = tile * L + l;
-    occ[lr] = occluded(sph, S, pln, P, tri, T, wl + (size_t)row * wl_cols,
-                       min(cnt[row], wl_cols), ox, oy, oz, dirs[3 * lr], dirs[3 * lr + 1],
-                       dirs[3 * lr + 2], tmin, mags[lr]) ? 1 : 0;
+  constexpr int kBlocksPerTile = kTile / kShadeBlock;
+  const int L = gridDim.y, l = blockIdx.y;
+  const int tile = blockIdx.x / kBlocksPerTile;
+  const int warp = (blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rid = tile * kTile + warp * 32 + lane;
+  const bool valid = rid < R;
+  const size_t lr = (size_t)l * R + rid;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, mag = 0.0f;
+  bool hit = false;
+  if (valid) {
+    ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
+    dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
+    mag = mags[lr];
+    for (int s = 0; s < S && !hit; ++s)
+      hit = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY;
+    for (int q = 0; q < P && !hit; ++q)
+      hit = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, mag) < INFINITY;
   }
+  const int row = tile * L + l;
+  const int* w = wl + (size_t)row * wl_cols;
+  const int c = min(cnt[row], wl_cols);
+  if constexpr (kWalk) {
+    hit = shadow_walk<kTr, kNormalCols, kChunk / 8>(tri, T, boxes, w, c, valid && !hit, ox, oy,
+                                                    oz, dx, dy, dz, tmin, mag) || hit;
+  } else {
+    for (int e = 0; e < c && valid && !hit; ++e) {
+      const int ch = w[e];
+      if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+      const int k1 = min(ch * kChunk + kChunk, T);
+      for (int k = ch * kChunk; k < k1 && !hit; ++k)
+        hit = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, mag, true) < INFINITY;
+    }
+  }
+  if (valid) occ[lr] = hit ? 1 : 0;
 }
 
 // K10: one thread a ray, blocks of kShadeBlock threads, kTile / kShadeBlock
@@ -353,15 +372,23 @@ int raytpu_chunked_min_t(const float* ro, const float* rd, const float* tmax, in
 }
 
 // Launches K9 on `stream`.  p (R, 3), dirs (L, R, 3), mags (L, R) float32;
-// `wl` (nt, L, wl_cols) and `cnt` (nt, L) the per-light chunk worklists;
-// `occ` (L, R) bytes.  Returns cudaGetLastError() after the launch.
+// `boxes` (ceil(T/8), 32) the normal records (accel.normal_boxes), 16-byte
+// aligned, or null to test every listed triangle without box tests; `wl`
+// (nt, L, wl_cols) and `cnt` (nt, L) the per-light chunk worklists; `occ`
+// (L, R) bytes.  Returns cudaGetLastError() after the launch.
 int raytpu_chunked_anyhit_lights(const float* p, const float* dirs, const float* mags, int R,
                                  int L, const float* sph, int S, const float* pln, int P,
-                                 const float* tri, int T, const int* wl, const int* cnt,
-                                 int wl_cols, float ray_min, uint8_t* occ, void* stream) {
-  const int tiles = (R + kTile - 1) / kTile;
-  chunked_anyhit_kernel<<<tiles, kTile, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
-      p, dirs, mags, R, L, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, occ);
+                                 const float* tri, int T, const float* boxes, const int* wl,
+                                 const int* cnt, int wl_cols, float ray_min, uint8_t* occ,
+                                 void* stream) {
+  if (R == 0 || L == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((R + kTile - 1) / kTile * (kTile / kShadeBlock), L);
+  // without box records (a scene of a few groups, render/chunked.py): every
+  // listed triangle, at the walk's occupancy, where the box tests cost more
+  // than they skip
+  auto kernel = boxes ? chunked_anyhit_kernel<true> : chunked_anyhit_kernel<false>;
+  kernel<<<grid, kShadeBlock, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
+      p, dirs, mags, R, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, ray_min, occ);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
 // The group walk of the box-culled kernels: one warp's 32 rays against the
-// 8-triangle groups of their worklist row.  Six kernels walk it:
+// 8-triangle groups of their worklist row.  Eight kernels walk it:
 //
 //   K4 (packed.cu) and K11b (mega3.cu): any-hit toward one light,
 //     8-triangle groups, the 8-float box records (accel.shadow_boxes);
-//   K10 (chunked.cu): any-hit, 128-triangle chunks, each entry expanded to
-//     its 16 groups in ascending order, the 32-float normal records
-//     (accel.normal_boxes);
+//   K2b (mega2.cu): any-hit, 8-triangle groups, the 32-float normal
+//     records (accel.normal_boxes);
+//   K9 and K10 (chunked.cu): any-hit, 128-triangle chunks, each entry
+//     expanded to its 16 groups in ascending order, the normal records;
 //   K5 (soft.cu): the soft transmittance, 8-triangle groups, the normal
 //     records padded for the sigmoid's support (normal_boxes(soft_beta=...));
 //   K3 (packed.cu) and K11a (mega3.cu): the closest hit, 8-triangle
@@ -389,10 +390,12 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
   }
 }
 
-// K4's and K11b's any-hit walk over 8-triangle groups with the 8-float box
-// records: whether a triangle occludes this lane's segment [tmin, mag)
-// (false for a lane that is not live).
-template <int kRec>
+// The any-hit walk: whether a triangle occludes this lane's segment [tmin,
+// mag) (false for a lane that is not live).  K4 and K11b: 8-triangle groups,
+// the 8-float box records (the defaults); K2b: 8-triangle groups, the
+// normal records (kNormalCols); K9: 128-triangle chunks (kExpand 16), the
+// normal records.
+template <int kRec, int kCols = kBoxCols, int kExpand = 1>
 __device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T,
                                             const float* __restrict__ boxes,
                                             const int* __restrict__ w, int c, bool live,
@@ -400,7 +403,7 @@ __device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T
                                             float dz, float tmin, float mag) {
   AnyHitVisit<kRec> visit{ox, oy, oz, dx, dy, dz, tmin, mag};
   const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
-  group_walk<kRec, kBoxCols, 1>(tri, T, boxes, w, c, live, o, d, mag, visit);
+  group_walk<kRec, kCols, kExpand>(tri, T, boxes, w, c, live, o, d, mag, visit);
   return visit.occ;
 }
 

@@ -10,7 +10,10 @@ The kernels are ``csrc/mega2.cu``:
   * the glue here builds each light's shadow worklists from those boxes
     (``accel.light_shadow_cull_from_aabb``), O(tiles) work;
   * K2b (``mega2_shade``): the culled shadow any-hit per light, shading,
-    shadow dim and tone map, into the (H, W, 3) image.
+    shadow dim and tone map, into the (H, W, 3) image; its shadow queries
+    walk the groups of their worklist rows with ``csrc/shadow.cuh``'s box
+    tests and the normal records of ``accel.normal_boxes``, computed once a
+    frame with the group bounds that both worklist builders take.
 
 A tile is 1024 rays: a 32x32 pixel block when W and H are multiples of 32,
 else 1024 consecutive row-major pixels (``accel.tile_pixels``).  Given
@@ -33,6 +36,7 @@ from raytpu_torch.render import build, plain
 
 TILE = 1024
 ACC_ROWS = 11  #: t, normal(3), material(7)
+MAX_LIGHTS = 32  #: K2b keeps each light's shadow answer in one bit of a word
 
 #: Launches of K2a and of K2b, counted where the wrappers launch them.
 MEGA2_CLOSEST_LAUNCHES = 0
@@ -72,12 +76,13 @@ def render_image_mega2_f32(scene: Scene, config: RenderConfig, tile0: int | None
     _check(config)
     tile0 = tile0 or 0
     buf, counts = plain.mega_pack(scene, config)
-    wl, cnt = primary_worklists(scene, config, tile0, tiles)
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)  # once: both culls and K2b
+    wl, cnt = primary_worklists(scene, config, tile0, tiles, (glo, ghi))
     acc, bounds = mega2_closest(buf, counts, wl, cnt, config, tile0, tiles)
     if counts[3] == 0:  # no lights: black (W1)
         return black(config, tiles, buf.device)
-    wl_s, cnt_s = shadow_worklists(scene, config, bounds)
-    return mega2_shade(buf, counts, wl_s, cnt_s, acc, config, tile0, tiles)
+    wl_s, cnt_s = shadow_worklists(scene, config, bounds, (glo, ghi))
+    return mega2_shade(buf, counts, boxes, wl_s, cnt_s, acc, config, tile0, tiles)
 
 
 def take_tiles(wl, cnt, tile0: int, tiles: int | None):
@@ -97,8 +102,8 @@ def primary_worklists(scene: Scene, config: RenderConfig, tile0: int = 0,
     """K2a's (and K11a's) worklists ``(wl (nt, ng) int32, cnt (nt,) int32)``:
     each tile's groups that its camera rays may hit, in ascending order; a
     tile range's rows with ``tiles`` set.  ``group_bounds`` is
-    ``accel.chunk_bounds(scene.triangles, accel.GROUP)`` where the caller
-    has it."""
+    ``accel.chunk_bounds(scene.triangles, accel.GROUP)`` (the first two of
+    ``accel.normal_boxes``) where the caller has it."""
     if not accel.culls_groups(scene.triangles):
         return take_tiles(*accel.full_worklist(num_tiles(config), scene.triangles), tile0, tiles)
     glo, ghi = group_bounds or accel.chunk_bounds(scene.triangles, accel.GROUP)
@@ -168,32 +173,37 @@ def mega2_closest(buf, counts, wl, cnt, config: RenderConfig, tile0: int = 0,
     return acc, bounds
 
 
-def mega2_shade(buf, counts, wl, cnt, acc, config: RenderConfig, tile0: int = 0,
+def mega2_shade(buf, counts, boxes, wl, cnt, acc, config: RenderConfig, tile0: int = 0,
                 tiles: int | None = None):
     """K2b -> (H, W, 3) float32, or with ``tiles`` set the range's
-    (tiles * 1024, 3) in feed order.  ``wl`` (nt, L, n) int32 and ``cnt``
-    (nt, L) int32 are the shadow worklists, ``acc`` is K2a's.  A CPU buffer
-    takes ``mega2_shade_plain``."""
+    (tiles * 1024, 3) in feed order.  ``boxes`` (ceil(T/8), 32) float32 are
+    the normal records (``accel.normal_boxes``) each shadow ray tests before
+    a group's triangles, ``wl`` (nt, L, n) int32 and ``cnt`` (nt, L) int32
+    the shadow worklists, ``acc`` K2a's.  A CPU buffer takes
+    ``mega2_shade_plain``, which needs no boxes."""
     global MEGA2_SHADE_LAUNCHES
     if buf.device.type == "cpu":
         return mega2_shade_plain(buf, counts, acc, config, tile0, tiles)
     _check(config)
     S, P, T, L = counts
+    if L > MAX_LIGHTS:
+        raise ValueError(f"K2b takes <= {MAX_LIGHTS} lights, got {L}")
     nt = num_tiles(config) if tiles is None else tiles
     build.check_tensors("K2b", buf.device, {
         "scene buffer": (buf, torch.float32, _buf_shape(counts)),
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS)),
         "wl": (wl, torch.int32, (nt, L, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt, L)),
         "acc": (acc, torch.float32, (ACC_ROWS, nt * TILE))})
+    build.check_aligned("K2b", "boxes", boxes, 16)
     out = torch.empty(frame_shape(config, tiles), dtype=torch.float32, device=buf.device)
     lib = build.load()
     with torch.cuda.device(buf.device):
         err = lib.raytpu_mega2_shade(
-            buf.data_ptr(), S, P, T, L, wl.data_ptr(), cnt.data_ptr(), wl.shape[2], config.width,
-            config.height, int(is_tiled(config)), tile0, nt, int(tiles is not None),
-            int(config.lighting_mode),
-            int(bool(config.shadows)), float(config.ray_min), float(config.normal_offset),
-            float(config.shadow_dim), acc.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            buf.data_ptr(), S, P, T, L, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
+            wl.shape[2], config.width, config.height, int(is_tiled(config)), tile0, nt,
+            int(tiles is not None), int(config.lighting_mode), int(bool(config.shadows)),
+            float(config.ray_min), float(config.normal_offset), float(config.shadow_dim),
+            acc.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2b launch failed: {build.cuda_error_name(lib, err)}")
     MEGA2_SHADE_LAUNCHES += 1

@@ -1,30 +1,38 @@
-"""The group walk's kernels K4, K10, K5, K3 and K11a on one CUDA card with
-parts of their design taken out: what each part of the walk
+"""The group walk's kernels K4, K10, K5, K3, K11a, K9 and K2b on one CUDA
+card with parts of their design taken out: what each part of the walk
 (raytpu_torch/render/csrc/shadow.cuh) buys.
 
-    python3 shadow_ablation.py       # prints one JSON line
+    python3 shadow_ablation.py               # prints one JSON line
+    python3 shadow_ablation.py --kernels K9  # only K9's cases and variants
 
 Each variant is the kernels' sources built with one change to shadow.cuh,
-packed.cu, chunked.cu, soft.cu or mega3.cu (nvcc, the package's flags, one
-library per variant under raytpu_torch/_build/ablation, all compiled at
-once).  The kernels run on frame 0 at 640x480, their inputs formed as
-chip_smoke.py phase 4 forms them: K4 on the shadow queries of bunny50k and
-bunny300k, K10 on those of optional_l12, bunny18k_l12 and reference_s106
-(the chunked route), K5 on the soft shadow queries of optional, bunny50k
-and bunny300k, K3 on the camera rays of bunny50k and bunny300k (the packed
-route's), K11a on the frames of optional, bunny50k and bunny300k (the
-mega3 route's); each is timed with CUDA events (REPEATS runs of ITERS
-launches), and each variant's answer (K4's and K5's (L, R), K10's (R, 3)
-colors, K3's (t, idx, normal, material), K11a's buffer and tile boxes)
-must equal the design's bit for bit, and the design's the package
-wrapper's on the same inputs (``packed.any_hit_lights``,
-``chunked.shadow_shade``, ``soft.soft_trans_lights_cuda``,
-``packed.winner_search``, ``mega3.mega3_closest``):
+packed.cu, chunked.cu, soft.cu, mega3.cu or mega2.cu (nvcc, the package's
+flags, one library per variant under raytpu_torch/_build/ablation, all
+compiled at once).  The kernels run on frame 0 at 640x480, their inputs
+formed as chip_smoke.py phase 4 forms them: K4 on the shadow queries of
+bunny50k and bunny300k, K10 on those of optional_l12, bunny18k_l12 and
+reference_s106 (the chunked route), K5 on the soft shadow queries of
+optional, bunny50k and bunny300k, K3 on the camera rays of bunny50k and
+bunny300k (the packed route's), K11a on the frames of optional, bunny50k
+and bunny300k (the mega3 route's), K9 on the shadow queries of
+optional_l12 and bunny18k_l12, of the camera rays in 32x32 blocks (as
+K10's) and row-major ("rows", ``chunked.shade_rays``' order), K2b on
+K2a's buffer of bunny and optional (the mega2 route's), K9 also on the
+folded queries of reference_s106 (no records: the few-groups kernel);
+each is timed
+with CUDA events (REPEATS runs of ITERS launches), and each variant's
+answer (K4's, K9's and K5's (L, R), K10's (R, 3) colors, K3's (t, idx,
+normal, material), K11a's buffer and tile boxes, K2b's image) must equal
+the design's bit for bit, and the design's the package wrapper's on the
+same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
+``soft.soft_trans_lights_cuda``, ``packed.winner_search``,
+``mega3.mega3_closest``, ``chunked.any_hit_lights``,
+``mega2.mega2_shade``):
 
   design        the kernels as committed;
   no_bundle     (K4) no test of the warp's bundle: every listed entry goes
                 to each ray's box test;
-  no_ray_box    (K4, K10, K5, K3, K11a) no per-ray box test: a warp visits
+  no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b) no per-ray box test: a warp visits
                 a group's triangles for every live lane wherever the
                 bundle test passes;
   no_boxes      (K4) neither test: every listed triangle, with the
@@ -33,11 +41,14 @@ wrapper's on the same inputs (``packed.any_hit_lights``,
   no_warp_exit  (K4) a warp walks its whole row even when every lane is
                 resolved;
   rows          (K4) each warp takes a row of 32 pixels, not an 8x4 block;
-  block1024     (K4, K10, K5, K3, K11a) one 1024-thread block per (tile,
-                light) (K4, K5) or per tile (K10, K3, K11a), not eight of
-                128;
-  kappa_records (K3, K11a) kappa's 8-float records (``packed.shadow_records``)
-                instead of the 32-float normal records;
+  warp_slot     (K9) each warp takes the 8x4 pixel block of warp_slot, not
+                32 consecutive rays;
+  block1024     (K4, K10, K5, K3, K11a, K9, K2b) one 1024-thread block per
+                (tile, light) (K4, K5, K9) or per tile (K10, K3, K11a,
+                K2b), not eight of 128;
+  kappa_records (K3, K11a, K9, K2b) kappa's 8-float records
+                (``packed.shadow_records``) instead of the 32-float normal
+                records;
   whole_line    (K3, K11a) each ray's box test on the whole line (mag =
                 inf), not on the segment up to its current closest hit;
   kappa         (K10, K5) the normal records' widening replaced by kappa's
@@ -45,11 +56,15 @@ wrapper's on the same inputs (``packed.any_hit_lights``,
                 normals taken out;
   no_pretest    (K10, K5) the normal records' tests without kappa's
                 cheaper test before them;
-  no_direct     (K10) a scene of a few groups (reference_s106) is given the
-                normal records too, so it takes the walk's kernel, not the
-                one that tests every listed triangle;
-  regs64        (K10, K5) at most 64 registers a thread (launch bounds of 8
-                blocks of 128 an SM, not 4).
+  no_direct     (K10, K9) a scene of a few groups (reference_s106) is given
+                the normal records too, so it takes the walk's kernel, not
+                the one that tests every listed triangle;
+  regs64        (K10, K5, K2b) at most 64 registers a thread (launch
+                bounds of 8 blocks of 128 an SM, not 4);
+  bounds4       (K9) launch bounds of 4 blocks of 128 an SM, not 8 (at most
+                128 registers a thread, not 64);
+  bounds2       (K9, K2b) launch bounds of 2 blocks of 128 an SM, not 8 or 4
+                (at most 255 registers a thread).
 
 Beside the kernels' times the line holds, per K10 and K5 scene, the
 milliseconds a frame or step spends building the records
@@ -77,22 +92,34 @@ REPEATS, ITERS = 3, 5
 K4_SCENES = ("bunny50k", "bunny300k")
 K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
 K5_SCENES = ("optional", "bunny50k", "bunny300k")
+#: K9's: each fixture's queries of camera rays in 32x32 blocks, and of
+#: row-major ones (" rows")
+K9_SCENES = ("optional_l12", "bunny18k_l12", "optional_l12 rows", "bunny18k_l12 rows",
+             "reference_s106")
+K2B_SCENES = ("bunny", "optional")
+K9_WALK = "shadow_walk<kTr, kNormalCols, kChunk / 8>"
+K2B_WALK = "shadow_walk<kTri, kNormalCols>"
+K9_BOUNDS = "__launch_bounds__(kShadeBlock, 8) chunked_anyhit_kernel"
+K2B_BOUNDS = "__launch_bounds__(kShadeBlock, 4) mega2_shade_kernel"
 RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d,\n"
            "                                                  seg_end(visit, mag));")
 BUNDLE = "cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);"
 CLOSEST_WALK = "group_walk<kRec, kNormalCols, 1>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);"
 #: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": ("K4 K10 K5 K3 K11a", []),
+    "design": ("K4 K10 K5 K3 K11a K9 K2b", []),
     "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
-    "no_ray_box": ("K4 K10 K5 K3 K11a", [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b",
+                   [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
     "no_boxes": ("K4", [("shadow.cuh", BUNDLE, "cand = true;"),
                         ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
     "no_warp_exit": ("K4", [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return;", "")]),
     "rows": ("K4", [("shadow.cuh",
                      "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
                      "return warp * 32 + lane;")]),
-    "block1024": ("K4 K10 K5 K3 K11a", [
+    "warp_slot": ("K9", [("chunked.cu", "const int rid = tile * kTile + warp * 32 + lane;",
+                          "const int rid = tile * kTile + warp_slot(warp, lane);")]),
+    "block1024": ("K4 K10 K5 K3 K11a K9 K2b", [
         ("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
         ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
          "__launch_bounds__(kBlock, 1) packed_anyhit_kernel"),
@@ -108,7 +135,10 @@ VARIANTS = {
          "__launch_bounds__(kShadeBlock, 1) chunked_shadow_shade_kernel"),
         ("soft.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
         ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
-         "__launch_bounds__(kBlock, 1) soft_trans_kernel")]),
+         "__launch_bounds__(kBlock, 1) soft_trans_kernel"),
+        ("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 1)")),
+        ("mega2.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
+        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 1)"))]),
     "kappa": ("K10 K5", [
         ("shadow.cuh", "widen_scaled(b, dd[0] + dd[1] + dd[2], ray_scale(b, rec, d), lo, hi);",
          "widen(b, dd[0] + dd[1] + dd[2], lo, hi);"),
@@ -117,40 +147,54 @@ VARIANTS = {
     "no_pretest": ("K10 K5", [
         ("shadow.cuh", "if (!seg_box<false>(b, rec, o, inv, d, mag)) return false;", ""),
         ("shadow.cuh", "if (!bundle_box<false>(q, b, rec)) return false;", "")]),
-    "no_direct": ("K10", []),  # the same library, given the normal records (k10_launcher)
-    # the launchers pass kappa's records to this variant (k3_launcher, k11a_launcher)
-    "kappa_records": ("K3 K11a", [("shadow.cuh", CLOSEST_WALK,
-                                   CLOSEST_WALK.replace("kNormalCols", "kBoxCols"))]),
+    # the same library, given the normal records (k10_launcher, k9_launcher)
+    "no_direct": ("K10 K9", []),
+    # the launchers pass kappa's records to this variant (k3_launcher,
+    # k11a_launcher, k9_launcher, k2b_launcher)
+    "kappa_records": ("K3 K11a K9 K2b", [
+        ("shadow.cuh", CLOSEST_WALK, CLOSEST_WALK.replace("kNormalCols", "kBoxCols")),
+        ("chunked.cu", K9_WALK, K9_WALK.replace("kNormalCols", "kBoxCols")),
+        ("mega2.cu", K2B_WALK, K2B_WALK.replace("kNormalCols", "kBoxCols"))]),
     "whole_line": ("K3 K11a", [("shadow.cuh", "    return visit.t;", "    return INFINITY;")]),
-    "regs64": ("K10 K5", [
+    "regs64": ("K10 K5 K2b", [
         ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
          "__launch_bounds__(kShadeBlock, 8) chunked_shadow_shade_kernel"),
         ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
-         "__launch_bounds__(kBlock, 8) soft_trans_kernel")]),
+         "__launch_bounds__(kBlock, 8) soft_trans_kernel"),
+        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 8)"))]),
+    "bounds4": ("K9", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 4)"))]),
+    "bounds2": ("K9 K2b", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
+                           ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 2)"))]),
 }
 #: each kernel's source and the kernel entry whose ptxas line is kept
 SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
            "K10": ("chunked.cu", "chunked_shadow_shade_kernelILb1E"),  # the walk's instance
            "K5": ("soft.cu", "soft_trans"),
            "K3": ("packed.cu", "packed_closest"),
-           "K11a": ("mega3.cu", "mega3_closest")}
+           "K11a": ("mega3.cu", "mega3_closest"),
+           "K9": ("chunked.cu", "chunked_anyhit_kernelILb1E"),  # the walk's instance
+           "K2b": ("mega2.cu", "mega2_shade")}
 K3_SCENES = ("bunny50k", "bunny300k")
 K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 
 
-def build_variants(out: Path) -> dict:
+def build_variants(out: Path, keys: list) -> dict:
     """{variant: (library path, {kernel: ptxas registers line})}, every
-    variant compiled at once, each from the sources of the kernels it
-    applies to."""
+    variant of the kernels ``keys`` compiled at once, each from the sources
+    of those of them it applies to."""
     from raytpu_torch.render import build
 
     csrc = REPO / "raytpu_torch" / "render" / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     procs = {}
-    for name, (kernels, patches) in VARIANTS.items():
+    for name, (applies, patches) in VARIANTS.items():
+        kernels = " ".join(k for k in applies.split() if k in keys)
+        if not kernels:
+            continue
         src = out / name
         src.mkdir(parents=True)
-        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu", "mega3.cu"):
+        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu", "mega3.cu",
+                  "mega2.cu"):
             shutil.copy(csrc / f, src / f)
         for f, old, new in patches:
             text = (src / f).read_text()
@@ -169,21 +213,24 @@ def build_variants(out: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         regs = {}
-        for k in kernels:
+        for k in kernels:  # ptxas's spill line and registers line of the kernel
             entry = next(i for i, ln in enumerate(lines)
                          if "Compiling entry" in ln and SOURCES[k][1] in ln)
-            regs[k] = next(ln.strip() for ln in lines[entry:] if "registers" in ln)
+            regs[k] = " | ".join(next(ln.strip() for ln in lines[entry:] if word in ln)
+                                 for word in ("spill", "registers"))
         libs[name] = (lib, regs)
     return libs
 
 
-def _frame_queries(scene, cfg, closest):
-    """Shadow queries ``(p, dirs, mags)`` of frame 0's folded camera rays
-    and the hit records ``closest(scene, ro, rd, tmin)`` gives."""
+def _frame_queries(scene, cfg, closest, fold=True):
+    """Shadow queries ``(p, dirs, mags)`` of frame 0's camera rays, folded
+    into 32x32 blocks or with ``fold`` False row-major, and the hit records
+    ``closest(scene, ro, rd, tmin)`` gives."""
     from raytpu_torch.render import packed, renderer
 
     ro, rd = renderer.generate_rays(scene.camera, cfg)
-    rd = packed.mega2_fold(rd, cfg.height, cfg.width)
+    if fold:
+        rd = packed.mega2_fold(rd, cfg.height, cfg.width)
     ro = ro.expand_as(rd).contiguous()
     rec = closest(scene, ro, rd, cfg.ray_min)
     return rd, rec, tuple(x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
@@ -359,6 +406,70 @@ def k11a_launcher(scene, cfg, dev):
     return torch.empty((n_acc + nt * 6,), dtype=torch.float32, device=dev), launch, None, want
 
 
+def k9_launcher(scene, cfg, dev, order="folded"):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K9 on the shadow queries of K8's hits of frame 0's camera rays, in
+    32x32 blocks or ``order`` "rows" row-major, with the inputs of
+    ``chunked.shadow_inputs``.  The variant kappa_records gets kappa's
+    records, no_direct the normal records on every scene."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import chunked, packed
+
+    _, _, (p, dirs, mags) = _frame_queries(scene, cfg, chunked.closest_hit_chunked,
+                                           fold=order != "rows")
+    boxes, wl, cnt = chunked.shadow_inputs(scene, p, dirs, mags, cfg.ray_min)
+    records = accel.normal_boxes(scene.triangles)[2]
+    kappa = packed.shadow_records(records)
+    sph, pln, tri = packed.soft_packs(scene)
+    L, R = dirs.shape[:2]
+
+    def launch(lib, out, variant):
+        b = {"kappa_records": kappa, "no_direct": records}.get(variant, boxes)
+        return lib.raytpu_chunked_anyhit_lights(
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), sph.shape[0],
+            pln.data_ptr(), pln.shape[0], tri.data_ptr(), tri.shape[0],
+            None if b is None else b.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    want = chunked.any_hit_lights(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, cfg.ray_min)
+    return torch.empty((L, R), dtype=torch.uint8, device=dev), launch, None, want.to(torch.uint8)
+
+
+def k2b_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K2b on K2a's buffer of the scene's frame 0, its inputs built as the
+    mega2 route builds them.  The variant kappa_records gets kappa's
+    records."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, packed, plain
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    S, P, T, L = counts
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    kappa = packed.shadow_records(boxes)
+    wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
+    acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+    wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi))
+    nt = wl_s.shape[0]
+
+    def launch(lib, out, variant):
+        b = kappa if variant == "kappa_records" else boxes
+        return lib.raytpu_mega2_shade(
+            buf.data_ptr(), S, P, T, L, b.data_ptr(), wl_s.data_ptr(), cnt_s.data_ptr(),
+            wl_s.shape[2], cfg.width, cfg.height, int(mega2.is_tiled(cfg)), 0, nt, 0,
+            int(cfg.lighting_mode), 1, float(cfg.ray_min), float(cfg.normal_offset),
+            float(cfg.shadow_dim), acc.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    want = mega2.mega2_shade(buf, counts, boxes, wl_s, cnt_s, acc, cfg)
+    return torch.empty_like(want), launch, None, want
+
+
 def glue_ms(records, inputs) -> dict:
     """The median ms of REPEATS timings of ITERS back-to-back calls of
     ``records()`` and of ``inputs()``."""
@@ -392,10 +503,19 @@ def _bind(lib_path: str, kernels: list):
         lib.raytpu_mega3_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr,
                                               c_ptr] + [c_int] * 6 + [c_float, c_float]
                                              + [c_ptr] * 5)
+    if "K9" in kernels:
+        lib.raytpu_chunked_anyhit_lights.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int] + sp_tri
+                                                     + [c_ptr, c_ptr, c_ptr, c_int, c_float,
+                                                        c_ptr, c_ptr])
+    if "K2b" in kernels:
+        lib.raytpu_mega2_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
+                                           + [c_int] * 9 + [c_float] * 3 + [c_ptr] * 3)
     return lib
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     from raytpu_torch.core import scenes
@@ -403,13 +523,18 @@ def main() -> int:
     from raytpu_torch.render import build
     from raytpu_torch.utils.profiling import device_ms
 
+    every = list(SOURCES)
+    ap = argparse.ArgumentParser(description="the group walk's kernels with parts taken out")
+    ap.add_argument("--kernels", nargs="+", choices=every, default=every,
+                    help="the kernels to build and time (default: all)")
+    keys = ap.parse_args(argv).kernels
     if not torch.cuda.is_available():
         print("shadow_ablation: this needs a CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
 
     dev = torch.device("cuda", 0)
-    libs = build_variants(build.BUILD_DIR / "ablation")
+    libs = build_variants(build.BUILD_DIR / "ablation", keys)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RenderConfig()
@@ -428,10 +553,14 @@ def main() -> int:
 
     for key, names, make in (("K4", K4_SCENES, k4_launcher), ("K10", K10_SCENES, k10_launcher),
                              ("K5", K5_SCENES, k5_launcher), ("K3", K3_SCENES, k3_launcher),
-                             ("K11a", K11A_SCENES, k11a_launcher)):
+                             ("K11a", K11A_SCENES, k11a_launcher),
+                             ("K9", K9_SCENES, k9_launcher), ("K2b", K2B_SCENES, k2b_launcher)):
+        if key not in keys:
+            continue
         variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
         for scene_name in names:
-            template, launch, glue, want = make(scene(scene_name), cfg, dev)
+            name, *order = scene_name.split()  # "rows": K9 on row-major queries
+            template, launch, glue, want = make(scene(name), cfg, dev, *order)
             answers, ms = {}, {}
             for name in variants:
                 lib, res = bound[name], template.clone()

@@ -249,9 +249,16 @@ def test_route_wrappers_refuse_what_the_kernels_do_not_take():
     cfg = RenderConfig(width=32, height=24)
     buf, counts = plain.mega_pack(scene, cfg)
     wl, cnt = mega2.primary_worklists(scene, cfg)
-    before = (mega2.MEGA2_CLOSEST_LAUNCHES, packed.PACKED_CLOSEST_LAUNCHES)
+    before = (mega2.MEGA2_CLOSEST_LAUNCHES, mega2.MEGA2_SHADE_LAUNCHES,
+              packed.PACKED_CLOSEST_LAUNCHES)
     with pytest.raises(ValueError, match="K2a runs on CUDA"):
         mega2.mega2_closest(buf.to("meta"), counts, wl.to("meta"), cnt.to("meta"), cfg)
+    records = accel.normal_boxes(scene.triangles)[2]
+    acc = torch.zeros((mega2.ACC_ROWS, mega2.num_tiles(cfg) * mega2.TILE))
+    wl_s, cnt_s = wl[:, None].expand(-1, counts[3], -1), cnt[:, None].expand(-1, counts[3])
+    with pytest.raises(ValueError, match="K2b runs on CUDA"):
+        mega2.mega2_shade(buf.to("meta"), counts, records.to("meta"), wl_s.to("meta"),
+                          cnt_s.to("meta"), acc.to("meta"), cfg)
     ro, rd = torch.zeros((4, 3)), torch.ones((4, 3))
     with pytest.raises(ValueError, match="K3 runs on CUDA"):
         packed.winner_search(ro.to("meta"), rd.to("meta"),
@@ -263,13 +270,16 @@ def test_route_wrappers_refuse_what_the_kernels_do_not_take():
     for route in (mega2.render_image_mega2_f32, packed.render_image_packed_f32):
         with pytest.raises(ValueError, match="hard shadows"):
             route(scene, RenderConfig(width=8, height=8, soft_shadows=True))
-    assert (mega2.MEGA2_CLOSEST_LAUNCHES, packed.PACKED_CLOSEST_LAUNCHES) == before
+    assert (mega2.MEGA2_CLOSEST_LAUNCHES, mega2.MEGA2_SHADE_LAUNCHES,
+            packed.PACKED_CLOSEST_LAUNCHES) == before
 
 
 @pytest.mark.cuda
 def test_big_mesh_kernels_match_plain_versions_on_the_card():
-    """K2a + K2b, K3 and K4 against their plain versions on a card, and the
-    tie-break through the kernels; run on a machine with a card with
+    """K2a + K2b, K3 and K4 against their plain versions on a card (K2b bit
+    for bit, and equal to its own launch over records that pass every
+    group), and the tie-break through the kernels; run on a machine with a
+    card with
     ``pytest -m cuda tests/test_torch_bigmesh.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -281,6 +291,18 @@ def test_big_mesh_kernels_match_plain_versions_on_the_card():
                                                                             before[1] + 1)
         ref = math3d.quantize_u8(mega2.render_image_mega2_f32_plain(bunny, cfg))
         _close(img.cpu().numpy(), ref.cpu().numpy())
+        # K2b on the walk: its plain version's image on K2a's buffer, and its
+        # own launch's over records that pass every group, bit for bit
+        buf, counts = plain.mega_pack(bunny, cfg)
+        glo, ghi, records = accel.normal_boxes(bunny.triangles)
+        wl, cnt = mega2.primary_worklists(bunny, cfg, group_bounds=(glo, ghi))
+        acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+        wl_s, cnt_s = mega2.shadow_worklists(bunny, cfg, bounds, (glo, ghi))
+        shaded = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg)
+        opened = accel.open_normal_boxes(records.shape[0], "cuda")
+        for want in (mega2.mega2_shade_plain(buf, counts, acc, cfg),
+                     mega2.mega2_shade(buf, counts, opened, wl_s, cnt_s, acc, cfg)):
+            assert torch.equal(shaded.view(torch.int32), want.view(torch.int32))
     scene = scenes.scene_bunny_subdiv(3, device="cuda")
     cfg = RenderConfig(width=64, height=32)
     ro, rd = renderer.generate_rays(scene.camera, cfg)

@@ -416,9 +416,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
               chunked.CHUNKED_SHADE_LAUNCHES)
     with pytest.raises(ValueError, match="K8 runs on CUDA"):
         chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, 1e-4, False)
-    with pytest.raises(ValueError, match="K9 runs on CUDA"):
-        chunked.any_hit_lights(ro, rd[None], torch.ones((1, 4), device="meta"), *blobs,
-                               wl[:, None], cnt[:, None], 1e-4)
+    boxes = accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), "meta")
+    for b in (None, boxes, boxes[:, :accel.BOX_COLS]):  # no records, the normal ones, kappa's
+        with pytest.raises(ValueError, match="K9 runs on CUDA"):
+            chunked.any_hit_lights(ro, rd[None], torch.ones((1, 4), device="meta"), *blobs, b,
+                                   wl[:, None], cnt[:, None], 1e-4)
     with pytest.raises(ValueError, match="hard shadows"):
         chunked.render_image_chunked_f32(scene, RenderConfig(width=8, height=8,
                                                              soft_shadows=True))
@@ -429,8 +431,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 def test_chunked_kernels_match_plain_versions_on_the_card():
     """K8 (both modes), K9 and K10 against their plain versions on a card,
-    each launched once per call, and K10 equal bit for bit to itself over
-    records that pass every listed group; run on a machine with a card with
+    each launched once per call, K9 equal to its plain version on every
+    (light, ray) pair, and K9 and K10 equal bit for bit to themselves over
+    records that pass every listed group (K9 also without records); run on
+    a machine with a card with
     ``pytest -m cuda tests/test_torch_chunked.py -p no:xdist``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -465,6 +469,14 @@ def test_chunked_kernels_match_plain_versions_on_the_card():
             occ = chunked.any_hit_lights_chunked(scene, p, dirs, mags, cfg.ray_min)
             occp = packed.any_hit_lights_plain(p, dirs, mags, *blobs, cfg.ray_min)
             assert (occ == occp).float().mean() >= 0.999
+            # K9 on the walk: every pair the plain version's, and its own
+            # launches over every listed triangle (no records; open records)
+            assert torch.equal(occ, occp)
+            boxes, wl, cnt = chunked.shadow_inputs(scene, p, dirs, mags, cfg.ray_min)
+            opened = accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), dev)
+            for b in (None, opened):
+                assert torch.equal(occ, chunked.any_hit_lights(p, dirs, mags, *blobs, b, wl, cnt,
+                                                               cfg.ray_min))
             colors = chunked.shadow_shade_chunked(scene, rec, rd, cfg)
             colors_p = plain.shadow_shade_plain(
                 rec.hit, rec.normal, rec.point, rec.material, rd, p, dirs, mags,
@@ -484,5 +496,5 @@ def test_chunked_kernels_match_plain_versions_on_the_card():
             assert torch.equal(got, chunked.shadow_shade(*args, every, wl, cnt, cfg))
             torch.cuda.synchronize()
             assert [chunked.CHUNKED_MIN_T_LAUNCHES, chunked.CHUNKED_ANYHIT_LAUNCHES,
-                    chunked.CHUNKED_SHADE_LAUNCHES] == [counts[0] + 3, counts[1] + 1,
+                    chunked.CHUNKED_SHADE_LAUNCHES] == [counts[0] + 3, counts[1] + 3,
                                                         counts[2] + 3]

@@ -310,7 +310,7 @@ def test_k11_matches_plain_versions_and_k2_on_the_card():
             img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
             assert (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES) == (
                 before[0] + 1, before[1] + 1)
-            assert torch.equal(img, mega2.mega2_shade(buf, counts, wl_s, cnt_s, acc, cfg))
+            assert torch.equal(img, mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg))
             ref = mega2.mega2_shade_plain(buf, counts, acc_p, cfg)
             _close(math3d.quantize_u8(img).cpu().numpy(), math3d.quantize_u8(ref).cpu().numpy())
             whole, flat = _whole_and_ranges(mega3.render_image_mega3_f32, scene, w, h, split=1)

@@ -1,7 +1,7 @@
 """The group-box tests of the group walk (``render/csrc/shadow.cuh``),
 through their torch twins in ``ops/accel.py``, for its four kinds of query
 and box record: kappa (``packed.shadow_records``, K4 and K11b), cone
-(``accel.normal_boxes``, K10's normal records), soft
+(``accel.normal_boxes``, the normal records of K10, K9 and K2b), soft
 (``accel.normal_boxes`` with beta, K5) and closest (K3's and K11a's
 ``accel.normal_boxes``, tested up to each ray's current closest hit).
 
@@ -48,7 +48,7 @@ import torch
 from raytpu_torch.core import scenes
 from raytpu_torch.core.types import RenderConfig, Triangles
 from raytpu_torch.ops import accel
-from raytpu_torch.render import chunked, packed, plain, renderer, soft
+from raytpu_torch.render import chunked, mega2, packed, plain, renderer, soft
 
 torch.set_num_threads(2)
 
@@ -58,6 +58,8 @@ BETA = RenderConfig().soft_beta
 #: K5's (soft), K3's and K11a's (closest: the normal records too, tested up
 #: to each ray's current closest hit)
 KINDS = ("kappa", "cone", "soft", "closest")
+#: the kinds whose worklists list 128-triangle chunks: K10's (cone) and K9's
+CHUNKED_KINDS = ("cone", "k9")
 #: the scene rays: camera rays at this size, each 1024-ray tile walking its
 #: closest-hit worklist
 SCENE_SIZE = (64, 48)
@@ -343,27 +345,44 @@ def _camera_rays(name, size=SCENE_SIZE, tiles=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_queries(name, size, tiles=None):
+def _tile_queries(name, size, tiles=None, misses=False):
     """``name``'s scene and the shadow queries ``(p, dirs, mags)`` of the
     packed route's camera rays at ``size`` in the 1024-ray ``tiles`` given,
     or in all (``_camera_rays``), the closest hit over the triangles their
-    worklists list.  Each kind's cases share them."""
+    worklists list.  Each kind's cases share them.  With ``misses`` (K9's
+    case; the registry scenes' rooms leave no camera ray without a hit) the
+    rays of the frame's top right corner, x >= 5/8 W and y < H/3, are taken
+    as misses, t = inf and no normal, as K8 reports them: their queries
+    start at the camera, as ``shade_rays``' do, and the warps on the
+    corner's left edge mix them with surface hits."""
     scene, ro, rd, wl, cnt = _camera_rays(name, size, tiles)
     cfg = RenderConfig(width=size[0], height=size[1])
     sph, pln, tri = packed.soft_packs(scene)
     ids = _listed(wl, cnt, tri.shape[0])
     t, _, normal, mat = packed.winner_search_plain(ro, rd, sph, pln, tri[ids], TMIN)
+    if misses:
+        pix = torch.arange(ro.shape[0])
+        miss = (pix % size[0] >= size[0] * 5 // 8) & (pix // size[0] < size[1] // 3)
+        t = torch.where(miss, plain.INF, t)
+        normal = torch.where(miss[:, None], 0.0, normal)
     rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
     return (scene, *renderer.shadow_query_inputs(scene, rec, cfg))
 
 
 def _worklists(scene, p, dirs, mags, kind, glo, ghi):
     """The queries' shadow worklists as each kind's kernel gets them: K4's
-    and K11b's of 8-triangle groups, K10's of 128-triangle chunks, K5's
-    soft ones."""
+    and K11b's of 8-triangle groups, K10's and K9's of 128-triangle chunks,
+    K5's soft ones, K2b's of 8-triangle groups from each tile's box of
+    shadow origins (``mega2.shadow_worklists``, the boxes as K2a forms
+    them)."""
     if kind == "soft":
         return soft.soft_worklists(scene, p, dirs, mags, TMIN, BETA, group_bounds=(glo, ghi))
-    group = chunked.CHUNK if kind == "cone" else accel.GROUP
+    if kind == "k2b":
+        assert p.shape[0] % 1024 == 0  # whole tiles
+        tiles = p.reshape(-1, 1024, 3)
+        return mega2.shadow_worklists(scene, RenderConfig(), torch.cat(
+            [tiles.amin(dim=1), tiles.amax(dim=1)], dim=1), (glo, ghi))
+    group = chunked.CHUNK if kind in CHUNKED_KINDS else accel.GROUP
     return packed.shadow_worklists(scene, p, dirs, mags, TMIN, group=group,
                                    group_bounds=(glo, ghi))
 
@@ -388,14 +407,17 @@ def _check_frame(name, size, kind, tiles=None, warps=range(32)):
     (the glue's cull is conservative).  Returns the (L, R) occlusion, or
     for the soft records whether a factor is not 1, False for the queries
     not checked."""
-    scene, p, dirs, mags = _tile_queries(name, size, tiles)
+    scene, p, dirs, mags = _tile_queries(name, size, tiles, misses=kind == "k9")
     sph, pln, tri = packed.soft_packs(scene)
     glo, ghi, boxes = _boxes(scene.triangles, kind)
     wl, cnt = _worklists(scene, p, dirs, mags, kind, glo, ghi)
-    group = chunked.CHUNK if kind == "cone" else accel.GROUP
+    group = chunked.CHUNK if kind in CHUNKED_KINDS else accel.GROUP
+    # the kernels' warps: K9's take 32 consecutive queries, the others'
+    # the 8x4 pixel blocks of warp_slot
+    slots = torch.arange(1024).reshape(32, 32) if kind == "k9" else accel.warp_slots()
     out = torch.zeros((dirs.shape[0], p.shape[0]), dtype=torch.bool)
     for ti in range(wl.shape[0]):
-        r = ti * 1024 + accel.warp_slots()[list(warps)].flatten()
+        r = ti * 1024 + slots[list(warps)].flatten()
         r = r[r < p.shape[0]]
         for li in range(dirs.shape[0]):
             ids = _listed(wl[ti, li], cnt[ti, li], tri.shape[0], group)
@@ -410,11 +432,15 @@ def _check_frame(name, size, kind, tiles=None, warps=range(32)):
 
 @pytest.mark.parametrize("name,kind", [("bunny", "kappa"), ("optional", "kappa"),
                                        ("bunny", "cone"), ("optional", "cone"),
-                                       ("bunny", "soft")])
+                                       ("bunny", "soft"), ("bunny", "k2b"), ("bunny", "k9")])
 def test_box_test_passes_every_hit_at_64x48(name, kind):
     """Every shadow query of the frame against every triangle its (tile,
     light) worklist lists, which K4 and K11b (kappa), K10 (cone, 128-triangle
-    chunks) and K5 (soft) walk."""
+    chunks) and K5 (soft) walk; and the normal records over K2b's worklists
+    of 8-triangle groups (k2b), and over K9's of 128-triangle chunks on the
+    frame's row-major queries with camera-origin misses, its warps 32
+    consecutive queries (k9): the twin of each walk's occlusion equals the
+    plain any-hit over every listed triangle, bit for bit."""
     got = _check_frame(name, (64, 48), kind)
     assert bool(got.any()) and not bool(got.all())
 
