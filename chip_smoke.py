@@ -16,12 +16,17 @@ Phases (each passes or raises; nothing is caught):
      K5, K6 and K7
      (the soft-shadow kernels) on the soft shadow queries of optional at
      640x480 (the main path's shapes), of optional with a light just above
-     its ceiling (so that g_mags is not zero) and of bunny50k at 160x128;
+     its ceiling (so that g_mags is not zero), of bunny50k at 160x128 and of
+     bunny300k at 64x64;
      and the autograd Function around them, with its sphere and plane
-     cotangents, against plain autograd on reference at 160x128; K8 (both
+     cotangents, against plain autograd on reference at 160x128 (K7 on the
+     gradient records also against its walk over records that pass every
+     group, and against itself run twice); K8 (both
      modes), K9 and K10 (the chunked route) on optional_l12 at 640x480 and
      on bunny18k_l12 and reference_s106 at 160x128 (K9 exactly, and equal to
-     its launches over every listed triangle), K9 on shade_rays' row-major
+     its launches over every listed triangle; K8's walks in both modes
+     equal, bit for bit, to its fold over every listed triangle and to its
+     walk over records that pass every group), K9 on shade_rays' row-major
      rays of optional_l12 at 640x480, and the route's 24-light boundary (24
      render, 25 raise); K11a and K11b (the streamed whole-frame
      route) on optional, bunny50k and bunny300k at 640x480 (every 10th tile)
@@ -80,7 +85,10 @@ Phases (each passes or raises; nothing is caught):
      chunks), the same two bounds and statistics, the bytes of the
      box-culled one counting only the triangles of the groups some query
      crosses and the listed groups' records (K9 also timed on row-major
-     rays);
+     rays); for K8, on the closest walk over 128-triangle chunks, K3's
+     bound and statistics; for K7, on the gradient walk, the triangles of
+     the groups whose gradient record the segment crosses, and K5's
+     statistics over the gradient records;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
@@ -165,8 +173,9 @@ SHARDED_KERNELS = {"reference_px": ["K1"], "bunny_px": ["K2a", "K2b"],
                    "optional_train": ["K3", "K5"]}
 #: the soft kernels' comparison cases: the main path's frame, optional
 #: with a light just above its ceiling (``far_light``), and the stress
-#: mesh's band, at sizes whose plain versions take seconds
-SOFT_CMP = (("optional", (W, H)), ("optional_far_light", (160, 128)), ("bunny50k", (160, 128)))
+#: meshes' band, at sizes whose plain versions take seconds
+SOFT_CMP = (("optional", (W, H)), ("optional_far_light", (160, 128)), ("bunny50k", (160, 128)),
+            ("bunny300k", (64, 64)))
 #: the autograd Function against plain autograd of the eager transmittance:
 #: a scene of spheres, planes and triangles, and one whose shadow rays
 #: cross a plane (its plane cotangents are not zero)
@@ -683,14 +692,18 @@ def _rel_err(a, b) -> float:
 
 def phase_compare_soft(dev, built: dict) -> dict:
     """K5, K6 and K7 against their plain versions on the soft shadow queries
-    of optional at 640x480 (the main path's shapes) and bunny50k at
-    160x128, with a random cotangent.  Each kernel launches on the whole
-    frame; K5 and K6 are checked on every CMP_TILE_STRIDE-th tile, K7 (a sum
+    of optional at 640x480 (the main path's shapes), bunny50k at 160x128
+    and bunny300k at 64x64, with a random cotangent.  Each kernel launches
+    on the whole frame; K5 and K6 are checked on every CMP_TILE_STRIDE-th
+    tile, K7 (a sum
     over every ray) against its plain version over every ray.  K5 must be
     within 1e-5, K6 and K7 within 1e-4 of each output's largest magnitude;
     K7 launches twice, to show how far its atomic sums move between runs.
     K5 must equal itself bit for bit over records that pass every listed
-    group (its soft box tests skip only factors of exactly 1)."""
+    group (its soft box tests skip only factors of exactly 1), and K7 on the
+    gradient records (``soft.grad_boxes``) its walk over such records within
+    1e-4 of the largest (its box tests skip only partials of exactly 0; the
+    order of its atomic sums changes)."""
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.ops import accel
     from raytpu_torch.render import packed, soft
@@ -714,8 +727,12 @@ def phase_compare_soft(dev, built: dict) -> dict:
                                  f"{int((trans != every).sum())} (light, ray) pairs")
         g = torch.rand(trans.shape, generator=gen, device=dev) * 2.0 - 1.0
         ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta)
-        prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta)
-        prim2 = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta)
+        grad_boxes = soft.grad_boxes(scene, beta)
+        prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta, grad_boxes)
+        prim2 = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
+                                grad_boxes)
+        prim_every = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
+                                     accel.open_normal_boxes(grad_boxes.shape[0], dev))
         sub = _cmp_rays(p.shape[0], dev)
         ps, ds, ms, gs, ts = (p[sub].contiguous(), dirs[:, sub].contiguous(),
                               mags[:, sub].contiguous(), g[:, sub].contiguous(),
@@ -738,16 +755,19 @@ def phase_compare_soft(dev, built: dict) -> dict:
                         (ray[0][sub], ray[1][:, sub], ray[2][:, sub]), ray_p))),
                 "K7": (float((prim - prim_p).abs().max()), _rel_err(prim, prim_p))}
         run_to_run = float((prim - prim2).abs().max())
+        vs_every = _rel_err(prim, prim_every)
         g_mags_max = float(ray_p[2].abs().max())
         print(f"phase 2: K5-K7 {name} {w}x{h}, (L, R) {tuple(trans.shape)}, {sub.numel()} rays "
               f"checked for K5 and K6, all for K7: K5 max|diff| {errs['K5'][0]:.3e}, equal bit "
               f"for bit to its walk over every listed group; K6 max|diff| "
               f"{errs['K6'][0]:.3e} ({errs['K6'][1]:.3e} of the largest, g_mags max "
               f"{g_mags_max:.3e}); K7 max|diff| {errs['K7'][0]:.3e} ({errs['K7'][1]:.3e} of the "
-              f"largest), run to run {run_to_run:.3e}; transmittance < 1 on "
+              f"largest), run to run {run_to_run:.3e}, against its walk over every listed "
+              f"group {vs_every:.3e} of the largest; transmittance < 1 on "
               f"{float((trans < 1.0).float().mean()):.4f} of pairs; plain K5+K6 {t1 - t0:.1f}s, "
               f"plain K7 {t2 - t1:.1f}s", flush=True)
-        if errs["K5"][0] > 1e-5 or errs["K6"][1] > 1e-4 or errs["K7"][1] > 1e-4:
+        if (errs["K5"][0] > 1e-5 or errs["K6"][1] > 1e-4 or errs["K7"][1] > 1e-4
+                or vs_every > 1e-4):
             raise AssertionError(f"soft kernels {name} {w}x{h} disagree with their plain versions: "
                                  f"{errs}")
         if name.endswith("far_light") and not g_mags_max > 0.0:
@@ -854,7 +874,8 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         ro, rd = _folded_rays(scene, cfg)
         R, L = rd.shape[0], scene.lights.count
         sub = _cmp_rays(R, dev)
-        t, idx, normal, mat = chunked.scene_min_t(scene, ro, rd, tmin)
+        records = chunked.frame_records(scene)
+        t, idx, normal, mat = chunked.scene_min_t(scene, ro, rd, tmin, records=records)
         tp, idxp, normalp, matp = plain.chunked_min_t_plain(ro[sub], rd[sub], None, *blobs, tmin,
                                                             False)
         torch.cuda.synchronize()
@@ -869,7 +890,9 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
         p_off, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
         t_s, *_ = chunked.scene_min_t(scene, p_off.repeat(L, 1), dirs.reshape(-1, 3), tmin,
-                                      mags.reshape(-1), shadow=True)
+                                      mags.reshape(-1), shadow=True, records=records)
+        k8_same = _k8_walks_equal(scene, records, ro, rd, (t, idx, normal, mat), p_off, dirs,
+                                  mags, t_s, tmin)
         sub_s = (torch.arange(L, device=dev)[:, None] * R + sub[None, :]).reshape(-1)
         tp_s, *_ = plain.chunked_min_t_plain(p_off.repeat(L, 1)[sub_s], dirs.reshape(-1, 3)[sub_s],
                                              mags.reshape(-1)[sub_s], *blobs, tmin, True)
@@ -911,7 +934,8 @@ def phase_compare_chunked(dev, built: dict) -> dict:
         print(f"phase 2: K8 {name} {w}x{h} ({sub.numel()} of {R} rays checked): winners agree "
               f"{agree:.6f}, max|t diff| {t_diff:.3e} (rel {t_rel:.3e}), max|normal diff| "
               f"{n_diff:.3e}; shadow mode on {L} x {sub.numel()} queries: first occluders agree "
-              f"{s_agree:.6f} (max|t diff| {s_diff:.3e}); K9 on {tuple(occ.shape)} (L, R): "
+              f"{s_agree:.6f} (max|t diff| {s_diff:.3e}); {k8_same}; "
+              f"K9 on {tuple(occ.shape)} (L, R): "
               f"{k9_flip:.6f} of pairs differ, occluded share {float(occp.float().mean()):.4f}, "
               f"equal to its launches over every listed triangle; "
               f"K10 max|f32 diff| {k10_diff:.3e} flips {flips:.5f} mean {mean:.5f}, equal bit "
@@ -969,6 +993,35 @@ def phase_compare_chunked(dev, built: dict) -> dict:
           f"{float(img.float().mean()):.2f}; with 25: ValueError ({refused[0]}; {refused[1]})",
           flush=True)
     return out
+
+
+def _k8_walks_equal(scene, records, ro, rd, closest, p_off, dirs, mags, t_s, tmin) -> str:
+    """K8's answers of the route (``closest``, the closest mode's (t, idx,
+    normal, material) of ``ro``, ``rd``, and ``t_s``, the shadow mode's t of
+    every light's queries flattened) against its launches on the same
+    worklists over every listed triangle: without records (the fold) and
+    over records that pass every group (the walk).  Raises unless every
+    word is equal."""
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import chunked, packed
+
+    blobs = packed.soft_packs(scene)
+    bounds = None if records is None else records[:2]
+    L = dirs.shape[0]
+    ps, ds, ms = p_off.repeat(L, 1), dirs.reshape(-1, 3), mags.reshape(-1).contiguous()
+    wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group=chunked.CHUNK,
+                                       group_bounds=bounds)
+    wl_s, cnt_s = packed.closest_worklists(scene, ps, ds, tmin, ms, group=chunked.CHUNK,
+                                           group_bounds=bounds)
+    opened = accel.open_normal_boxes(-(-blobs[2].shape[0] // accel.GROUP), rd.device)
+    for b in (None, opened):
+        got = chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False, b)
+        got_s = chunked.chunked_min_t(ps, ds, ms, *blobs, wl_s, cnt_s, tmin, True, b)[0]
+        if not (all(_same_bits(a, c) for a, c in zip(got, closest)) and _same_bits(got_s, t_s)):
+            raise AssertionError(f"K8 {'without records' if b is None else 'over open records'}:"
+                                 f" its answers differ from the route's")
+    return ("K8 both modes equal, bit for bit, to its fold over every listed triangle and its "
+            "walk over open records" + ("" if records else " (no records: the fold)"))
 
 
 def _k9_every(p, dirs, mags, blobs, boxes, wl, cnt, tmin) -> list:
@@ -1744,12 +1797,14 @@ def shadow_box_stats(p, dirs, mags, queried, wl, cnt, boxes, T: int, occ, S: int
     return out
 
 
-def closest_box_stats(ro, rd, t_final, queried, wl, cnt, boxes, T: int) -> dict:
+def closest_box_stats(ro, rd, t_final, queried, wl, cnt, boxes, T: int, chunk: int = 8) -> dict:
     """What the closest walk's box tests leave of each tile's worklist, for
-    K3's or K11a's rays: ``ro``, ``rd`` (R, 3) in tile order, ``t_final``
-    (R,) their closest hits (inf on a miss), ``queried`` (R,) the rays the
-    kernel answers, ``wl`` (nt, n) and ``cnt`` (nt,) the worklists,
-    ``boxes`` the walk's records.  Per ray: groups listed; groups whose
+    K3's, K11a's or K8's rays: ``ro``, ``rd`` (R, 3) in tile order,
+    ``t_final`` (R,) their closest hits (inf on a miss), ``queried`` (R,)
+    the rays the kernel answers, ``wl`` (nt, n) and ``cnt`` (nt,) the
+    worklists, of 8-triangle groups or, with ``chunk`` = 128, of chunks
+    that the walk expands to their 16 groups (K8), ``boxes`` the walk's
+    records.  Per ray: groups listed; groups whose
     record, widened for the ray (``accel.segment_box_test``), its segment
     [0, t_final] crosses, and the triangles in them; groups that its whole
     line (mag = inf) crosses; the union of the former over each of the
@@ -1766,7 +1821,7 @@ def closest_box_stats(ro, rd, t_final, queried, wl, cnt, boxes, T: int) -> dict:
 
     R, dev = rd.shape[0], rd.device
     nt, step = -(-R // 1024), 2
-    ng = boxes.shape[0]
+    ng, k_exp = boxes.shape[0], chunk // accel.GROUP
     group_tris = _group_tris(T, dev)
     slots = accel.warp_slots(dev).flatten()
     inv = accel.inv_dir(rd)
@@ -1787,9 +1842,9 @@ def closest_box_stats(ro, rd, t_final, queried, wl, cnt, boxes, T: int) -> dict:
         q = tiles(queried, False)
         if cmax == 0:
             continue
-        e = torch.arange(cmax, device=dev)
-        g = wl[t0:t1, :cmax].long()
-        used = (e < c[:, None]) & (g >= 0) & (g < ng)
+        e = torch.arange(cmax * k_exp, device=dev)
+        g = wl[t0:t1, :cmax].long().repeat_interleave(k_exp, dim=1) * k_exp + e % k_exp
+        used = (e // k_exp < c[:, None]) & (g >= 0) & (g < ng)
         g = torch.where(used, g, 0)
         keep = used[:, None, :] & q[..., None]
         o, iv, d = tiles(ro, 0.0), tiles(inv, 1.0), tiles(rd, 0.0)
@@ -2077,8 +2132,8 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     queries' worklists (K5's box-culled, with the soft records: every
     sphere and plane, and each triangle of each group whose soft-padded box
     the segment crosses, with the count of every listed triangle beside
-    it); the plain versions' times on the same whole frame when
-    ``plain``."""
+    it; K7's likewise with the gradient records, no sphere or plane); the
+    plain versions' times on the same whole frame when ``plain``."""
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.render import packed, soft
     from raytpu_torch.utils.profiling import device_ms
@@ -2092,6 +2147,7 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     L, R = mags.shape
     trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
     boxes = soft.soft_boxes(scene, p, dirs, mags, tmin, beta)[0]
+    grad_boxes = soft.grad_boxes(scene, beta)
     g = torch.rand(trans.shape, generator=torch.Generator(device=dev).manual_seed(2),
                    device=dev) * 2.0 - 1.0
     calls = {
@@ -2100,7 +2156,8 @@ def time_soft(dev, built: dict, name: str, plain: bool):
                lambda: soft.soft_trans_plain(p, dirs, mags, *blobs, tmin, beta)),
         "K6": (lambda: soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta),
                lambda: soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, tmin, beta)),
-        "K7": (lambda: soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta),
+        "K7": (lambda: soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
+                                       grad_boxes),
                lambda: soft.soft_dprim_plain(p, dirs, mags, g, trans, blobs[2], tmin, beta))}
     nt = cnt.shape[0]
     tile_rays = torch.full((nt,), 1024.0, dtype=torch.float64, device=dev)
@@ -2114,6 +2171,12 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     stats = shadow_box_stats(p, dirs, mags, every, wl, cnt, boxes, T, None, S, P, soft_ops=(
         OPS_SOFT_SPHERE + OPS_SOFT_MUL, OPS_SOFT_PLANE + OPS_SOFT_MUL, OPS_SOFT_TRI + OPS_SOFT_MUL))
     _print_box_stats("K5", name, stats)
+    # K7's box-culled count: the triangles of each group whose gradient
+    # record's padded box the segment crosses, tri_soft's operations each
+    # (its gradient arithmetic, only where the sigmoid is live, not counted)
+    stats7 = shadow_box_stats(p, dirs, mags, every, wl, cnt, grad_boxes, T, None, S, P,
+                              soft_ops=(0, 0, OPS_SOFT_TRI))
+    _print_box_stats("K7", name, stats7)
     bounds = {
         "K5": _box_bound(sum(st["ops"] for st in stats),
                          sp_ops + L * R * (S + P) * OPS_SOFT_MUL
@@ -2121,8 +2184,10 @@ def time_soft(dev, built: dict, name: str, plain: bool):
                          rays_in + blob_bytes + boxes.numel() * 4 + wl_bytes + L * R * 4, stats),
         "K6": _bound(sp_ops + tests * OPS_SOFT_TRI,
                      rays_in + L * R * 8 + blob_bytes + wl_bytes + R * 12 + L * R * 16),
-        "K7": _bound(tests * OPS_SOFT_TRI,
-                     rays_in + L * R * 8 + T * 14 * 4 + wl_bytes + T * 9 * 4)}
+        "K7": _box_bound(sum(st["ops"] for st in stats7), tests * OPS_SOFT_TRI,
+                         rays_in + L * R * 8 + T * 14 * 4 + grad_boxes.numel() * 4 + wl_bytes
+                         + T * 9 * 4, stats7,
+                         rays_in + L * R * 8 + T * 14 * 4 + wl_bytes + T * 9 * 4)}
     out = {"tests_per_query": tests / (L * R), "queries": L * R}
     for key, (kernel, plain_fn) in calls.items():
         ms = device_ms(kernel, iters=5, warmup=1)
@@ -2190,10 +2255,12 @@ def time_chunked(dev, built: dict, name: str):
             out["K10"]["plain_ms"] = device_ms(
                 lambda: plain.shadow_shade_plain(*k10_args, cfg), 1, 0)
             continue
-        wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group=chunked.CHUNK)
-        boxes, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin)
-        ms8 = device_ms(lambda: chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False),
-                        iters=20, warmup=2)
+        records = chunked.frame_records(scene)  # as the route builds them
+        wl, cnt = packed.closest_worklists(scene, ro, rd, tmin, group=chunked.CHUNK,
+                                           group_bounds=None if records is None else records[:2])
+        boxes, wl_s, cnt_s = chunked.shadow_inputs(scene, p_off, dirs, mags, tmin, records)
+        ms8 = device_ms(lambda: chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, tmin, False,
+                                                      boxes), iters=20, warmup=2)
         occ = chunked.any_hit_lights(p_off, dirs, mags, *blobs, boxes, wl_s, cnt_s, tmin)
         ms9_folded = device_ms(lambda: chunked.any_hit_lights(p_off, dirs, mags, *blobs, boxes,
                                                               wl_s, cnt_s, tmin),
@@ -2231,7 +2298,18 @@ def time_chunked(dev, built: dict, name: str):
         bytes10 = (R * (1 + 12 + 12 + 4 + 12 + 12) + L * R * 16 + lights.numel() * 4
                    + mats.numel() * 4 + blob_bytes + wl_s_bytes + R * 12)
         size = f"{CHUNKED_PLAIN_SIZE[0]}x{CHUNKED_PLAIN_SIZE[1]}"
-        out["K8"] = {"ms": ms8, "plain_size": size, **_bound(ops8, bytes8)}
+        if boxes is None:  # a scene of a few groups: K8 tests every listed triangle
+            out["K8"] = {"ms": ms8, "plain_size": size, **_bound(ops8, bytes8)}
+        else:  # K8's closest walk over the chunks' groups, bounded as K3's
+            st8 = closest_box_stats(ro, rd, rec.t, torch.ones((R,), dtype=torch.bool, device=dev),
+                                    wl, cnt, boxes, T, chunk=chunked.CHUNK)
+            _print_closest_stats("K8", name, st8)
+            bytes8_box = (bytes8 - blobs[2].numel() * 4
+                          + st8["crossed_group_tris"] * blobs[2].shape[1] * 4
+                          + st8["listed_groups"] * boxes.shape[1] * 4)
+            out["K8"] = {"ms": ms8, "plain_size": size,
+                         **_box_bound(R * (S * OPS_SPHERE + P * OPS_PLANE) + st8["tris"] * OPS_TRI,
+                                      ops8, bytes8_box, [st8], bytes8 + boxes.numel() * 4)}
         if boxes is None:  # a scene of a few groups: K9 and K10 test every listed triangle
             out["K9"] = {"ms": ms9, "plain_size": size, **_bound(ops9, bytes9)}
             out["K10"] = {"ms": ms10, "plain_size": size, **_bound(ops10, bytes10)}

@@ -3,7 +3,7 @@ and the shadow-walk kernels' times and answers, for comparing two trees of
 the repo on one CUDA card.
 
     python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
-    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3, K11a, K9 and K2b answers in DIR
+    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3, K11a, K9, K2b, K8, K7 answers
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
@@ -17,7 +17,9 @@ HtoD`` activities of one frame: each copies from pageable host memory and
 so waits for every kernel queued before it.  Then it times optional's
 material train step at 640x480 (chip_smoke.py's first grad path: SGD,
 payload_grad True) on the host clock to a synchronize, STEPS steps REPEATS
-times, and one warm call of each of chip_smoke.py's sharded cases in
+times, and its light and mesh step (chip_smoke.py's third grad path, the one
+that runs K6 and K7) LIGHT_MESH_STEPS steps REPEATS times, with the device's
+busy ms of one profiled step, and one warm call of each of chip_smoke.py's sharded cases in
 SHARDED_WALL on two ranks sharing the card.  Last, on frame 0 of bunny50k and bunny300k at 640x480, it times K4
 (``packed.any_hit_lights``, on the shadow queries of K3's hits) and K11b
 (``mega3.mega3_shade``, on K11a's buffer) alone, REPEATS runs of KERNEL_ITERS
@@ -36,16 +38,24 @@ bunny300k (K3_SCENES), saving its (t, idx, normal, material); and K11a
 (``chunked.any_hit_lights``) on the shadow queries of K8's hits of
 optional_l12, bunny18k_l12 and reference_s106, of the camera rays in 32x32
 blocks and, for the first two, row-major (``chunked.shade_rays``' order)
-(K9_SCENES), saving its (L, R) answer; and K2b (``mega2.mega2_shade``) on
-K2a's buffer of bunny and optional (K2B_SCENES), saving its image.  Each
-wrapper is called with the box records where the tree's takes them, built
-as the tree's route builds them.
+(K9_SCENES), saving its (L, R) answer; K2b (``mega2.mega2_shade``) on
+K2a's buffer of bunny and optional (K2B_SCENES), saving its image; K8
+(``chunked.scene_min_t``) on the same camera rays as K9's queries (K8_SCENES),
+closest mode, and shadow mode on every light's shadow queries of its hits
+flattened into one batch, saving its (t, idx, normal, material) and the
+shadow mode's t; and K7 (``soft.soft_dprim``) on K5's queries, worklists
+and transmittance of optional, bunny50k and bunny300k (K7_SCENES) with a
+seeded random cotangent, saving its (T, 9) sums.  Each wrapper is called
+with the box records where the tree's takes them, built as the tree's
+route builds them.
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
 _work/parent``), then counts the (light, ray) pairs of K4, K5 and K9, the
-(pixel, channel) entries of K10 and K2b and the words of K3's and K11a's
-answers in which the trees' answers differ:
+(pixel, channel) entries of K10 and K2b and the words of K3's, K11a's and
+K8's answers in which the trees' answers differ, and for K7, whose atomic
+sums move in their last bits from run to run, the largest difference over
+the largest magnitude, which must stay within K7_TOL:
 
     for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
         --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
@@ -65,6 +75,7 @@ sys.path.insert(0, os.getcwd())
 
 REPEATS = 5
 STEPS = 8
+LIGHT_MESH_STEPS = 4
 #: K4's and K11b's launches per timed run
 KERNEL_ITERS = 5
 #: the scenes on which K4 and K11b are timed and K4's answers saved
@@ -83,6 +94,12 @@ K9_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106", "optional_l12 row
              "bunny18k_l12 rows")
 #: the scenes on which K2b is timed and its image saved
 K2B_SCENES = ("bunny", "optional")
+#: the chunked fixtures on which K8 is timed and its answers saved, as K9's
+K8_SCENES = K9_SCENES
+#: the scenes on which K7 is timed and its sums saved
+K7_SCENES = ("optional", "bunny50k", "bunny300k")
+#: K7's trees agree within this share of the largest magnitude
+K7_TOL = 1e-4
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -158,6 +175,10 @@ def main(argv=None) -> int:
             out[name]["h2d_per_frame"] = sum(e.count for e in prof.key_averages()
                                              if e.key.startswith("Memcpy HtoD"))
     out["optional_material_step_ms"] = _spread(_material_steps(built["optional"], dev))
+    if hasattr(cs, "_fit"):  # the light and mesh fit, the one step that runs K6 and K7
+        ms, busy = _light_mesh_steps(built["optional"], dev, cs)
+        out["optional_light_mesh_step_ms"] = _spread(ms)
+        out["optional_light_mesh_step_device_busy_ms"] = busy
     if hasattr(cs, "SHARDED_CASES"):
         out["sharded_wall_ms"] = _sharded(cs.SHARDED_CASES)
     for name in KERNEL_SCENES:
@@ -178,6 +199,13 @@ def main(argv=None) -> int:
                                                      rows=bool(order))
     for name in K2B_SCENES:
         out[name + "_K2b"] = _k2b(built[name], cfg, tree, name, args.out)
+    for key in K8_SCENES:
+        name, *order = key.split()
+        if name in built:
+            out["-".join(key.split()) + "_K8"] = _k8(built[name], cfg, tree, key, args.out,
+                                                     rows=bool(order))
+    for name in K7_SCENES:
+        out[name + "_K7"] = _k7(built[name], cfg, tree, name, args.out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -259,6 +287,83 @@ def _k9(scene, cfg, tree: str, name: str, outdir, rows: bool = False) -> dict:
                                        iters=KERNEL_ITERS, warmup=1) for _ in range(REPEATS)])}
     torch.cuda.synchronize()
     return {**res, **_save(outdir, "k9", name, tree, occ.to(torch.uint8), (p, dirs, mags))}
+
+
+def _k8(scene, cfg, tree: str, name: str, outdir, rows: bool = False) -> dict:
+    """K8's ms (REPEATS runs of KERNEL_ITERS launches) in both modes: the
+    closest mode on the scene's unanimated camera rays, in 32x32 blocks or
+    with ``rows`` row-major, and the shadow mode on every light's shadow
+    queries of its hits flattened into one batch, each with the worklists
+    (and the records, where the tree's K8 takes them) the tree's route
+    builds; its closest-mode words and shadow-mode t saved as one row."""
+    import torch
+
+    from raytpu_torch.render import chunked, packed, renderer
+    from raytpu_torch.utils.profiling import device_ms
+
+    W, H, tmin = cfg.width, cfg.height, cfg.ray_min
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    if not rows:
+        rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    rec = chunked.closest_hit_chunked(scene, ro, rd, tmin)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    L = dirs.shape[0]
+    ps, ds, ms = p.repeat(L, 1), dirs.reshape(-1, 3), mags.reshape(-1).contiguous()
+    blobs = packed.soft_packs(scene)
+    walks = "boxes" in inspect.signature(chunked.chunked_min_t).parameters
+    records = chunked.frame_records(scene) if walks else None
+    bounds = None if records is None else records[:2]
+    extra = [None if records is None else records[2]] if walks else []
+    calls = []
+    for o, d, tmax, shadow in ((ro, rd, None, False), (ps, ds, ms, True)):
+        wl, cnt = packed.closest_worklists(scene, o, d, tmin,
+                                           float("inf") if tmax is None else tmax,
+                                           group=chunked.CHUNK, group_bounds=bounds)
+        calls.append([o, d, tmax, *blobs, wl, cnt, tmin, shadow, *extra])
+    t, idx, normal, mat = chunked.chunked_min_t(*calls[0])
+    t_s = chunked.chunked_min_t(*calls[1])[0]
+    res = {f"K8_{mode}_ms": _spread([device_ms(lambda: chunked.chunked_min_t(*a),
+                                               iters=KERNEL_ITERS, warmup=1)
+                                     for _ in range(REPEATS)])
+           for mode, a in (("closest", calls[0]), ("shadow", calls[1]))}
+    torch.cuda.synchronize()
+    words = torch.cat([t, idx.view(torch.float32), normal.flatten(), mat.view(torch.float32),
+                       t_s])
+    return {**res, **_save(outdir, "k8", name, tree, words, (ro, rd, ps, ds, ms))}
+
+
+def _k7(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K7's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's soft
+    shadow queries at 640x480 as the differentiable path forms them, K5's
+    worklists and transmittance and a cotangent drawn from a seeded
+    generator, with the gradient records where the tree's K7 takes them;
+    its (T, 9) sums saved."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.render import packed, renderer, soft
+    from raytpu_torch.utils.profiling import device_ms
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    W, H, tmin, beta = cfg.width, cfg.height, cfg.ray_min, cfg.soft_beta
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    rd = packed.mega2_fold(rd, H, W)
+    ro = ro.expand_as(rd).contiguous()
+    t, _, normal, mat = packed.scene_min_t_mega2(scene, ro, rd, tmin)
+    rec = packed.hit_records_from_payload(ro, rd, t, normal, mat)
+    p, dirs, mags = (x.contiguous() for x in renderer.shadow_query_inputs(scene, rec, cfg))
+    trans, (blobs, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+    g = torch.rand(trans.shape, generator=torch.Generator(device=trans.device).manual_seed(2),
+                   device=trans.device) * 2.0 - 1.0
+    args = [p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta]
+    if "boxes" in inspect.signature(soft.soft_dprim).parameters:
+        args.append(soft.grad_boxes(scene, beta))
+    out = soft.soft_dprim(*args)
+    res = {"K7_ms": _spread([device_ms(lambda: soft.soft_dprim(*args), iters=KERNEL_ITERS,
+                                       warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "k7", name, tree, out, (p, dirs, mags, g, trans))}
 
 
 def _k2b(scene, cfg, tree: str, name: str, outdir) -> dict:
@@ -442,9 +547,10 @@ def compare(outdir: str) -> int:
     """Count the entries in which two trees' answers differ, kernel by
     kernel and scene by scene, from the files ``--out`` wrote: K4's, K5's
     and K9's (light, ray) pairs, K10's and K2b's (pixel, channel) entries,
-    K3's and K11a's words.
-    Non-zero unless every kernel and scene has both trees' answers, on the
-    same inputs, and none differ."""
+    K3's, K11a's and K8's words; for K7 also the largest difference over
+    the largest magnitude.  Non-zero unless every kernel and scene has both
+    trees' answers, on the same inputs, and none differ (K7: none beyond
+    K7_TOL of the largest)."""
     import glob
 
     import numpy as np
@@ -452,7 +558,7 @@ def compare(outdir: str) -> int:
     ok, out = True, {}
     for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES),
                           ("k3", K3_SCENES), ("k11a", K11A_SCENES), ("k9", K9_SCENES),
-                          ("k2b", K2B_SCENES)):
+                          ("k2b", K2B_SCENES), ("k8", K8_SCENES), ("k7", K7_SCENES)):
         for name in names:
             name = "-".join(name.split())  # "optional_l12 rows" -> optional_l12-rows
             prefix = os.path.join(outdir, f"{kernel}_{name}_")
@@ -473,9 +579,49 @@ def compare(outdir: str) -> int:
                 differ = int((a["x"].view(word) != b["x"].view(word)).sum())
             out[key] = {"trees": [ta, tb], "entries": entries, "entries_differ": differ,
                         "same_inputs": same_inputs}
+            if kernel == "k7":  # atomic sums: within K7_TOL of the largest
+                rel = float(np.abs(a["x"] - b["x"]).max()) / max(float(np.abs(b["x"]).max()), 1e-30)
+                out[key]["max_diff_over_largest"] = rel
+                ok = ok and same_inputs and rel <= K7_TOL
+                continue
             ok = ok and same_inputs and differ == 0
     print(json.dumps({"answers": out, "equal": ok}), flush=True)
     return 0 if ok else 1
+
+
+def _light_mesh_steps(scene, dev, cs) -> tuple:
+    """ms per step of REPEATS runs of LIGHT_MESH_STEPS light and mesh train
+    steps (``cs._fit``, the tree's chip_smoke.py), and the device's busy
+    ms in one more step under torch.profiler."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.grad import diff_render as dr
+
+    cfg = RenderConfig()
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    pick, merge = cs._fit("light+mesh")
+    params = dr.trainable(pick(scene))
+    step = dr.make_train_step(cfg, torch.optim.SGD(params.values(), lr=1e-1), merge,
+                              payload_grad=True)
+    step(params, scene, target)  # the first step, not counted
+    out = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LIGHT_MESH_STEPS):
+            step(params, scene, target)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / LIGHT_MESH_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, scene, target)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, busy
 
 
 def _material_steps(scene, dev) -> list:

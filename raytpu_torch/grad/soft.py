@@ -3,7 +3,8 @@
 Counterpart of ``raytpu/grad/soft.py``.  ``soft_trans_lights`` computes the
 (L, R) transmittance of the shadow rays.  With ``kernels=True`` it is a
 ``torch.autograd.Function``: the forward is K5 (``render/soft.py``), the
-backward K6 for the rays and K7 for the triangle vertices, and autograd of
+backward K6 for the rays and K7 for the triangle vertices (on the gradient
+records, ``soft.grad_boxes``, built once a backward), and autograd of
 the eager transmittance of a triangle-free scene for the spheres and planes
 (``_scene_cotangent``).  The backward computes only what its inputs need
 (``ctx.needs_input_grad``), as XLA's dead-code elimination prunes raytpu's:
@@ -71,7 +72,10 @@ class _SoftTrans(torch.autograd.Function):
             g_sp = _scene_cotangent(ctx.scene, need[6:10], tmin, beta, p, dirs, mags, g, trans)
         g_v = (None,) * 3
         if any(need[10:13]) and tri.shape[0]:
-            out = soft.soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta)
+            # the gradient records, built once a backward (the CPU's plain
+            # version needs none)
+            boxes = None if p.device.type == "cpu" else soft.grad_boxes(ctx.scene, beta)
+            out = soft.soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta, boxes)
             g_s, g_e1, g_e2 = out[:, 0:3], out[:, 3:6], out[:, 6:9]
             # e1 = v1 - v0, e2 = v2 - v0, s = p - v0 (pallas_soft.py:1820-1822)
             g_v = (-g_s - g_e1 - g_e2, g_e1, g_e2)

@@ -40,6 +40,10 @@ BIG = 3.0e38
 #: the soft sigmoid's tail is cut where beta * margin < -SOFT_SUPPORT, an
 #: occlusion below ~2e-9 (raytpu/render/pallas_soft.py:38)
 SOFT_SUPPORT = 20.0
+#: past beta * margin < -GRAD_SUPPORT the soft sigmoid and its derivative
+#: are exactly 0.0f in float32, so every partial of the soft VJP is
+#: (the gradient records, ``normal_boxes``; derived below)
+GRAD_SUPPORT = 90.0
 
 
 def spatial_permutation(tri_verts: np.ndarray) -> np.ndarray:
@@ -462,6 +466,23 @@ def shadow_boxes(glo, ghi, edge_product):
 # l).  So a group whose box, padded by (2m + 8u (1 + 2m)) l and widened as
 # above, the segment misses holds no triangle with a margin of -m or more:
 # every factor it would multiply in is exactly 1.0f.
+#
+# The gradient records (K7, and K6 next).  K5's records do not serve the
+# soft VJP: past K5's support occ is below 2^-25, so 1 - occ rounds to
+# 1.0f, but docc = beta sig (1 - sig) is still about beta e^-20, not 0.
+# A partial of K7 is 0.0f wherever docc is, and docc is 0.0f wherever
+# the gate is shut, sig reaches the clamp, or sig = 1 / (1 + expf(-beta
+# margin)) is exactly 0: where expf overflows, at -beta margin above
+# ln(FLT_MAX) = 88.7228.  CUDA's expf is within 2 ulp, which moves that
+# threshold by under 1e-6; the rounding of beta * margin moves it by a
+# relative u; w = 1 - u - v rounds by under 2u (1 + |u| + |v|), under
+# 1e-6 while |u|, |v| <= 1 + 2m.  With m = GRAD_SUPPORT / beta, 90 / beta,
+# a margin below -m gives -beta margin above 89.9 after its rounding,
+# where expf is inf on the card and on the CPU, and the 1.4% between 88.73
+# and 90 holds those roundings with room.  So the records padded as
+# above with this m leave out only groups whose every partial is exactly
+# 0.0f for the ray: a walk over them adds the same nonzero partials.  At
+# beta = 300, m = 0.3 and the pad is about 0.6 of the group's longest edge.
 
 #: twice the float32 unit roundoff: the least |determinant| tri_t accepts
 TWO_U = 2.0 ** -23
@@ -486,15 +507,18 @@ def merge_bounds(glo, ghi, k: int):
     return lo.reshape(-1, k, 3).amin(dim=1), hi.reshape(-1, k, 3).amax(dim=1)
 
 
-def normal_boxes(tris: Triangles, group: int = GROUP, soft_beta=None):
+def normal_boxes(tris: Triangles, group: int = GROUP, soft_beta=None,
+                 support: float = SOFT_SUPPORT):
     """``(glo, ghi, boxes)``: the group AABBs of ``chunk_bounds``, which the
     worklist culls take, and the normal records (ng, NORMAL_COLS) float32
     of K10 and K5: ``shadow_boxes``'s eight columns, then the group's
     triangles' normals e1 x e2 of their float32 edges, rounded to float32
-    (above).  With ``soft_beta`` (K5) each box is first padded by (2m + 8u
-    (1 + 2m)) l, m = SOFT_SUPPORT / beta and l the group's longest edge, so
-    that a segment that misses it meets no triangle whose soft factor
-    differs from 1.0f (above)."""
+    (above).  With ``soft_beta`` each box is first padded by (2m + 8u
+    (1 + 2m)) l, m = ``support`` / beta and l the group's longest edge:
+    with SOFT_SUPPORT (K5) a segment that misses it meets no triangle whose
+    soft factor differs from 1.0f, with GRAD_SUPPORT (K7, the gradient
+    records) none with a partial of the soft VJP other than 0.0f
+    (above)."""
     glo, ghi = chunk_bounds(tris, group)
     ng, T = glo.shape[0], tris.count
     # the records' float32 edges, the last triangle repeated past the end,
@@ -503,7 +527,7 @@ def normal_boxes(tris: Triangles, group: int = GROUP, soft_beta=None):
     e = (torch.stack([tris.v1, tris.v2]) - tris.v0)[:, last].double()
     length = torch.linalg.vector_norm(e, dim=2)
     if soft_beta is not None:
-        m = SOFT_SUPPORT / float(soft_beta)
+        m = float(support) / float(soft_beta)
         longest = torch.maximum(length.amax(dim=0), torch.linalg.vector_norm(e[1] - e[0], dim=1))
         pad = ((2.0 * m + 8.0 * 2.0 ** -24 * (1.0 + 2.0 * m)) * (1.0 + 2.0 ** -20)
                * longest.reshape(ng, group).amax(dim=1)).float()[:, None]

@@ -137,10 +137,14 @@ def load():
         lib.raytpu_soft_trans.restype = c_int
         lib.raytpu_soft_dray.argtypes = soft_in + sp_tri + soft_wl + [c_ptr] * 6
         lib.raytpu_soft_dray.restype = c_int
-        lib.raytpu_soft_dprim.argtypes = soft_in + [c_ptr, c_int] + soft_wl + [c_ptr] * 4
+        # ... triangles, T, boxes, wl, cnt, wl_cols, tmin, beta, g, trans, out, stream
+        lib.raytpu_soft_dprim.argtypes = soft_in + [c_ptr, c_int, c_ptr] + soft_wl + [c_ptr] * 4
         lib.raytpu_soft_dprim.restype = c_int
+        # ro, rd, tmax, R, ... boxes, wl, cnt, wl_cols, tmin, shadow, t, idx, normal,
+        # material, stream
         lib.raytpu_chunked_min_t.argtypes = ([c_ptr, c_ptr, c_ptr, c_int] + sp_tri
-                                             + [c_ptr, c_ptr, c_int, c_float, c_int] + [c_ptr] * 5)
+                                             + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_int]
+                                             + [c_ptr] * 5)
         lib.raytpu_chunked_min_t.restype = c_int
         # ... boxes, wl, cnt, wl_cols, tmin, occ, stream
         lib.raytpu_chunked_anyhit_lights.argtypes = (soft_in + sp_tri + [c_ptr, c_ptr, c_ptr, c_int,

@@ -34,13 +34,12 @@
 // scene under 256 triangles walks every chunk (raytpu's CULL_MIN_TRIS).
 //
 // A tile is 1024 consecutive rays (the route feeds camera rays in 32x32
-// pixel blocks, raytpu in 512-ray 16x32 blocks).  K8: one block of 1024
-// threads per tile, one thread per ray.  K9: eight blocks of 128 a (tile,
-// light), each warp on 32 consecutive rays, one thread per (ray, light).
-// K10: eight blocks of 128 a tile, each warp on an 8x4 pixel block.  K9's
-// and K10's shadow queries walk shadow.cuh's groups (below).  With the
-// strict < update a tie goes to the first primitive in sphere -> plane ->
-// triangle order.
+// pixel blocks, raytpu in 512-ray 16x32 blocks).  K8 and K10: eight blocks
+// of 128 a tile, one thread per ray, each warp on an 8x4 pixel block.  K9:
+// eight blocks of 128 a (tile, light), each warp on 32 consecutive rays,
+// one thread per (ray, light).  The three kernels walk shadow.cuh's groups
+// (below).  With the strict < update a tie goes to the first primitive in
+// sphere -> plane -> triangle order.
 //
 // What bounds it.  The work is FP32 arithmetic: ~50 operations for each
 // ray-triangle test that a worklist passes, ~15 for each sphere and plane,
@@ -57,14 +56,18 @@
 // the threads read them from device memory; triangles stay in device
 // memory, and all threads of a block read the same chunk at the same time,
 // which the cache serves as a broadcast.  A shadow query stops at its
-// first occluder.  K9's and K10's worklist rows are the union over a
-// whole tile, 126-541 groups a query, so they walk each chunk's 16 groups
-// of 8 with shadow.cuh: the warp's bundle, then each ray, test the groups'
+// first occluder.  The worklist rows are the union over a whole tile,
+// 126-541 groups a query, so the kernels walk each chunk's 16 groups of 8
+// with shadow.cuh: the warp's bundle, then each ray, test the groups'
 // boxes, widened for the ray by a bound of tri_t's error that its
 // triangles' normals narrow for rays far from grazing
-// (accel.normal_boxes), so a query visits the triangles of a few groups;
-// the occlusion is the same, so K9's answers and K10's colors equal the
-// walk over every listed triangle bit for bit.  A scene of a few groups
+// (accel.normal_boxes), so a query visits the triangles of a few groups.
+// K8's closest query tests them up to its current closest hit (the
+// closest walk), its shadow query up to tmax (the first-occluder walk);
+// the winners, first occluders and occlusions are the same, so K8's
+// answers, K9's and K10's equal the walk over every listed triangle bit
+// for bit.  One normal record build a frame serves K8's worklists, K8 and
+// K10 (render/chunked.py: frame_records).  A scene of a few groups
 // (render/chunked.py: FEW_GROUPS) takes no records, and the kernels then
 // fold every listed triangle, lane by lane.  The arithmetic
 // is common.cuh's, so the kernels agree with their plain versions
@@ -104,70 +107,108 @@ __device__ __forceinline__ void stage_sp(float* sm, const float* sph_g, int S, c
   }
 }
 
-__global__ void __launch_bounds__(kTile) chunked_min_t_kernel(
+// K8: one thread per ray, blocks of kShadeBlock threads, kTile /
+// kShadeBlock blocks to a tile; warp w of the tile takes the 8x4 pixel
+// block warp_slot(w, lane) of its 32x32 layout (one answer a ray: the
+// order of a tile's rays changes none; shadow_ablation.py measures 32
+// consecutive rays against it).  Spheres and planes first, then the tile's
+// worklist of 128-triangle chunks: with the normal records (kWalk)
+// shadow.cuh's walk, each chunk expanded to its 16 groups in ascending
+// order, the closest walk (kShadow false) or the first-occluder walk;
+// else every triangle of every listed chunk, lane by lane.  The closest
+// mode is unbounded (the wrapper refuses a tmax there); the shadow mode
+// takes [tmin, tmax[rid]), or [tmin, inf) without tmax.  Lanes past R vote
+// and never write.
+template <bool kWalk, bool kShadow>
+__global__ void __launch_bounds__(kShadeBlock, 4) chunked_min_t_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd, const float* __restrict__ tmax,
     int R, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, int shadow, float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ n_out, int* __restrict__ mat_out) {
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin,
+    float* __restrict__ t_out, int* __restrict__ idx_out, float* __restrict__ n_out,
+    int* __restrict__ mat_out) {
   extern __shared__ float sm[];
   const float *sph, *pln;
   stage_sp(sm, sph_g, S, pln_g, P, &sph, &pln);
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = ro[3 * rid], oy = ro[3 * rid + 1], oz = ro[3 * rid + 2];
-  const float dx = rd[3 * rid], dy = rd[3 * rid + 1], dz = rd[3 * rid + 2];
-  const float hi = tmax ? tmax[rid] : INFINITY;
+  constexpr int kBlocksPerTile = kTile / kShadeBlock;
+  const int tile = blockIdx.x / kBlocksPerTile;
+  const int warp = (blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rid = tile * kTile + warp_slot(warp, lane);
+  const bool valid = rid < R;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float hi = INFINITY;
+  if (valid) {
+    ox = ro[3 * rid], oy = ro[3 * rid + 1], oz = ro[3 * rid + 2];
+    dx = rd[3 * rid], dy = rd[3 * rid + 1], dz = rd[3 * rid + 2];
+    if (kShadow && tmax) hi = tmax[rid];
+  }
   const int* w = wl + (size_t)tile * wl_cols;
   const int c = min(cnt[tile], wl_cols);
 
-  if (shadow) {  // the first occluder's t in primitive order, or inf
+  if constexpr (kShadow) {  // the first occluder's t in primitive order, or inf
     float t = INFINITY;
-    for (int s = 0; s < S && t == INFINITY; ++s)
+    for (int s = 0; s < S && valid && t == INFINITY; ++s)
       t = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
-    for (int q = 0; q < P && t == INFINITY; ++q)
+    for (int q = 0; q < P && valid && t == INFINITY; ++q)
       t = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
-    for (int e = 0; e < c && t == INFINITY; ++e) {
-      const int ch = w[e];
-      if (ch < 0 || ch > (T - 1) / kChunk) continue;
-      const int k1 = min(ch * kChunk + kChunk, T);
-      for (int k = ch * kChunk; k < k1 && t == INFINITY; ++k)
-        t = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, hi, true);
+    if constexpr (kWalk) {
+      FirstHitVisit<kTr> visit{ox, oy, oz, dx, dy, dz, tmin, hi};
+      const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+      group_walk<kTr, kNormalCols, kChunk / 8>(tri, T, boxes, w, c, valid && t == INFINITY, o,
+                                               d, hi, visit);
+      if (t == INFINITY) t = visit.t;
+    } else {
+      for (int e = 0; e < c && valid && t == INFINITY; ++e) {
+        const int ch = w[e];
+        if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+        const int k1 = min(ch * kChunk + kChunk, T);
+        for (int k = ch * kChunk; k < k1 && t == INFINITY; ++k)
+          t = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, hi, true);
+      }
     }
-    t_out[rid] = t;
+    if (valid) t_out[rid] = t;
     return;
   }
 
   // strict < keeps the first primitive on ties
   float t = INFINITY;
   int idx = kMiss;
-  for (int s = 0; s < S; ++s) {
-    const float tc = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+  for (int s = 0; s < S && valid; ++s) {
+    const float tc = sphere_t(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, INFINITY);
     if (tc < t) {
       t = tc;
       idx = s;
     }
   }
-  for (int q = 0; q < P; ++q) {
-    const float tc = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, hi);
+  for (int q = 0; q < P && valid; ++q) {
+    const float tc = plane_t(pln + q * kSp, ox, oy, oz, dx, dy, dz, tmin, INFINITY);
     if (tc < t) {
       t = tc;
       idx = S + q;
     }
   }
-  for (int e = 0; e < c; ++e) {
-    const int ch = w[e];
-    if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
-    const int k1 = min(ch * kChunk + kChunk, T);
-    for (int k = ch * kChunk; k < k1; ++k) {
-      const float tc = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, hi, false);
-      if (tc < t) {
-        t = tc;
-        idx = S + P + k;
+  if constexpr (kWalk) {
+    ClosestVisit<kTr> visit{ox, oy, oz, dx, dy, dz, tmin, t};
+    closest_walk<kTr, kChunk / 8>(tri, T, boxes, w, c, valid, visit);
+    t = visit.t;
+    if (visit.k >= 0) idx = S + P + visit.k;
+  } else {
+    for (int e = 0; e < c && valid; ++e) {
+      const int ch = w[e];
+      if (ch < 0 || ch > (T - 1) / kChunk) continue;  // not a chunk of this scene
+      const int k1 = min(ch * kChunk + kChunk, T);
+      for (int k = ch * kChunk; k < k1; ++k) {
+        const float tc = tri_t(tri + (size_t)k * kTr, ox, oy, oz, dx, dy, dz, tmin, INFINITY,
+                               false);
+        if (tc < t) {
+          t = tc;
+          idx = S + P + k;
+        }
       }
     }
   }
+  if (!valid) return;
 
   // the winner's payload (pallas_kernel.py:_sphere_t_matrix and its kin)
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, mat = 0.0f;
@@ -355,18 +396,28 @@ size_t sp_smem(int S, int P) {
 extern "C" {
 
 // Launches K8 on `stream` over ceil(R/1024) tiles.  ro, rd (R, 3) float32;
-// `tmax` (R,) float32 or null for no bound; `wl` (nt, wl_cols) and `cnt`
-// (nt,) the tiles' chunk worklists; `shadow` selects the shadow mode, which
-// writes t_out (R,) only.  The closest mode writes t_out, idx_out (R,)
-// int32, n_out (R, 3) float32 and mat_out (R,) int32.  Returns
-// cudaGetLastError() after the launch.
+// `tmax` (R,) float32 or null for no bound, read in the shadow mode only;
+// `boxes` (ceil(T/8), 32) the normal records (accel.normal_boxes), 16-byte
+// aligned, or null to test every listed triangle without box tests; `wl`
+// (nt, wl_cols) and `cnt` (nt,) the tiles' chunk worklists; `shadow`
+// selects the shadow mode, which writes t_out (R,) only.  The closest mode
+// writes t_out, idx_out (R,) int32, n_out (R, 3) float32 and mat_out (R,)
+// int32.  Returns cudaGetLastError() after the launch.
 int raytpu_chunked_min_t(const float* ro, const float* rd, const float* tmax, int R,
                          const float* sph, int S, const float* pln, int P, const float* tri, int T,
-                         const int* wl, const int* cnt, int wl_cols, float ray_min, int shadow,
-                         float* t_out, int* idx_out, float* n_out, int* mat_out, void* stream) {
-  const int tiles = (R + kTile - 1) / kTile;
-  chunked_min_t_kernel<<<tiles, kTile, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
-      ro, rd, tmax, R, sph, S, pln, P, tri, T, wl, cnt, wl_cols, ray_min, shadow, t_out, idx_out,
+                         const float* boxes, const int* wl, const int* cnt, int wl_cols,
+                         float ray_min, int shadow, float* t_out, int* idx_out, float* n_out,
+                         int* mat_out, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  const int blocks = (R + kTile - 1) / kTile * (kTile / kShadeBlock);
+  // without box records (a scene of a few groups, render/chunked.py): every
+  // listed triangle, lane by lane
+  auto kernel = shadow ? (boxes ? chunked_min_t_kernel<true, true>
+                                : chunked_min_t_kernel<false, true>)
+                       : (boxes ? chunked_min_t_kernel<true, false>
+                                : chunked_min_t_kernel<false, false>);
+  kernel<<<blocks, kShadeBlock, sp_smem(S, P), static_cast<cudaStream_t>(stream)>>>(
+      ro, rd, tmax, R, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, ray_min, t_out, idx_out,
       n_out, mat_out);
   return static_cast<int>(cudaGetLastError());
 }

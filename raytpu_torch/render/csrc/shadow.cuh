@@ -1,5 +1,5 @@
 // The group walk of the box-culled kernels: one warp's 32 rays against the
-// 8-triangle groups of their worklist row.  Eight kernels walk it:
+// 8-triangle groups of their worklist row.  Ten kernels walk it:
 //
 //   K4 (packed.cu) and K11b (mega3.cu): any-hit toward one light,
 //     8-triangle groups, the 8-float box records (accel.shadow_boxes);
@@ -7,8 +7,15 @@
 //     records (accel.normal_boxes);
 //   K9 and K10 (chunked.cu): any-hit, 128-triangle chunks, each entry
 //     expanded to its 16 groups in ascending order, the normal records;
+//   K8 (chunked.cu): the closest hit, or in its shadow mode the first
+//     occluder's t (FirstHitVisit), 128-triangle chunks expanded as K9's,
+//     the normal records;
 //   K5 (soft.cu): the soft transmittance, 8-triangle groups, the normal
 //     records padded for the sigmoid's support (normal_boxes(soft_beta=...));
+//   K7 (soft.cu): the soft transmittance's gradient on the triangles,
+//     K5's worklists, the normal records padded for the gradient's support
+//     (normal_boxes(soft_beta=..., support=GRAD_SUPPORT)), its sums taken
+//     per warp after each group (a visit with kReduces);
 //   K3 (packed.cu) and K11a (mega3.cu): the closest hit, 8-triangle
 //     groups, the normal records (kappa's are 2.6-4.7x slower there:
 //     shadow_ablation.py).
@@ -31,8 +38,10 @@
 //
 // Both tests are conservative: neither rejects a group in which tri_t
 // reports a hit in [0, mag], nor, with the soft records, one holding a
-// triangle whose soft factor 1 - occ is not exactly 1.0f.  A box record is the group's
-// AABB padded by 1e-4 of its largest coordinate plus 1e-4, and two numbers
+// triangle whose soft factor 1 - occ is not exactly 1.0f, nor, with the
+// gradient records, one holding a triangle whose partials are not all
+// exactly 0.0f.  A box record is the group's AABB padded by 1e-4 of its
+// largest coordinate plus 1e-4, and two numbers
 // by which each ray widens it further: tri_t's float32 Cramer solve can
 // name a hit point as far as 13.2 |e1| |e2| |o - v0| off the segment when
 // the ray grazes the triangle's plane (ops/accel.py derives it), so the
@@ -70,6 +79,14 @@
 // visited, and the entries keep the row's ascending order with the strict
 // < update, so a tie still goes to the first primitive.  The walk returns
 // what the fold over every listed triangle returns, bit for bit.
+//
+// The first-occluder walk (FirstHitVisit) visits the groups in the row's
+// order and a group's triangles in order, and skips only groups holding no
+// hit of the segment, so the occluder it stops at is the first of the row
+// and its t equals the fold's bit for bit.  The gradient walk (K7) skips
+// only groups whose partials are all exactly 0.0f, so its sums add the
+// same nonzero partials as the walk over every listed group, in another
+// order (atomics: not bit for bit).
 //
 // An any-hit warp leaves the row as soon as every lane is resolved
 // (__all_sync over occluded, out of the frame or not queried), instead of
@@ -282,6 +299,7 @@ template <int kRec>
 struct AnyHitVisit {
   static constexpr bool kStops = true;  // a lane is resolved at its first occluder
   static constexpr bool kShrinks = false;
+  static constexpr bool kReduces = false;
   float ox, oy, oz, dx, dy, dz, tmin, mag;
   bool occ = false;
   __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
@@ -295,6 +313,22 @@ struct AnyHitVisit {
   __device__ __forceinline__ bool resolved() const { return occ; }
 };
 
+// The first-occluder visit (K8's shadow mode): as AnyHitVisit, keeping the
+// occluder's t, inf while none is found.
+template <int kRec>
+struct FirstHitVisit {
+  static constexpr bool kStops = true;
+  static constexpr bool kShrinks = false;
+  static constexpr bool kReduces = false;
+  float ox, oy, oz, dx, dy, dz, tmin, mag;
+  float t = INFINITY;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    for (int k = k0; k < k1 && t == INFINITY; ++k)
+      t = tri_t(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz, tmin, mag, true);
+  }
+  __device__ __forceinline__ bool resolved() const { return t < INFINITY; }
+};
+
 // The closest visit: tri_t on triangles [k0, k1) of the group, culling not
 // inverted, with the strict < update that keeps the first triangle on a
 // tie.  `t` starts at the spheres' and planes' winner; `k` is the winning
@@ -303,6 +337,7 @@ template <int kRec>
 struct ClosestVisit {
   static constexpr bool kStops = false;   // resolved only at the end of the row
   static constexpr bool kShrinks = true;  // the segment ends at the current t
+  static constexpr bool kReduces = false;
   float ox, oy, oz, dx, dy, dz, tmin, t;
   int k = -1;
   __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
@@ -332,8 +367,10 @@ __device__ __forceinline__ float seg_end(const Visit& visit, float mag) {
 // together.  kRec: floats a triangle record, v0 e1 e2 n cull first; kCols:
 // kBoxCols or kNormalCols; kExpand: groups an entry (1 for a list of groups,
 // 16 for a list of 128-triangle chunks); `visit` is called with each group
-// this lane's segment crosses, in the row's order (AnyHitVisit or
-// ClosestVisit above, or soft.cu's product).  `live`: this lane's ray is
+// this lane's segment crosses, in the row's order (AnyHitVisit,
+// FirstHitVisit or ClosestVisit above, or soft.cu's product and gradient),
+// and, where it has kReduces, its warp-collective reduce(tri, k0, k1) on
+// every lane after each group some lane visited.  `live`: this lane's ray is
 // queried and not yet resolved (occluded by a sphere or plane).  `mag`: the
 // segment's length, unless the visit shrinks it (seg_end).  boxes: (ceil(T/8), kCols)
 // records, 16-byte aligned; w: the row's `c` entries.
@@ -382,6 +419,8 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ tri, int T,
                                                   seg_end(visit, mag));
       if (!__any_sync(kFullWarp, pass)) continue;
       if (pass) visit(tri, gj * kGroupTris, min(gj * kGroupTris + kGroupTris, T));
+      if constexpr (Visit::kReduces) visit.reduce(tri, gj * kGroupTris,
+                                                  min(gj * kGroupTris + kGroupTris, T));
       if constexpr (Visit::kStops) {
         live = live && !visit.resolved();
         if (__all_sync(kFullWarp, !live)) return;  // every lane resolved
@@ -407,16 +446,17 @@ __device__ __forceinline__ bool shadow_walk(const float* __restrict__ tri, int T
   return visit.occ;
 }
 
-// K3's and K11a's closest walk over 8-triangle groups with the normal
-// records: the lane's closest triangle hit below `visit.t`, folded into
-// `visit` (t, k), for the lanes that are live (valid rays).
-template <int kRec>
+// The closest walk with the normal records: the lane's closest triangle
+// hit below `visit.t`, folded into `visit` (t, k), for the lanes that are
+// live (valid rays).  K3 and K11a: a list of 8-triangle groups (kExpand
+// 1); K8: of 128-triangle chunks (kExpand 16).
+template <int kRec, int kExpand = 1>
 __device__ __forceinline__ void closest_walk(const float* __restrict__ tri, int T,
                                              const float* __restrict__ boxes,
                                              const int* __restrict__ w, int c, bool live,
                                              ClosestVisit<kRec>& visit) {
   const float o[3] = {visit.ox, visit.oy, visit.oz}, d[3] = {visit.dx, visit.dy, visit.dz};
-  group_walk<kRec, kNormalCols, 1>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);
+  group_walk<kRec, kNormalCols, kExpand>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);
 }
 
 }  // namespace raytpu_dev

@@ -33,16 +33,20 @@
 // (accel.normal_boxes with beta), which hold no triangle whose factor 1 -
 // occ is not exactly 1.0f, and multiplies the rest in the row's order, so
 // its product equals the walk over every listed triangle bit for bit; it
-// never stops early.  K6 and K7: one block of 1024 threads per tile, one
-// thread per ray, every listed group.  K6 accumulates in registers and crosses
-// no rays.  K7 is the only reduction across rays: each block sums its
-// rays' partials for each listed triangle (warp shuffles, then shared
-// memory across the 32 warps, in a fixed order) and adds one value per
-// (triangle, component) into the float32 (T, 9) output with atomicAdd.
-// The order in which blocks add is the scheduler's, so K7's output varies
-// in its last bits from run to run: it is NOT deterministic (the TPU kernel
-// is; its grid runs in order).  The tests and chip_smoke.py compare it with
-// a tolerance for that.
+// never stops early.  K7: a thread per (ray, light) as K5, walking K5's
+// rows with the gradient records (accel.normal_boxes with beta and
+// GRAD_SUPPORT): each ray skips the groups whose record its segment
+// misses, which hold no triangle with a partial other than exactly 0.0f
+// (expf overflows there, so the sigmoid and its derivative are 0).  K7 is
+// the only reduction across rays: after each group some lane of a warp
+// visits, the warp sums its lanes' partials of each triangle with
+// shuffles and adds the sums into the float32 (T, 9) output with
+// atomicAdd, spread over its lanes.  The order in which warps add is the
+// scheduler's, so K7's output varies in its last bits from run to run: it
+// is NOT deterministic (the TPU kernel is; its grid runs in order).  The
+// tests and chip_smoke.py compare it with a tolerance for that.  K6: one
+// block of 1024 threads per tile, one thread per ray, every listed group;
+// it accumulates in registers and crosses no rays.
 //
 // Arithmetic: dot and cross products fused as fmaf chains (common.cuh,
 // raytpu_torch/core/math3d.py), IEEE expf, division and sqrtf, no other
@@ -55,10 +59,11 @@
 // sigmoid is live for K6 and K7; the bound is the card's FP32 rate
 // (chip_smoke.py counts the tests from the run's worklists).  What the
 // design does about it: the TPU's split between an SMEM launch chain and a
-// DMA-streamed kernel is a layout artifact, gone here; threads of a block
-// read the same triangle at the same time, which the cache broadcasts; K6
-// and K7 skip the gradient arithmetic where the sigmoid is not live, and
-// K7 skips a warp's shuffles where no lane has a partial.
+// DMA-streamed kernel is a layout artifact, gone here; K5 and K7 test
+// boxes before triangles (shadow.cuh); threads of a block read the same
+// triangle at the same time, which the cache broadcasts; K6 and K7 skip
+// the gradient arithmetic where the sigmoid is not live, and K7 skips a
+// warp's shuffles where no lane has a partial.
 
 #include <stdint.h>
 
@@ -71,7 +76,6 @@ using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
 constexpr int kBlock = 128;  // K5's threads a block: 4 warps
-constexpr int kWarps = kTile / 32;
 constexpr int kGroup = 8;
 constexpr int kSp = 5;   // sphere / plane record
 constexpr int kTr = 14;  // triangle record
@@ -199,6 +203,7 @@ template <int kRec>
 struct SoftVisit {
   static constexpr bool kStops = false;
   static constexpr bool kShrinks = false;
+  static constexpr bool kReduces = false;
   float ox, oy, oz, dx, dy, dz, tmin, mag, beta, tr;
   __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
     for (int k = k0; k < k1; ++k)
@@ -337,85 +342,104 @@ __global__ void __launch_bounds__(kTile) soft_dray_kernel(
   g_p[3 * rid + 2] = gpz;
 }
 
-__global__ void __launch_bounds__(kTile) soft_dprim_kernel(
-    const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
-    int R, int L, const float* __restrict__ tri, int T, const int* __restrict__ wl,
-    const int* __restrict__ cnt, int wl_cols, float tmin, float beta,
-    const float* __restrict__ gin, const float* __restrict__ trans, float* __restrict__ out) {
-  // each warp's sums for the 8 triangles x 9 components of the current group
-  __shared__ float red[kWarps][kGroup * 9];
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // rays past R take part in the reductions with zero partials
-  const bool live_ray = rid < R;
-  const int rr = live_ray ? rid : 0;
-  const float ox = p[3 * rr], oy = p[3 * rr + 1], oz = p[3 * rr + 2];
-  for (int l = 0; l < L; ++l) {
-    const size_t lr = (size_t)l * R + rr;
-    const float dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
-    const float mag = mags[lr];
-    const float gob = live_ray ? -gin[lr] * trans[lr] : 0.0f;
-    const int row = tile * L + l;
-    const int* w = wl + (size_t)row * wl_cols;
-    const int c = min(cnt[row], wl_cols);
-    for (int e = 0; e < c; ++e) {  // block-uniform: every thread walks the same list
-      const int g = w[e];
-      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-      for (int kk = 0; kk < kGroup; ++kk) {
-        const int k = g * kGroup + kk;
-        float part[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (k < T && live_ray) {
-          const float* kt = tri + (size_t)k * kTr;
-          const TriSoft r = tri_soft(kt, ox, oy, oz, dx, dy, dz, tmin, mag, beta);
-          if (r.docc != 0.0f) {
-            const float g_m = gob / (1.0f - r.occ) * r.docc;
-            float g_nu, g_nv, g_a;
-            tri_grad(r, g_m, &g_nu, &g_nv, &g_a);
-            float ax, ay, az, bx, by, bz;
-            cross3(kt[3], kt[4], kt[5], dx, dy, dz, &ax, &ay, &az);  // e1 x d
-            cross3(dx, dy, dz, r.sx, r.sy, r.sz, &bx, &by, &bz);     // d x s
-            part[0] = g_nu * r.hx + g_nv * ax;  // g_s
-            part[1] = g_nu * r.hy + g_nv * ay;
-            part[2] = g_nu * r.hz + g_nv * az;
-            part[3] = g_nv * bx + g_a * r.hx;  // g_e1 = g_Nv (d x s) + g_a h
-            part[4] = g_nv * by + g_a * r.hy;
-            part[5] = g_nv * bz + g_a * r.hz;
-            part[6] = -g_nu * bx + g_a * ax;  // g_e2 = g_Nu (s x d) + g_a (e1 x d)
-            part[7] = -g_nu * by + g_a * ay;
-            part[8] = -g_nu * bz + g_a * az;
-          }
-        }
-        const bool any = __any_sync(0xffffffffu, part[0] != 0.0f || part[1] != 0.0f ||
-                                                     part[2] != 0.0f || part[3] != 0.0f ||
-                                                     part[4] != 0.0f || part[5] != 0.0f ||
-                                                     part[6] != 0.0f || part[7] != 0.0f ||
-                                                     part[8] != 0.0f);
-        if (any) {
-#pragma unroll
-          for (int j = 0; j < 9; ++j) {
-            float v = part[j];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-            part[j] = v;
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < 9; ++j) red[warp][kk * 9 + j] = any ? part[j] : 0.0f;
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x < kGroup * 9) {
-        const int i = threadIdx.x;
-        float sum = 0.0f;
-        for (int q = 0; q < kWarps; ++q) sum += red[q][i];
-        const int k = g * kGroup + i / 9;
-        if (sum != 0.0f && k < T) atomicAdd(out + (size_t)k * 9 + i % 9, sum);
-      }
-      __syncthreads();
-    }
+// The nine partials [g_s, g_e1, g_e2] of triangle record `kt` for one
+// (ray, light), gob = -g * trans its constant part; all 0.0f where the
+// sigmoid's derivative is (the gate, the clamp, or expf's overflow past
+// accel.GRAD_SUPPORT).  Returns whether one of them is not 0.0f.
+__device__ __forceinline__ bool dprim_partials(const float* kt, float ox, float oy, float oz,
+                                               float dx, float dy, float dz, float tmin,
+                                               float mag, float beta, float gob, float* part) {
+  for (int j = 0; j < 9; ++j) part[j] = 0.0f;
+  const TriSoft r = tri_soft(kt, ox, oy, oz, dx, dy, dz, tmin, mag, beta);
+  if (r.docc == 0.0f) return false;
+  const float g_m = gob / (1.0f - r.occ) * r.docc;
+  float g_nu, g_nv, g_a;
+  tri_grad(r, g_m, &g_nu, &g_nv, &g_a);
+  float ax, ay, az, bx, by, bz;
+  cross3(kt[3], kt[4], kt[5], dx, dy, dz, &ax, &ay, &az);  // e1 x d
+  cross3(dx, dy, dz, r.sx, r.sy, r.sz, &bx, &by, &bz);     // d x s
+  part[0] = g_nu * r.hx + g_nv * ax;  // g_s
+  part[1] = g_nu * r.hy + g_nv * ay;
+  part[2] = g_nu * r.hz + g_nv * az;
+  part[3] = g_nv * bx + g_a * r.hx;  // g_e1 = g_Nv (d x s) + g_a h
+  part[4] = g_nv * by + g_a * r.hy;
+  part[5] = g_nv * bz + g_a * r.hz;
+  part[6] = -g_nu * bx + g_a * ax;  // g_e2 = g_Nu (s x d) + g_a (e1 x d)
+  part[7] = -g_nu * by + g_a * ay;
+  part[8] = -g_nu * bz + g_a * az;
+  bool any = false;
+  for (int j = 0; j < 9; ++j) any = any || part[j] != 0.0f;
+  return any;
+}
+
+// The gradient visit (K7): adds the partials of triangles [k0, k1) into
+// out (T, 9).  The visit marks the lane, and reduce, which group_walk
+// calls on every lane after the group, sums the warp's partials of each
+// triangle with shuffles where some lane has one, and spreads the group's
+// 72 atomics over the lanes (shadow_ablation.py's variant atomics, each
+// lane adding its own partials as it visits, took 1.87x as long on
+// optional on an H100).
+template <int kRec>
+struct GradVisit {
+  static constexpr bool kStops = false;
+  static constexpr bool kShrinks = false;
+  static constexpr bool kReduces = true;
+  float ox, oy, oz, dx, dy, dz, tmin, mag, beta, gob;
+  float* __restrict__ out;
+  bool pending = false;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    pending = true;  // reduce computes this lane's partials
   }
+  __device__ __forceinline__ void reduce(const float* __restrict__ tri, int k0, int k1) {
+    const int lane = threadIdx.x % 32;
+    for (int k = k0; k < k1; ++k) {  // k0, k1: the same on every lane
+      float part[9];
+      const bool nz = pending && dprim_partials(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz,
+                                                tmin, mag, beta, gob, part);
+      if (!__any_sync(kFullWarp, nz)) continue;
+      const int base = (k - k0) * 9;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        float x = nz ? part[j] : 0.0f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFullWarp, x, off);
+        if (lane == (base + j) % 32 && x != 0.0f) atomicAdd(out + (size_t)k * 9 + j, x);
+      }
+    }
+    pending = false;
+  }
+  __device__ __forceinline__ bool resolved() const { return false; }
+};
+
+// K7: one thread per (ray, light), a grid of (kTile / kBlock blocks a tile)
+// x lights, warp w of the tile on the 8x4 pixel block warp_slot(w, lane),
+// as K5.  The group walk over K5's (tile, light) worklist with the
+// gradient records: a lane skips only groups whose partials are all
+// exactly 0.0f for its ray, so the sums add every nonzero partial of the
+// walk over every listed group.  Lanes past R vote and never add.
+__global__ void __launch_bounds__(kBlock, 4) soft_dprim_kernel(
+    const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
+    int R, const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin, float beta,
+    const float* __restrict__ gin, const float* __restrict__ trans, float* __restrict__ out) {
+  const int L = gridDim.y, l = blockIdx.y;
+  const int tile = blockIdx.x / (kTile / kBlock);
+  const int warp = (blockIdx.x % (kTile / kBlock)) * (kBlock / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rid = tile * kTile + warp_slot(warp, lane);
+  const bool valid = rid < R;
+  const size_t lr = (size_t)l * R + rid;
+  GradVisit<kTr> v{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, tmin, 0.0f, beta, 0.0f, out};
+  if (valid) {
+    v.ox = p[3 * rid], v.oy = p[3 * rid + 1], v.oz = p[3 * rid + 2];
+    v.dx = dirs[3 * lr], v.dy = dirs[3 * lr + 1], v.dz = dirs[3 * lr + 2];
+    v.mag = mags[lr];
+    v.gob = -gin[lr] * trans[lr];  // d loss / d occ_j = gob / (1 - occ_j)
+  }
+  const int row = tile * L + l;
+  const float o[3] = {v.ox, v.oy, v.oz}, d[3] = {v.dx, v.dy, v.dz};
+  group_walk<kTr, kNormalCols, 1>(tri, T, boxes, wl + (size_t)row * wl_cols,
+                                  min(cnt[row], wl_cols), valid, o, d, v.mag, v);
 }
 
 }  // namespace
@@ -455,15 +479,20 @@ int raytpu_soft_dray(const float* p, const float* dirs, const float* mags, int R
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K7: adds each tile's [g_s, g_e1, g_e2] partials into `out` (T, 9)
-// float32, which the caller zeroes first.
+// Launches K7 on `stream` over ceil(R/1024) tiles x L lights: K5's inputs
+// (without spheres and planes) with `boxes` (ceil(T/8), 32) the gradient
+// records (accel.normal_boxes with beta and GRAD_SUPPORT), 16-byte
+// aligned, plus g and trans (L, R); adds the [g_s, g_e1, g_e2] partials
+// into `out` (T, 9) float32, which the caller zeroes first.
 int raytpu_soft_dprim(const float* p, const float* dirs, const float* mags, int R, int L,
-                      const float* tri, int T, const int* wl, const int* cnt, int wl_cols,
-                      float tmin, float beta, const float* g, const float* trans, float* out,
-                      void* stream) {
+                      const float* tri, int T, const float* boxes, const int* wl, const int* cnt,
+                      int wl_cols, float tmin, float beta, const float* g, const float* trans,
+                      float* out, void* stream) {
+  if (R == 0 || L == 0) return static_cast<int>(cudaSuccess);
   const int tiles = (R + kTile - 1) / kTile;
-  soft_dprim_kernel<<<tiles, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, dirs, mags, R, L, tri, T, wl, cnt, wl_cols, tmin, beta, g, trans, out);
+  const dim3 grid(tiles * (kTile / kBlock), L);
+  soft_dprim_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, dirs, mags, R, tri, T, boxes, wl, cnt, wl_cols, tmin, beta, g, trans, out);
   return static_cast<int>(cudaGetLastError());
 }
 

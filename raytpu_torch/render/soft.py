@@ -14,8 +14,9 @@ and their streamed forms).  The kernels are ``csrc/soft.cu``:
     over lights, ``g_dirs`` (L, R, 3) and ``g_mags`` (L, R);
   * K7 (``soft_dprim``): K5's VJP on the triangles, ``[g_s, g_e1, g_e2]``
     (T, 9) summed over rays and lights, with s = p - v0, e1 = v1 - v0 and
-    e2 = v2 - v0.  It sums with atomics, so its last bits vary from run to
-    run.
+    e2 = v2 - v0, each ray skipping the groups whose gradient record
+    (``grad_boxes``) its segment misses, all of whose partials are exactly
+    0.0f.  It sums with atomics, so its last bits vary from run to run.
 
 The worklists are K4's shadow culls over group boxes widened by the
 sigmoid's support (``soft_worklists``); the forward builds them once and
@@ -65,6 +66,13 @@ def soft_boxes(scene: Scene, p, dirs, mags, tmin, beta):
     ``(boxes, wl, cnt)``."""
     glo, ghi, boxes = accel.normal_boxes(scene.triangles, soft_beta=beta)
     return (boxes, *soft_worklists(scene, p, dirs, mags, tmin, beta, group_bounds=(glo, ghi)))
+
+
+def grad_boxes(scene: Scene, beta):
+    """K7's gradient records: ``accel.normal_boxes`` padded for the soft
+    VJP's support (``accel.GRAD_SUPPORT``: a segment that misses one meets
+    no triangle with a partial other than 0.0f)."""
+    return accel.normal_boxes(scene.triangles, soft_beta=beta, support=accel.GRAD_SUPPORT)[2]
 
 
 def soft_trans_lights_kernel(scene: Scene, p, dirs, mags, tmin, beta):
@@ -147,23 +155,32 @@ def soft_dray(p, dirs, mags, g, trans, sph, pln, tri, wl, cnt, tmin, beta):
     return g_p, g_dirs, g_mags
 
 
-def soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta):
+def soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta, boxes=None):
     """K7: the triangle side of K5's VJP -> (T, 9) ``[g_s, g_e1, g_e2]``
     summed over rays and lights, in an order that varies from run to run
-    (atomics).  CPU tensors take ``soft_dprim_plain``."""
+    (atomics), walking K5's worklists ``wl``, ``cnt`` with the gradient
+    records ``boxes`` (ceil(T/8), 32) of ``grad_boxes``, which CUDA
+    tensors need.  CPU tensors take ``soft_dprim_plain``, which needs no
+    boxes."""
     global SOFT_DPRIM_LAUNCHES
     if p.device.type == "cpu":
         return soft_dprim_plain(p, dirs, mags, g, trans, tri, tmin, beta)
     empty = torch.zeros((0, SP_COLS), dtype=torch.float32, device=p.device)
     L, R, _, _, T = _check("K7", p, dirs, mags, empty, empty, tri, wl, cnt,
                            {"g": g, "trans": trans})
+    if boxes is None:
+        raise ValueError("K7 walks the gradient records: pass boxes (soft.grad_boxes)")
+    build.check_tensors("K7", p.device, {
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS))})
+    build.check_aligned("K7", "boxes", boxes, 16)
     out = torch.zeros((T, 9), dtype=torch.float32, device=p.device)
     lib = build.load()
     with torch.cuda.device(p.device):
         err = lib.raytpu_soft_dprim(
             p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, tri.data_ptr(), T,
-            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin), float(beta), g.data_ptr(),
-            trans.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin),
+            float(beta), g.data_ptr(), trans.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K7 launch failed: {build.cuda_error_name(lib, err)}")
     SOFT_DPRIM_LAUNCHES += 1

@@ -1,5 +1,5 @@
-"""The group walk's kernels K4, K10, K5, K3, K11a, K9 and K2b on one CUDA
-card with parts of their design taken out: what each part of the walk
+"""The group walk's kernels K4, K10, K5, K3, K11a, K9, K2b, K8 and K7 on one
+CUDA card with parts of their design taken out: what each part of the walk
 (raytpu_torch/render/csrc/shadow.cuh) buys.
 
     python3 shadow_ablation.py               # prints one JSON line
@@ -18,24 +18,30 @@ and bunny300k (the mega3 route's), K9 on the shadow queries of
 optional_l12 and bunny18k_l12, of the camera rays in 32x32 blocks (as
 K10's) and row-major ("rows", ``chunked.shade_rays``' order), K2b on
 K2a's buffer of bunny and optional (the mega2 route's), K9 also on the
-folded queries of reference_s106 (no records: the few-groups kernel);
-each is timed
+folded queries of reference_s106 (no records: the few-groups kernel), K8
+(closest mode) on the camera rays of optional_l12, bunny18k_l12 and
+reference_s106 in 32x32 blocks (the route's) and of the first two
+row-major (``chunked.shade_rays``'), K7 on the soft shadow queries of
+optional, bunny50k and bunny300k with a random cotangent; each is timed
 with CUDA events (REPEATS runs of ITERS launches), and each variant's
-answer (K4's, K9's and K5's (L, R), K10's (R, 3) colors, K3's (t, idx,
-normal, material), K11a's buffer and tile boxes, K2b's image) must equal
-the design's bit for bit, and the design's the package wrapper's on the
+answer (K4's, K9's and K5's (L, R), K10's (R, 3) colors, K3's and K8's
+(t, idx, normal, material), K11a's buffer and tile boxes, K2b's image)
+must equal the design's bit for bit, K7's (T, 9) sums within 1e-4 of the
+largest (its atomics add in another order each run; its variant
+soft_records, which is not exact, is timed only, its difference
+printed), and the design's the package wrapper's on the
 same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
 ``soft.soft_trans_lights_cuda``, ``packed.winner_search``,
 ``mega3.mega3_closest``, ``chunked.any_hit_lights``,
-``mega2.mega2_shade``):
+``mega2.mega2_shade``, ``chunked.chunked_min_t``, ``soft.soft_dprim``):
 
   design        the kernels as committed;
   no_bundle     (K4) no test of the warp's bundle: every listed entry goes
                 to each ray's box test;
-  no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b) no per-ray box test: a warp visits
-                a group's triangles for every live lane wherever the
-                bundle test passes;
-  no_boxes      (K4) neither test: every listed triangle, with the
+  no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b, K8, K7) no per-ray box
+                test: a warp visits a group's triangles for every live
+                lane wherever the bundle test passes;
+  no_boxes      (K4, K8, K7) neither test: every listed triangle, with the
                 warp-granular exit, 128-thread blocks and 8x4 pixel warps
                 kept;
   no_warp_exit  (K4) a warp walks its whole row even when every lane is
@@ -43,28 +49,35 @@ same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
   rows          (K4) each warp takes a row of 32 pixels, not an 8x4 block;
   warp_slot     (K9) each warp takes the 8x4 pixel block of warp_slot, not
                 32 consecutive rays;
-  block1024     (K4, K10, K5, K3, K11a, K9, K2b) one 1024-thread block per
-                (tile, light) (K4, K5, K9) or per tile (K10, K3, K11a,
-                K2b), not eight of 128;
-  kappa_records (K3, K11a, K9, K2b) kappa's 8-float records
+  k8_rows       (K8) each warp takes 32 consecutive rays, not warp_slot's
+                8x4 pixel block;
+  atomics       (K7) each lane adds its own nonzero partials with
+                atomicAdd as it visits, not the warp's sums after each group;
+  soft_records  (K7) K5's soft records (support 20) instead of the
+                gradient records: not exact (it drops partials that are
+                small but not 0), timed only;
+  block1024     (K4, K10, K5, K3, K11a, K9, K2b, K8, K7) one 1024-thread
+                block per (tile, light) (K4, K5, K9, K7) or per tile (K10,
+                K3, K11a, K2b, K8), not eight of 128;
+  kappa_records (K3, K11a, K9, K2b, K8) kappa's 8-float records
                 (``packed.shadow_records``) instead of the 32-float normal
                 records;
-  whole_line    (K3, K11a) each ray's box test on the whole line (mag =
+  whole_line    (K3, K11a, K8) each ray's box test on the whole line (mag =
                 inf), not on the segment up to its current closest hit;
   kappa         (K10, K5) the normal records' widening replaced by kappa's
                 (K4's widening on the same records): the triangles'
                 normals taken out;
   no_pretest    (K10, K5) the normal records' tests without kappa's
                 cheaper test before them;
-  no_direct     (K10, K9) a scene of a few groups (reference_s106) is given
-                the normal records too, so it takes the walk's kernel, not
-                the one that tests every listed triangle;
-  regs64        (K10, K5, K2b) at most 64 registers a thread (launch
-                bounds of 8 blocks of 128 an SM, not 4);
+  no_direct     (K10, K9, K8) a scene of a few groups (reference_s106) is
+                given the normal records too, so it takes the walk's
+                kernel, not the one that tests every listed triangle;
+  regs64        (K10, K5, K2b, K8, K7) at most 64 registers a thread
+                (launch bounds of 8 blocks of 128 an SM, not 4);
   bounds4       (K9) launch bounds of 4 blocks of 128 an SM, not 8 (at most
                 128 registers a thread, not 64);
-  bounds2       (K9, K2b) launch bounds of 2 blocks of 128 an SM, not 8 or 4
-                (at most 255 registers a thread).
+  bounds2       (K9, K2b, K8, K7) launch bounds of 2 blocks of 128 an SM,
+                not 8 or 4 (at most 255 registers a thread).
 
 Beside the kernels' times the line holds, per K10 and K5 scene, the
 milliseconds a frame or step spends building the records
@@ -97,6 +110,28 @@ K5_SCENES = ("optional", "bunny50k", "bunny300k")
 K9_SCENES = ("optional_l12", "bunny18k_l12", "optional_l12 rows", "bunny18k_l12 rows",
              "reference_s106")
 K2B_SCENES = ("bunny", "optional")
+#: K8's: the route's camera rays in 32x32 blocks, and row-major (" rows")
+K8_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106", "optional_l12 rows",
+             "bunny18k_l12 rows")
+K7_SCENES = ("optional", "bunny50k", "bunny300k")
+K8_BOUNDS = "__launch_bounds__(kShadeBlock, 4) chunked_min_t_kernel"
+K8_SLOT = "const int rid = tile * kTile + warp_slot(warp, lane);"
+K7_BOUNDS = "__launch_bounds__(kBlock, 4) soft_dprim_kernel"
+#: K7's sums add in another order each run: within this share of the
+#: largest magnitude, as chip_smoke.py phase 2 holds them
+K7_TOL = 1e-4
+#: K7's visit for the variant atomics: each lane adds its own nonzero
+#: partials with atomicAdd as it visits, no warp sum
+K7_ATOMICS = """    for (int k = k0; k < k1; ++k) {
+      float part[9];
+      if (!dprim_partials(tri + (size_t)k * kRec, ox, oy, oz, dx, dy, dz, tmin, mag, beta, gob,
+                          part))
+        continue;
+      for (int j = 0; j < 9; ++j)
+        if (part[j] != 0.0f) atomicAdd(out + (size_t)k * 9 + j, part[j]);
+    }"""
+#: variants timed only, their answers' difference printed (not exact)
+INEXACT = ("soft_records",)
 K9_WALK = "shadow_walk<kTr, kNormalCols, kChunk / 8>"
 K2B_WALK = "shadow_walk<kTri, kNormalCols>"
 K9_BOUNDS = "__launch_bounds__(kShadeBlock, 8) chunked_anyhit_kernel"
@@ -104,22 +139,31 @@ K2B_BOUNDS = "__launch_bounds__(kShadeBlock, 4) mega2_shade_kernel"
 RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (size_t)gj, o, inv, d,\n"
            "                                                  seg_end(visit, mag));")
 BUNDLE = "cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);"
-CLOSEST_WALK = "group_walk<kRec, kNormalCols, 1>(tri, T, boxes, w, c, live, o, d, INFINITY, visit);"
+CLOSEST_WALK = ("group_walk<kRec, kNormalCols, kExpand>(tri, T, boxes, w, c, live, o, d, INFINITY, "
+                "visit);")
 #: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": ("K4 K10 K5 K3 K11a K9 K2b", []),
+    "design": ("K4 K10 K5 K3 K11a K9 K2b K8 K7", []),
     "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
-    "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b",
+    "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b K8 K7",
                    [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
-    "no_boxes": ("K4", [("shadow.cuh", BUNDLE, "cand = true;"),
-                        ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_boxes": ("K4 K8 K7", [("shadow.cuh", BUNDLE, "cand = true;"),
+                              ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
     "no_warp_exit": ("K4", [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return;", "")]),
     "rows": ("K4", [("shadow.cuh",
                      "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
                      "return warp * 32 + lane;")]),
     "warp_slot": ("K9", [("chunked.cu", "const int rid = tile * kTile + warp * 32 + lane;",
                           "const int rid = tile * kTile + warp_slot(warp, lane);")]),
-    "block1024": ("K4 K10 K5 K3 K11a K9 K2b", [
+    "k8_rows": ("K8", [("chunked.cu", K8_SLOT,
+                        "const int rid = tile * kTile + warp * 32 + lane;")]),
+    "atomics": ("K7", [("soft.cu", "static constexpr bool kReduces = true;",
+                        "static constexpr bool kReduces = false;"),
+                       ("soft.cu", "    pending = true;  // reduce computes this lane's partials",
+                        K7_ATOMICS)]),
+    # the same library, given K5's soft records (k7_launcher)
+    "soft_records": ("K7", []),
+    "block1024": ("K4 K10 K5 K3 K11a K9 K2b K8 K7", [
         ("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
         ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
          "__launch_bounds__(kBlock, 1) packed_anyhit_kernel"),
@@ -138,7 +182,9 @@ VARIANTS = {
          "__launch_bounds__(kBlock, 1) soft_trans_kernel"),
         ("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 1)")),
         ("mega2.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
-        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 1)"))]),
+        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 1)")),
+        ("chunked.cu", K8_BOUNDS, K8_BOUNDS.replace(", 4)", ", 1)")),
+        ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 1)"))]),
     "kappa": ("K10 K5", [
         ("shadow.cuh", "widen_scaled(b, dd[0] + dd[1] + dd[2], ray_scale(b, rec, d), lo, hi);",
          "widen(b, dd[0] + dd[1] + dd[2], lo, hi);"),
@@ -147,24 +193,29 @@ VARIANTS = {
     "no_pretest": ("K10 K5", [
         ("shadow.cuh", "if (!seg_box<false>(b, rec, o, inv, d, mag)) return false;", ""),
         ("shadow.cuh", "if (!bundle_box<false>(q, b, rec)) return false;", "")]),
-    # the same library, given the normal records (k10_launcher, k9_launcher)
-    "no_direct": ("K10 K9", []),
+    # the same library, given the normal records (k10_launcher, k9_launcher,
+    # k8_launcher)
+    "no_direct": ("K10 K9 K8", []),
     # the launchers pass kappa's records to this variant (k3_launcher,
-    # k11a_launcher, k9_launcher, k2b_launcher)
-    "kappa_records": ("K3 K11a K9 K2b", [
+    # k11a_launcher, k9_launcher, k2b_launcher, k8_launcher)
+    "kappa_records": ("K3 K11a K9 K2b K8", [
         ("shadow.cuh", CLOSEST_WALK, CLOSEST_WALK.replace("kNormalCols", "kBoxCols")),
         ("chunked.cu", K9_WALK, K9_WALK.replace("kNormalCols", "kBoxCols")),
         ("mega2.cu", K2B_WALK, K2B_WALK.replace("kNormalCols", "kBoxCols"))]),
-    "whole_line": ("K3 K11a", [("shadow.cuh", "    return visit.t;", "    return INFINITY;")]),
-    "regs64": ("K10 K5 K2b", [
+    "whole_line": ("K3 K11a K8", [("shadow.cuh", "    return visit.t;", "    return INFINITY;")]),
+    "regs64": ("K10 K5 K2b K8 K7", [
         ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
          "__launch_bounds__(kShadeBlock, 8) chunked_shadow_shade_kernel"),
         ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
          "__launch_bounds__(kBlock, 8) soft_trans_kernel"),
-        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 8)"))]),
+        ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 8)")),
+        ("chunked.cu", K8_BOUNDS, K8_BOUNDS.replace(", 4)", ", 8)")),
+        ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 8)"))]),
     "bounds4": ("K9", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 4)"))]),
-    "bounds2": ("K9 K2b", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
-                           ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 2)"))]),
+    "bounds2": ("K9 K2b K8 K7", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
+                                 ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 2)")),
+                                 ("chunked.cu", K8_BOUNDS, K8_BOUNDS.replace(", 4)", ", 2)")),
+                                 ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 2)"))]),
 }
 #: each kernel's source and the kernel entry whose ptxas line is kept
 SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
@@ -173,7 +224,9 @@ SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
            "K3": ("packed.cu", "packed_closest"),
            "K11a": ("mega3.cu", "mega3_closest"),
            "K9": ("chunked.cu", "chunked_anyhit_kernelILb1E"),  # the walk's instance
-           "K2b": ("mega2.cu", "mega2_shade")}
+           "K2b": ("mega2.cu", "mega2_shade"),
+           "K8": ("chunked.cu", "chunked_min_t_kernelILb1ELb0E"),  # the closest walk's instance
+           "K7": ("soft.cu", "soft_dprim")}
 K3_SCENES = ("bunny50k", "bunny300k")
 K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 
@@ -470,6 +523,82 @@ def k2b_launcher(scene, cfg, dev):
     return torch.empty_like(want), launch, None, want
 
 
+def k8_launcher(scene, cfg, dev, order="folded"):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K8's closest mode on frame 0's camera rays, in 32x32 blocks or with
+    ``order`` "rows" row-major, with the records and worklists the route
+    builds (``chunked.frame_records``): the answer flat, t, idx, normal
+    (R, 3), material.  The variant kappa_records gets kappa's records,
+    no_direct the normal records on every scene."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import chunked, packed, renderer
+
+    ro, rd = renderer.generate_rays(scene.camera, cfg)
+    if order != "rows":
+        rd = packed.mega2_fold(rd, cfg.height, cfg.width)
+    ro = ro.expand_as(rd).contiguous()
+    records = chunked.frame_records(scene)
+    normal = accel.normal_boxes(scene.triangles)
+    wl, cnt = packed.closest_worklists(scene, ro, rd, cfg.ray_min, group=chunked.CHUNK,
+                                       group_bounds=normal[:2])
+    boxes = None if records is None else records[2]
+    kappa = packed.shadow_records(normal[2])
+    sph, pln, tri = packed.soft_packs(scene)
+    R = rd.shape[0]
+
+    def launch(lib, out, variant):
+        b = {"kappa_records": kappa, "no_direct": normal[2]}.get(variant, boxes)
+        ptr = out.data_ptr()
+        return lib.raytpu_chunked_min_t(
+            ro.data_ptr(), rd.data_ptr(), None, R, sph.data_ptr(), sph.shape[0], pln.data_ptr(),
+            pln.shape[0], tri.data_ptr(), tri.shape[0], None if b is None else b.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(cfg.ray_min), 0, ptr,
+            ptr + 4 * R, ptr + 8 * R, ptr + 20 * R, torch.cuda.current_stream().cuda_stream)
+
+    t, idx, nrm, mat = chunked.chunked_min_t(ro, rd, None, sph, pln, tri, wl, cnt, cfg.ray_min,
+                                             False, boxes)
+    want = torch.cat([t, idx.view(torch.float32), nrm.flatten(), mat.view(torch.float32)])
+    return torch.empty((6 * R,), dtype=torch.float32, device=dev), launch, None, want
+
+
+def k7_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K7 on the soft shadow queries of the differentiable path's frame 0, K5's
+    worklists and transmittance and a random cotangent, with the gradient
+    records (``soft.grad_boxes``); the variant soft_records gets K5's soft
+    records.  Each launch zeroes its (T, 9) output first, as the wrapper's
+    fresh zeros."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.render import packed, soft
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    tmin, beta = cfg.ray_min, cfg.soft_beta
+    _, _, (p, dirs, mags) = _frame_queries(scene, cfg, _packed_closest)
+    trans, (blobs, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+    soft_rec = soft.soft_boxes(scene, p, dirs, mags, tmin, beta)[0]
+    boxes = soft.grad_boxes(scene, beta)
+    g = torch.rand(trans.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev) * 2.0 - 1.0
+    tri = blobs[2]
+    L, R = dirs.shape[:2]
+
+    def launch(lib, out, variant):
+        b = soft_rec if variant == "soft_records" else boxes
+        out.zero_()
+        return lib.raytpu_soft_dprim(
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, tri.data_ptr(), tri.shape[0],
+            b.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin), float(beta),
+            g.data_ptr(), trans.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    want = soft.soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta, boxes)
+    return torch.empty_like(want), launch, None, want
+
+
 def glue_ms(records, inputs) -> dict:
     """The median ms of REPEATS timings of ITERS back-to-back calls of
     ``records()`` and of ``inputs()``."""
@@ -510,6 +639,13 @@ def _bind(lib_path: str, kernels: list):
     if "K2b" in kernels:
         lib.raytpu_mega2_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
                                            + [c_int] * 9 + [c_float] * 3 + [c_ptr] * 3)
+    if "K8" in kernels:
+        lib.raytpu_chunked_min_t.argtypes = ([c_ptr, c_ptr, c_ptr, c_int] + sp_tri
+                                             + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_int]
+                                             + [c_ptr] * 5)
+    if "K7" in kernels:
+        lib.raytpu_soft_dprim.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int, c_ptr, c_int, c_ptr,
+                                           c_ptr, c_ptr, c_int, c_float, c_float] + [c_ptr] * 4)
     return lib
 
 
@@ -554,7 +690,8 @@ def main(argv=None) -> int:
     for key, names, make in (("K4", K4_SCENES, k4_launcher), ("K10", K10_SCENES, k10_launcher),
                              ("K5", K5_SCENES, k5_launcher), ("K3", K3_SCENES, k3_launcher),
                              ("K11a", K11A_SCENES, k11a_launcher),
-                             ("K9", K9_SCENES, k9_launcher), ("K2b", K2B_SCENES, k2b_launcher)):
+                             ("K9", K9_SCENES, k9_launcher), ("K2b", K2B_SCENES, k2b_launcher),
+                             ("K8", K8_SCENES, k8_launcher), ("K7", K7_SCENES, k7_launcher)):
         if key not in keys:
             continue
         variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
@@ -574,15 +711,28 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 answers[name] = res.clone()
                 ms[name] = sorted(device_ms(run, iters=ITERS, warmup=1) for _ in range(REPEATS))
-            differ = int((answers["design"].view(torch.uint8) != want.view(torch.uint8)).sum())
-            if differ:
-                raise AssertionError(f"{key} {scene_name}: the design's answer differs from the "
-                                     f"package's in {differ} bytes")
-            for name, ans in answers.items():
-                differ = int((ans.view(torch.uint8) != answers["design"].view(torch.uint8)).sum())
+            if key == "K7":  # atomic sums: within K7_TOL of the largest
+                def differ(a, b):
+                    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+                diffs = {n: differ(a, answers["design"]) for n, a in answers.items()}
+                out["k7_diff_to_design"] = out.get("k7_diff_to_design", {})
+                out["k7_diff_to_design"][scene_name] = diffs
+                bad = {n: v for n, v in diffs.items() if n not in INEXACT and v > K7_TOL}
+                if differ(answers["design"], want) > K7_TOL or bad:
+                    raise AssertionError(f"K7 {scene_name}: beyond {K7_TOL} of the largest: "
+                                         f"{bad}, or the design against the package's")
+            else:
+                differ = int((answers["design"].view(torch.uint8) != want.view(torch.uint8)).sum())
                 if differ:
-                    raise AssertionError(f"{key} {scene_name} {name}: {differ} bytes differ from "
-                                         f"the design's answer")
+                    raise AssertionError(f"{key} {scene_name}: the design's answer differs from "
+                                         f"the package's in {differ} bytes")
+                for name, ans in answers.items():
+                    differ = int((ans.view(torch.uint8)
+                                  != answers["design"].view(torch.uint8)).sum())
+                    if differ:
+                        raise AssertionError(f"{key} {scene_name} {name}: {differ} bytes differ "
+                                             f"from the design's answer")
             out["ms"][f"{key} {scene_name}"] = {
                 n: {"median": v[len(v) // 2], "min": v[0], "max": v[-1]} for n, v in ms.items()}
             if glue is not None:

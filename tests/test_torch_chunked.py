@@ -432,8 +432,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_chunked_kernels_match_plain_versions_on_the_card():
     """K8 (both modes), K9 and K10 against their plain versions on a card,
     each launched once per call, K9 equal to its plain version on every
-    (light, ray) pair, and K9 and K10 equal bit for bit to themselves over
-    records that pass every listed group (K9 also without records); run on
+    (light, ray) pair, and K8, K9 and K10 equal bit for bit to themselves
+    over records that pass every listed group (K8 and K9 also without
+    records); run on
     a machine with a card with
     ``pytest -m cuda tests/test_torch_chunked.py -p no:xdist``."""
     if not torch.cuda.is_available():
@@ -498,3 +499,20 @@ def test_chunked_kernels_match_plain_versions_on_the_card():
             assert [chunked.CHUNKED_MIN_T_LAUNCHES, chunked.CHUNKED_ANYHIT_LAUNCHES,
                     chunked.CHUNKED_SHADE_LAUNCHES] == [counts[0] + 3, counts[1] + 3,
                                                         counts[2] + 3]
+            # K8's walks drop no winner and no first occluder: both modes
+            # equal, bit for bit, its fold over every listed triangle
+            # (without records) and its walk over records that pass every group
+            records = chunked.frame_records(scene)
+            bounds = None if records is None else records[:2]
+            wl, cnt = packed.closest_worklists(scene, ro, rd, cfg.ray_min, group=chunked.CHUNK,
+                                               group_bounds=bounds)
+            ps, ds, ms = p.repeat(L, 1), dirs.reshape(-1, 3), mags.reshape(-1).contiguous()
+            wl_s, cnt_s = packed.closest_worklists(scene, ps, ds, cfg.ray_min, ms,
+                                                   group=chunked.CHUNK, group_bounds=bounds)
+            for b in (None, every):
+                got = chunked.chunked_min_t(ro, rd, None, *blobs, wl, cnt, cfg.ray_min, False, b)
+                for a, c in zip(got, (t, idx, normal, mat)):
+                    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+                got_s = chunked.chunked_min_t(ps, ds, ms, *blobs, wl_s, cnt_s, cfg.ray_min, True,
+                                              b)[0]
+                assert torch.equal(got_s.view(torch.int32), ts.view(torch.int32))

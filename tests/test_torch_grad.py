@@ -548,6 +548,32 @@ def test_cli_renders_soft_shadows(tmp_path):
     assert shots[0] != shots[3]
 
 
+def test_grad_support_zeroes_the_sigmoid_and_its_derivative():
+    """The gradient records' support (``accel.GRAD_SUPPORT``): in float32,
+    wherever beta * margin lies below -GRAD_SUPPORT, the soft sigmoid of
+    K5-K7's arithmetic (``soft._soft_occ``) and its derivative are exactly
+    0.0f, so every partial of the soft VJP is; at -88 (inside the support)
+    both are not, nor at K5's support (-20), where the factor 1 - occ is
+    already exactly 1.  At beta = 300 the records' m = support / beta is
+    0.3, about 0.6 of a group's longest edge in their pad."""
+    bm = torch.cat([-accel.GRAD_SUPPORT - torch.logspace(-5, 6, 200),
+                    torch.tensor([float(np.nextafter(np.float32(-accel.GRAD_SUPPORT),
+                                                     np.float32(-np.inf)))])])
+    for beta in (BETA, 40.0, 8.0, 1e4):
+        margin = bm / beta
+        prod = beta * margin  # the product soft_occ rounds
+        sel = prod < -accel.GRAD_SUPPORT
+        assert int(sel.sum()) > 150
+        occ, docc = soft._soft_occ(margin[sel], torch.ones_like(margin[sel], dtype=torch.bool),
+                                   beta)
+        assert bool((occ == 0.0).all()) and bool((docc == 0.0).all())
+        inside = torch.tensor([-88.0, -accel.SOFT_SUPPORT]) / beta
+        occ, docc = soft._soft_occ(inside, torch.ones(2, dtype=torch.bool), beta)
+        assert bool((occ > 0.0).all()) and bool((docc > 0.0).all())
+        assert bool(((1.0 - occ)[1:] == 1.0).all())
+    assert abs(accel.GRAD_SUPPORT / BETA - 0.3) < 1e-12
+
+
 def test_soft_wrappers_refuse_what_the_kernels_do_not_take():
     """K5-K7's wrappers take their plain versions only for CPU tensors:
     tensors on any other device than CUDA raise before a launch, and no
@@ -566,6 +592,8 @@ def test_soft_wrappers_refuse_what_the_kernels_do_not_take():
         soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, 300.0)
     with pytest.raises(ValueError, match="K7 runs on CUDA"):
         soft.soft_dprim(mp, md, mm, mg, mg, mt, mwl, mcnt, 1e-4, 300.0)
+    with pytest.raises(ValueError, match="K7 runs on CUDA"):
+        soft.soft_dprim(mp, md, mm, mg, mg, mt, mwl, mcnt, 1e-4, 300.0, mb)
     assert (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES,
             soft.SOFT_DPRIM_LAUNCHES) == before
 
@@ -666,7 +694,8 @@ def test_train_step_sgd_matches_optax():
 def test_soft_kernels_match_plain_versions_on_the_card():
     """K5, K6 and K7 against their plain versions on a card, on bunny's,
     optional's and far_plane's shadow queries at 64x32 (two tiles) and 50x37
-    (ragged); and the Function (the kernels, with the sphere and plane
+    (ragged), and K7 against its walk over records that pass every group;
+    and the Function (the kernels, with the sphere and plane
     cotangents of ``_scene_cotangent``) against plain autograd of the eager
     transmittance on w3_test and far_plane (spheres and planes, no
     triangle) and reference (all three).  Run on a machine with a card with
@@ -683,7 +712,9 @@ def test_soft_kernels_match_plain_versions_on_the_card():
             before = (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DPRIM_LAUNCHES)
             trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, 1e-4, BETA)
             ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, 1e-4, BETA)
-            prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, 1e-4, BETA)
+            grad_boxes = soft.grad_boxes(scene, BETA)
+            prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, 1e-4, BETA,
+                                   grad_boxes)
             torch.cuda.synchronize()
             assert (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES,
                     soft.SOFT_DPRIM_LAUNCHES) == tuple(b + 1 for b in before)
@@ -696,7 +727,11 @@ def test_soft_kernels_match_plain_versions_on_the_card():
                                                                   cnt, 1e-4, BETA))
             ray_ref = soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, 1e-4, BETA)
             prim_ref = soft.soft_dprim_plain(p, dirs, mags, g, trans, blobs[2], 1e-4, BETA)
-            for got, want in (*zip(ray, ray_ref), (prim, prim_ref)):
+            # K7's gradient walk skips only partials of exactly 0: over
+            # records that pass every group it adds the same partials
+            prim_every = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, 1e-4, BETA,
+                                         every)
+            for got, want in (*zip(ray, ray_ref), (prim, prim_ref), (prim, prim_every)):
                 assert got.shape == want.shape
                 if want.numel():  # far_plane has no triangle
                     scale = max(float(want.abs().max()), 1e-6)

@@ -296,11 +296,22 @@ def _closest_rays(name, rays):
     "adversarial" (``_scene_rays``, as closest-hit rays: their segment
     lengths dropped) each walking every group of the scene, "scene" its
     camera rays at SCENE_SIZE (``_camera_rays``) each tile walking its
-    worklist; ``rows`` lists (ray slice, ascending groups)."""
+    worklist, "chunks" the same rays each tile walking K8's worklist of
+    128-triangle chunks, each chunk expanded to its 16 groups in ascending
+    order (K8's closest walk, kExpand 16); ``rows`` lists (ray slice,
+    groups in the walk's order)."""
     if rays == "scene":
         scene, ro, rd, wl, cnt = _camera_rays(name)
         rows = [(slice(i * 1024, (i + 1) * 1024), wl[i, :cnt[i]].long().sort().values)
                 for i in range(wl.shape[0])]
+        return scene, ro, rd, rows
+    if rays == "chunks":
+        scene, ro, rd, _, _ = _camera_rays(name)
+        wl, cnt = packed.closest_worklists(scene, ro, rd, TMIN, group=chunked.CHUNK)
+        T = scene.triangles.count
+        rows = [(slice(i * 1024, (i + 1) * 1024), accel.chunk_groups(wl[i, :cnt[i]], T))
+                for i in range(wl.shape[0])]
+        assert all(bool((g[1:] > g[:-1]).all()) for _, g in rows)  # ascending, as walked
         return scene, ro, rd, rows
     scene, tri, _, grazing, adversarial = _scene_rays(name)
     p, d = (grazing if rays == "grazing" else adversarial)[:2]
@@ -324,6 +335,32 @@ def _twin_answers(name, rays):
         listed += groups.numel() * ro[sl].shape[0]
     got = packed.winner_payload(ro, rd, sph, pln, tri, t, idx)
     return got, packed.winner_search_plain(ro, rd, sph, pln, tri, TMIN), visits / listed
+
+
+def _first_hit_walk(sph, pln, tri, p, d, mag, boxes, groups):
+    """The torch twin of K8's first-occluder walk (shadow.cuh: FirstHitVisit
+    through group_walk) for queries ``p``, ``d`` (R, 3) up to ``mag`` (R,)
+    over the groups ``groups`` in the walk's order: the first occluder among
+    spheres, then planes (``plain.chunked_min_t_plain`` without triangles),
+    then, for a query still unoccluded, each group whose record, widened for
+    it, its segment crosses, its triangles in order, stopping at the first
+    that tri_t reports.  Returns the occluder's t (inf where none) and the
+    (query, group) visits."""
+    t = plain.chunked_min_t_plain(p, d, mag, sph, pln, tri[:0], TMIN, True)[0]
+    inv = accel.inv_dir(d)
+    o3 = tuple(x[:, None] for x in p.unbind(1))
+    d3 = tuple(x[:, None] for x in d.unbind(1))
+    visits = 0
+    for g in groups.tolist():
+        live = (t == plain.INF) & accel.segment_box_test(p, inv, mag, boxes[g:g + 1], d=d)[:, 0]
+        visits += int(live.sum())
+        k0 = g * accel.GROUP
+        tc = plain.tri_t(plain._rows(tri[k0:k0 + accel.GROUP], 13), o3, d3, TMIN, mag[:, None],
+                         shadow=True)
+        found = tc < plain.INF
+        first = tc.gather(1, found.to(torch.int8).argmax(dim=1, keepdim=True))[:, 0]
+        t = torch.where(live & found.any(dim=1), first, t)
+    return t, visits
 
 
 @functools.lru_cache(maxsize=None)
@@ -683,16 +720,17 @@ def test_box_test_passes_every_hit_of_adversarial_rays(name, kind):
         assert float(accel.narrowed(d, boxes).float().mean()) > 0.5
 
 
-def _margin_rays(tri, rng, m):
+def _margin_rays(tri, rng, m, support=accel.SOFT_SUPPORT):
     """(p, d, mag) of ``m`` rays that cross the plane of a random triangle
-    at a point whose least barycentric coordinate is -f SOFT_SUPPORT / beta,
-    f from 0.5 to 1.5: the soft factor is not 1 below f ~ 0.87, and exactly
-    1 above it.  The rays meet the plane at 0 to 80 degrees from its normal,
-    from 0.05 to 2 away, and end as far past it."""
+    at a point whose least barycentric coordinate is -f ``support`` / beta,
+    f from 0.5 to 1.5: at SOFT_SUPPORT the soft factor is not 1 below f ~
+    0.87, and exactly 1 above it; at GRAD_SUPPORT the soft VJP's partials
+    are not all 0 below f ~ 0.99, and all 0 above it.  The rays meet the
+    plane at 0 to 80 degrees from its normal, from 0.05 to 2 away, and end
+    as far past it."""
     v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
     k = torch.as_tensor(rng.integers(0, tri.shape[0], m))
-    neg = -torch.as_tensor(rng.uniform(0.5, 1.5, m), dtype=torch.float32) * (
-        accel.SOFT_SUPPORT / BETA)
+    neg = -torch.as_tensor(rng.uniform(0.5, 1.5, m), dtype=torch.float32) * (support / BETA)
     share = torch.as_tensor(rng.random(m), dtype=torch.float32) * (1.0 - neg)
     lam = torch.stack([neg, share, 1.0 - neg - share], dim=1)
     perm = torch.as_tensor(np.argsort(rng.random((m, 3)), axis=1))
@@ -868,18 +906,21 @@ def test_shadow_boxes_pad_every_side():
     assert bool((boxes[:, 6].double() >= accel.HIT_SLACK * e[::accel.GROUP]).all())
 
 
-@pytest.mark.parametrize("rays", ["grazing", "adversarial", "scene"])
-@pytest.mark.parametrize("name", ["bunny", "optional"])
+@pytest.mark.parametrize("name,rays", [
+    ("bunny", "grazing"), ("bunny", "adversarial"), ("bunny", "scene"),
+    ("optional", "grazing"), ("optional", "adversarial"), ("optional", "scene"),
+    ("optional", "chunks")])
 def test_closest_walk_twin_equals_plain_version(name, rays):
     """The twin of the closest walk (``_closest_walk``) against
     ``packed.winner_search_plain``: (t, idx, normal, material) equal bit
     for bit.  On the scene rays it visits a small share of the listed
-    (ray, group) pairs: the test skips groups."""
+    (ray, group) pairs: the test skips groups.  The chunks case walks K8's
+    worklists of 128-triangle chunks, each expanded to its 16 groups."""
     got, want, share = _twin_answers(name, rays)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert bool(torch.isfinite(want[0]).any())
-    if rays == "scene":
+    if rays in ("scene", "chunks"):
         assert share < 0.5
 
 
@@ -898,6 +939,174 @@ def test_closest_walk_twin_matches_raytpu(name):
     np.testing.assert_allclose(t.numpy()[hit], t_r[hit], rtol=1e-6, atol=0)
     np.testing.assert_allclose(normal.numpy(), n_r, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(mat.numpy(), m_r)
+
+
+@pytest.mark.parametrize("rays", ["grazing", "adversarial", "scene"])
+def test_first_hit_walk_twin_equals_plain_shadow_mode(rays):
+    """The twin of K8's first-occluder walk (``_first_hit_walk``) on
+    optional's queries against the plain shadow mode
+    (``plain.chunked_min_t_plain`` with ``shadow``): the first occluder's t
+    equal bit for bit, inf where none.  The grazing and adversarial rays
+    walk every group; the scene queries, every light's shadow rays of the
+    64x48 frame's closest hits, walk K8's worklists of 128-triangle chunks
+    (each chunk's 16 groups in order) and visit a small share of the listed
+    (query, group) pairs."""
+    scene, tri, _, grazing, adversarial = _scene_rays("optional")
+    sph, pln, _ = packed.soft_packs(scene)
+    boxes = _boxes(scene.triangles, "cone")[2]
+    every = torch.arange(-(-tri.shape[0] // accel.GROUP))
+    if rays == "scene":
+        _, p, dirs, mags = _tile_queries("optional", SCENE_SIZE)
+        L = dirs.shape[0]
+        p, d, mag = p.repeat(L, 1), dirs.reshape(-1, 3), mags.reshape(-1)
+        wl, cnt = packed.closest_worklists(scene, p, d, TMIN, mag, group=chunked.CHUNK)
+        rows = [(slice(i * 1024, (i + 1) * 1024), accel.chunk_groups(wl[i, :cnt[i]], tri.shape[0]))
+                for i in range(wl.shape[0])]
+    else:
+        p, d, mag = (grazing if rays == "grazing" else adversarial)[:3]
+        rows = [(slice(None), every)]
+    t = torch.empty(p.shape[0])
+    visits = listed = 0
+    for sl, groups in rows:
+        t[sl], v = _first_hit_walk(sph, pln, tri, p[sl], d[sl], mag[sl], boxes, groups)
+        visits += v
+        listed += groups.numel() * p[sl].shape[0]
+    want = plain.chunked_min_t_plain(p, d, mag, sph, pln, tri, TMIN, True)[0]
+    assert torch.equal(t.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isfinite(want).any()) and not bool(torch.isfinite(want).all())
+    if rays == "scene":
+        assert visits < 0.5 * listed
+
+
+def _bound_rays(tri, boxes, rng, m):
+    """(p, d, mag, k) of the rays among ``m`` candidates that tri_t reports
+    hitting triangle ``k``, made so that their hits need much of the normal
+    records' widening: as ``_grazing_rays``' first kind, past the vertex
+    holding the group's largest coordinate on a random axis, 1 to 4 pads
+    beyond the padded face, in ``k``'s plane, but from 5 to 50 away and at
+    a determinant that puts the group's a_lo (``accel._scale_of_least``)
+    10 to 10^4 times 2u above kappa's ea, where the widening is narrowed by
+    2u / a_lo.  tri_t's error there is a few hundredths of the bound for
+    some of them: a bound 10^3 times too optimistic misses their hits."""
+    v0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    T = tri.shape[0]
+
+    def unit(x):
+        return torch.nn.functional.normalize(x, dim=1)
+
+    def uniform(lo, hi, log=False):
+        x = rng.uniform(np.log10(lo), np.log10(hi), m) if log else rng.uniform(lo, hi, m)
+        return torch.as_tensor(10.0 ** x if log else x, dtype=torch.float32)
+
+    g = torch.as_tensor(rng.integers(0, boxes.shape[0], m))
+    ax = torch.as_tensor(rng.integers(0, 3, m))
+    rows = torch.arange(m)
+    ids = (g[:, None] * accel.GROUP + torch.arange(accel.GROUP)).clamp(max=T - 1)
+    verts = torch.stack([v0[ids], v0[ids] + e1[ids], v0[ids] + e2[ids]], dim=2)
+    top = verts[rows, :, :, ax].reshape(m, -1).argmax(dim=1)
+    k = ids[rows, top // 3]
+    vert, own = verts[rows, top // 3, top % 3], verts[rows, top // 3]
+    normal = torch.linalg.cross(e1[k], e2[k], dim=1)
+    n = unit(normal)
+    out = unit(vert - own.mean(dim=1))
+    pad = boxes[g, 3 + ax] - vert[rows, ax]
+    target = vert + ((pad + uniform(1.0, 4.0) * pad) / out[rows, ax].clamp(min=0.05))[:, None] * out
+    along = unit(torch.linalg.cross(n, out, dim=1)
+                 + 0.3 * torch.as_tensor(rng.normal(size=(m, 1)), dtype=torch.float32) * out)
+    a = boxes[g, 6] * accel.TRI_SLACK + accel.TWO_U * uniform(10.0, 1e4, log=True)
+    sin = torch.clamp(a / torch.linalg.vector_norm(normal, dim=1), max=0.3)
+    sgn = torch.as_tensor(rng.choice([-1.0, 1.0], m), dtype=torch.float32)
+    d = unit(along * torch.sqrt(1.0 - sin * sin)[:, None] + (sgn * sin)[:, None] * n)
+    dist = uniform(5.0, 50.0, log=True)
+    p, mag = target - d * dist[:, None], 2.0 * dist
+    hit = plain.tri_t(tuple(tri[k, c] for c in range(13)), p.unbind(1), d.unbind(1), TMIN, mag,
+                      shadow=True) < plain.INF
+    return p[hit], d[hit], mag[hit], k[hit]
+
+
+@pytest.mark.parametrize("name", ["bunny", "optional"])
+def test_normal_records_widen_enough_at_the_determinant_bound(name):
+    """Rays whose hits need much of the normal records' narrowed widening
+    (``_bound_rays``, a ray's determinant well above the grazing limit):
+    every hit passes both box tests of its group (``_check_queries``), and
+    some of them lie outside the box widened by a thousandth of the ray's
+    widening (the records with kappa and kappa h scaled by 1e-3), so a
+    bound of the determinant 10^3 times too optimistic fails this test."""
+    scene, tri, _, _, _ = _scene_rays(name)
+    boxes = _boxes(scene.triangles, "cone")[2]
+    p, d, mag, k = _bound_rays(tri, boxes, np.random.default_rng(13), 100_000)
+    groups = torch.unique(k // accel.GROUP)
+    ids = (groups[:, None] * accel.GROUP + torch.arange(accel.GROUP)).flatten()
+    empty = torch.zeros((0, packed.SP_COLS))
+    occ = _check_queries(empty, empty, tri, ids[ids < tri.shape[0]], p, d, mag, boxes)
+    assert bool(occ.all()) and p.shape[0] > 100
+    thin = boxes[k // accel.GROUP].clone()
+    thin[:, 6:8] *= 1e-3
+    inv = accel.inv_dir(d)
+    near = accel.segment_box_test(p[:, None], inv[:, None], mag[:, None], thin[:, None],
+                                  d=d[:, None])[:, 0, 0]
+    assert int((~near).sum()) > 0
+
+
+def _grad_nonzero(tri, p, d, mag, g):
+    """(R, T) bool: some of the nine partials of plain ``soft_dprim``
+    (K7's arithmetic, ``soft._tri_soft`` and ``soft._tri_grad``) for query
+    r, triangle k and cotangent ``g`` (R,) (trans taken as 1) is not 0.0f,
+    in plain's chunks of triangles."""
+    o3 = tuple(x[:, None] for x in p.unbind(1))
+    d3 = tuple(x[:, None] for x in d.unbind(1))
+    out = []
+    for a, b in plain._tri_chunks(tri.shape[0], p.shape[0], p.device):
+        k = soft._rows(tri[a:b], 13)
+        occ, docc, u, v, w, inv_a, h, s, q = soft._tri_soft(k, o3, d3, TMIN, mag[:, None], BETA)
+        g_m = (-g)[:, None] / (1.0 - occ) * docc
+        g_nu, g_nv, g_a = soft._tri_grad(u, v, w, inv_a, g_m)
+        e1d = soft._cross3(k[3], k[4], k[5], *d3)
+        ds = soft._cross3(*d3, *s)
+        parts = ([g_nu * h[c] + g_nv * e1d[c] for c in range(3)]
+                 + [g_nv * ds[c] + g_a * h[c] for c in range(3)]
+                 + [-g_nu * ds[c] + g_a * e1d[c] for c in range(3)])
+        out.append(torch.stack(parts).ne(0.0).any(dim=0))
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("name", ["bunny", "slivers", "grazing"])
+def test_grad_records_pass_every_nonzero_partial(name):
+    """The gradient records (``soft.grad_boxes``: ``accel.normal_boxes`` at
+    ``accel.GRAD_SUPPORT``) against K7's plain partials: on rays crossing
+    the triangles' planes just inside and just outside the gradient's
+    support (``_margin_rays`` at GRAD_SUPPORT), on bunny and on sliver
+    triangles, and on bunny's grazing rays, every (query, triangle) pair
+    with a partial other than 0.0f passes the per-ray and the bundle test
+    of its group, so K7's walk adds every nonzero partial of the walk over
+    every listed group.  On bunny some of those pairs lie outside K5's soft
+    records (support 20): they would drop partials that are small but not
+    0."""
+    rng = np.random.default_rng(17)
+    if name == "slivers":
+        tri, tris = _slivers(rng)
+    else:
+        scene = scenes.get("bunny").build("cpu")
+        tri, tris = packed.soft_packs(scene)[2], scene.triangles
+    if name == "grazing":
+        p, d, mag = _scene_rays("bunny")[3][:3]
+    else:
+        p, d, mag = _margin_rays(tri, rng, 2048, accel.GRAD_SUPPORT)
+    g = torch.as_tensor(rng.uniform(0.5, 1.0, p.shape[0]) * rng.choice([-1.0, 1.0], p.shape[0]),
+                        dtype=torch.float32)
+    nz = _grad_nonzero(tri, p, d, mag, g)
+    assert bool(nz.any()) and not bool(nz.all())
+    col = torch.arange(tri.shape[0]) // accel.GROUP
+    inv = accel.inv_dir(d)
+    boxes = accel.normal_boxes(tris, soft_beta=BETA, support=accel.GRAD_SUPPORT)[2]
+    seg = accel.segment_box_test(p, inv, mag, boxes, d=d)[:, col]
+    assert bool(seg[nz].all()), "a gradient record rejected a group holding a nonzero partial"
+    need = torch.zeros((p.shape[0], boxes.shape[0])).index_add_(1, col, nz.float()) > 0
+    _check_bundles(p, d, mag, torch.ones(p.shape[0], dtype=torch.bool), boxes, need)
+    if name == "bunny":  # the slivers' groups span their whole cube
+        soft_rec = accel.normal_boxes(tris, soft_beta=BETA)[2]
+        outside = nz & ~accel.segment_box_test(p, inv, mag, soft_rec, d=d)[:, col]
+        assert int(outside.sum()) > 0
 
 
 @pytest.mark.cuda
