@@ -8,7 +8,10 @@ Phases (each passes or raises; nothing is caught):
   2. each kernel against its plain PyTorch version on the card: K1 on the
      small scenes and the OBJ scene w4_test, K2a + K2b (the mega2 route) on
      bunny and optional (K2b bit for bit, and equal to K11b's image and to
-     its own launch over records that pass every group), K3 and K4 (the
+     its own launch over records that pass every group; K2a's buffer and
+     boxes equal bit for bit to K11a's, to its own launch over such records
+     and, on the pixel-sharded bunny render's tile ranges, to K11a's on
+     each range and to the whole frame's), K3 and K4 (the
      packed route) on bunny50k's and
      bunny300k's camera rays at 640x480 (the main path's shapes), 160x128
      and 50x37 (K3 also equal, bit for bit, to its own launch over records
@@ -19,9 +22,10 @@ Phases (each passes or raises; nothing is caught):
      its ceiling (so that g_mags is not zero), of bunny50k at 160x128 and of
      bunny300k at 64x64;
      and the autograd Function around them, with its sphere and plane
-     cotangents, against plain autograd on reference at 160x128 (K7 on the
-     gradient records also against its walk over records that pass every
-     group, and against itself run twice); K8 (both
+     cotangents, against plain autograd on reference at 160x128 (K7 and K6
+     on the gradient records also against their walks over records that
+     pass every group, and against themselves run twice: K6 bit for bit);
+     K8 (both
      modes), K9 and K10 (the chunked route) on optional_l12 at 640x480 and
      on bunny18k_l12 and reference_s106 at 160x128 (K9 exactly, and equal to
      its launches over every listed triangle; K8's walks in both modes
@@ -46,7 +50,8 @@ Phases (each passes or raises; nothing is caught):
      optional; the differentiable path's train steps (bench.py:50-54), a
      material fit on optional at 640x480 with payload_grad True and False
      (K3 and K5 once a step, no K6 or K7), a light and mesh fit (K3, K5,
-     K6, K7 once a step), the material fit on bunny50k and bunny300k; and
+     K6 with its light sum, K7 once a step), the material fit on bunny50k
+     and bunny300k; and
      the kernel route's gradients against the eager route's on optional at
      160x128; the chunked route (K8, K10) on optional_l12 and reference_s106
      (16 frames) and bunny18k_l12 (4), frame 0 of each against the eager
@@ -85,10 +90,11 @@ Phases (each passes or raises; nothing is caught):
      chunks), the same two bounds and statistics, the bytes of the
      box-culled one counting only the triangles of the groups some query
      crosses and the listed groups' records (K9 also timed on row-major
-     rays); for K8, on the closest walk over 128-triangle chunks, K3's
-     bound and statistics; for K7, on the gradient walk, the triangles of
-     the groups whose gradient record the segment crosses, and K5's
-     statistics over the gradient records;
+     rays); for K8, on the closest walk over 128-triangle chunks, and
+     K2a, K11a's closest pass, K3's bound and statistics; for K7 and K6,
+     on the gradient walk, the triangles of the groups whose gradient
+     record the segment crosses (K6 adding every sphere and plane), and
+     K5's statistics over the gradient records;
      the same for K5, K6 and K7, and each train step's milliseconds, idle
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
@@ -413,8 +419,10 @@ def phase_compare_mega2(dev, built: dict) -> dict:
     version's; K2b equal bit for bit to its plain version on K2a's buffer,
     to K11b's image on the same buffer and worklists and to its own launch
     over records that pass every group (the box tests drop no occluder);
-    the route (K2a then K2b) against the plain route, under the megakernel
-    budget."""
+    K2a's buffer and boxes equal bit for bit to K11a's and to its own
+    launch's over such records, and on the pixel-sharded bunny render's
+    tile ranges (``_k2a_tile_ranges``); the route (K2a then K2b) against
+    the plain route, under the megakernel budget."""
     from raytpu_torch.core import math3d, scenes
     from raytpu_torch.core.types import LightingMode, RenderConfig
     from raytpu_torch.ops import accel
@@ -432,12 +440,22 @@ def phase_compare_mega2(dev, built: dict) -> dict:
             buf, counts = plain.mega_pack(sc, cfg)
             glo, ghi, records = accel.normal_boxes(sc.triangles)
             wl, cnt = mega2.primary_worklists(sc, cfg, group_bounds=(glo, ghi))
-            acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+            acc, bounds = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg)
+            # K2a is K11a's closest pass: its buffer and boxes equal K11a's on
+            # the same worklists and records, and its own launch's over open
+            # records (the fold over every listed triangle), bit for bit
+            blob = mega3.pack_groups(buf, counts)
+            for other, what in ((mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg),
+                                 "K11a's"),
+                                (mega2.mega2_closest(buf, counts, open_records(records), wl, cnt,
+                                                     cfg), "its own over open records")):
+                if not (_same_bits(acc, other[0]) and _same_bits(bounds, other[1])):
+                    raise AssertionError(f"K2a {name} {case}: buffer or boxes not {what}")
             wl_s, cnt_s = mega2.shadow_worklists(sc, cfg, bounds, (glo, ghi))
             img = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg)
             img_o = mega2.mega2_shade(buf, counts, open_records(records), wl_s, cnt_s, acc, cfg)
-            img11 = mega3.mega3_shade(buf, counts, mega3.pack_groups(buf, counts),
-                                      packed.shadow_records(records), wl_s, cnt_s, acc, cfg)
+            img11 = mega3.mega3_shade(buf, counts, blob, packed.shadow_records(records), wl_s,
+                                      cnt_s, acc, cfg)
             acc_p, bounds_p = mega2.mega2_closest_plain(buf, counts, cfg)
             img_on_acc = mega2.mega2_shade_plain(buf, counts, acc, cfg)
             if not all(_same_bits(img, x) for x in (img_o, img11, img_on_acc)):
@@ -461,10 +479,48 @@ def phase_compare_mega2(dev, built: dict) -> dict:
                 _worst(worst[key], diff, flips)
                 got[key] = f"max|f32 diff| {diff:.3e} flips {flips:.5f} mean {mean:.5f}"
             print(f"phase 2: K2 {name} {case:11s} K2a max|diff| {a_diff:.3e} (row {a_row}), boxes "
-                  f"{box_diff:.3e}, rays differing {a_flips:.5f}; K2b {got['K2b']}, equal bit for "
+                  f"{box_diff:.3e}, rays differing {a_flips:.5f}, buffer and boxes equal bit for "
+                  f"bit to K11a's and to K2a's over open records; K2b {got['K2b']}, equal bit for "
                   f"bit to its plain version, K11b's image and K2b over open records; route "
                   f"{got['route']}", flush=True)
+    _k2a_tile_ranges(built["bunny"])
     return worst
+
+
+def _k2a_tile_ranges(scene) -> None:
+    """K2a on the pixel-sharded bunny render's tile ranges at 640x480 (the
+    two ranks' [0, nt // 2) and [nt // 2, nt), and a range ending in a
+    padded tile past the frame): each range's buffer and boxes equal K11a's
+    on the same range bit for bit, and the whole frame's columns and rows
+    of its tiles; a padded tile's rays miss and its box is empty."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, mega3, plain
+
+    cfg = RenderConfig(width=W, height=H)
+    buf, counts = plain.mega_pack(scene, cfg)
+    blob = mega3.pack_groups(buf, counts)
+    glo, ghi, records = accel.normal_boxes(scene.triangles)
+    nt = mega2.num_tiles(cfg)
+    whole = mega2.mega2_closest(buf, counts, records,
+                                *mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi)), cfg)
+    for t0, k in ((0, nt // 2), (nt // 2, nt - nt // 2), (nt - 2, 3)):
+        wl, cnt = mega2.primary_worklists(scene, cfg, t0, k, (glo, ghi))
+        acc, bounds = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg, t0, k)
+        acc11, bounds11 = mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg, t0, k)
+        inside = min(k, nt - t0)
+        if not (_same_bits(acc, acc11) and _same_bits(bounds, bounds11)
+                and _same_bits(acc[:, :inside * 1024],
+                               whole[0][:, t0 * 1024:(t0 + inside) * 1024].contiguous())
+                and _same_bits(bounds[:inside], whole[1][t0:t0 + inside])):
+            raise AssertionError(f"K2a bunny tiles [{t0}, {t0 + k}): not K11a's on the range, or "
+                                 f"not the whole frame's")
+        if k > inside and not (torch.isinf(acc[0, inside * 1024:]).all()
+                               and torch.isinf(bounds[inside:]).all()):
+            raise AssertionError(f"K2a bunny tiles [{t0}, {t0 + k}): a padded tile hit something")
+    print(f"phase 2: K2a bunny {W}x{H} tile ranges [0, {nt // 2}), [{nt // 2}, {nt}), "
+          f"[{nt - 2}, {nt + 1}): buffer and boxes equal bit for bit to K11a's on each range and "
+          f"to the whole frame's", flush=True)
 
 
 def phase_compare_mega3(dev, built: dict) -> dict:
@@ -498,7 +554,7 @@ def phase_compare_mega3(dev, built: dict) -> dict:
             wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds)
             boxes = packed.shadow_records(records)
             img = mega3.mega3_shade(buf, counts, blob, boxes, wl_s, cnt_s, acc, cfg)
-            acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+            acc2, bounds2 = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg)
             img2 = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc2, cfg)
             torch.cuda.synchronize()
             if img.shape != (h, w, 3) or not torch.isfinite(img).all():
@@ -698,12 +754,14 @@ def phase_compare_soft(dev, built: dict) -> dict:
     tile, K7 (a sum
     over every ray) against its plain version over every ray.  K5 must be
     within 1e-5, K6 and K7 within 1e-4 of each output's largest magnitude;
-    K7 launches twice, to show how far its atomic sums move between runs.
+    K7 launches twice, to show how far its atomic sums move between runs,
+    and K6 twice, whose launches must give the same bits (no atomics).
     K5 must equal itself bit for bit over records that pass every listed
-    group (its soft box tests skip only factors of exactly 1), and K7 on the
-    gradient records (``soft.grad_boxes``) its walk over such records within
-    1e-4 of the largest (its box tests skip only partials of exactly 0; the
-    order of its atomic sums changes)."""
+    group (its soft box tests skip only factors of exactly 1), and K7 and
+    K6 on the gradient records (``soft.grad_boxes``) their walks over such
+    records (their box tests skip only partials of exactly 0): K7 within
+    1e-4 of the largest (the order of its atomic sums changes), K6 bit for
+    bit."""
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.ops import accel
     from raytpu_torch.render import packed, soft
@@ -726,13 +784,16 @@ def phase_compare_soft(dev, built: dict) -> dict:
             raise AssertionError(f"K5 {name}: the soft box tests changed "
                                  f"{int((trans != every).sum())} (light, ray) pairs")
         g = torch.rand(trans.shape, generator=gen, device=dev) * 2.0 - 1.0
-        ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta)
         grad_boxes = soft.grad_boxes(scene, beta)
+        opened = accel.open_normal_boxes(grad_boxes.shape[0], dev)
+        ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta, grad_boxes)
+        ray2 = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta, grad_boxes)
+        ray_every = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta, opened)
         prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta, grad_boxes)
         prim2 = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
                                 grad_boxes)
         prim_every = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
-                                     accel.open_normal_boxes(grad_boxes.shape[0], dev))
+                                     opened)
         sub = _cmp_rays(p.shape[0], dev)
         ps, ds, ms, gs, ts = (p[sub].contiguous(), dirs[:, sub].contiguous(),
                               mags[:, sub].contiguous(), g[:, sub].contiguous(),
@@ -756,18 +817,23 @@ def phase_compare_soft(dev, built: dict) -> dict:
                 "K7": (float((prim - prim_p).abs().max()), _rel_err(prim, prim_p))}
         run_to_run = float((prim - prim2).abs().max())
         vs_every = _rel_err(prim, prim_every)
+        # K6 sums no rays: two launches give the same bits, and over open
+        # records it adds the same partials in the same order
+        k6_repeat = all(_same_bits(a, b) for a, b in zip(ray, ray2))
+        k6_every = all(_same_bits(a, b) for a, b in zip(ray, ray_every))
         g_mags_max = float(ray_p[2].abs().max())
         print(f"phase 2: K5-K7 {name} {w}x{h}, (L, R) {tuple(trans.shape)}, {sub.numel()} rays "
               f"checked for K5 and K6, all for K7: K5 max|diff| {errs['K5'][0]:.3e}, equal bit "
               f"for bit to its walk over every listed group; K6 max|diff| "
               f"{errs['K6'][0]:.3e} ({errs['K6'][1]:.3e} of the largest, g_mags max "
-              f"{g_mags_max:.3e}); K7 max|diff| {errs['K7'][0]:.3e} ({errs['K7'][1]:.3e} of the "
-              f"largest), run to run {run_to_run:.3e}, against its walk over every listed "
-              f"group {vs_every:.3e} of the largest; transmittance < 1 on "
+              f"{g_mags_max:.3e}), its two launches equal bit for bit: {k6_repeat}, to its walk "
+              f"over every listed group: {k6_every}; K7 max|diff| {errs['K7'][0]:.3e} "
+              f"({errs['K7'][1]:.3e} of the largest), run to run {run_to_run:.3e}, against its "
+              f"walk over every listed group {vs_every:.3e} of the largest; transmittance < 1 on "
               f"{float((trans < 1.0).float().mean()):.4f} of pairs; plain K5+K6 {t1 - t0:.1f}s, "
               f"plain K7 {t2 - t1:.1f}s", flush=True)
         if (errs["K5"][0] > 1e-5 or errs["K6"][1] > 1e-4 or errs["K7"][1] > 1e-4
-                or vs_every > 1e-4):
+                or vs_every > 1e-4 or not (k6_repeat and k6_every)):
             raise AssertionError(f"soft kernels {name} {w}x{h} disagree with their plain versions: "
                                  f"{errs}")
         if name.endswith("far_light") and not g_mags_max > 0.0:
@@ -1353,9 +1419,9 @@ def phase_grad_paths(dev, built: dict) -> dict:
     """The differentiable main paths (bench.py:50-54): train steps of SGD on
     mean((image - 0)^2) through render_soft_f32 at 640x480, on the kernels.
     One step first (not counted), then the counts are set to 0, the steps
-    run, and the counts are read: K3 and K5 once a step, K6 and K7 once a
-    step in the light and mesh fit and never in a material fit, no other
-    kernel.  The loss must fall over each fit, and every gradient be
+    run, and the counts are read: K3 and K5 once a step, K6 (its walk and
+    its light sum, K6sum) and K7 once a step in the light and mesh fit and
+    never in a material fit, no other kernel.  The loss must fall over each fit, and every gradient be
     finite.  Each fit's steps are timed on the host clock to a synchronize,
     its peak memory read, and one more step profiled for the idle share."""
     from raytpu_torch.core.types import RenderConfig
@@ -1386,7 +1452,7 @@ def phase_grad_paths(dev, built: dict) -> dict:
         want = {k: 0 for k in counts}
         want.update(K3=steps, K5=steps)
         if fit != "material":
-            want.update(K6=steps, K7=steps)
+            want.update(K6=steps, K6sum=steps, K7=steps)  # K6: its walk and its light sum
         if counts != want:
             raise AssertionError(f"{name} {fit}: {steps} steps launched {counts}, expected {want}")
         if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
@@ -1912,9 +1978,10 @@ def _print_box_stats(key: str, name: str, stats: list) -> None:
 
 
 def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)):
-    """K2a's and K2b's times at 640x480 beside their bounds, counted from
-    this frame's worklists, and with ``k11`` K11a's and K11b's on the same
-    frame (the same work, so the same bounds); the plain versions' times at
+    """K2a's and K2b's times at 640x480 beside their bounds, box-culled
+    from this frame's worklists and records (every listed triangle beside
+    them), and with ``k11`` K11a's and K11b's on the same frame (the same
+    work, so the same bounds); the plain versions' times at
     ``plain_size``, the size they see whole."""
     from raytpu_torch.core import math3d
     from raytpu_torch.core.types import LightKind, RenderConfig
@@ -1928,11 +1995,11 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
     S, P, T, L = counts
     glo, ghi, records = accel.normal_boxes(scene.triangles)  # as the routes build them
     wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
-    acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+    acc, bounds = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg)
     wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi))
     iters = 50 if T < 10000 else 5
-    ms = {"K2a": device_ms(lambda: mega2.mega2_closest(buf, counts, wl, cnt, cfg), iters=iters,
-                           warmup=3),
+    ms = {"K2a": device_ms(lambda: mega2.mega2_closest(buf, counts, records, wl, cnt, cfg),
+                           iters=iters, warmup=3),
           "K2b": device_ms(lambda: mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg),
                            iters=iters, warmup=3)}
     if k11:
@@ -1999,18 +2066,21 @@ def time_mega2(dev, built: dict, name: str, k11: bool = False, plain_size=(W, H)
                    * 4 + frame_b["listed_groups"] * records.shape[1] * 4)
     bounds_of["K2b"] = _box_bound(ops_b - shadow_listed + sum(st["ops"] for st in stats_b), ops_b,
                                   bytes_b_box, stats_b, bytes_b + records.numel() * 4)
-    if k11:  # K11a and K11b test the group boxes: their counts are the box-culled ones
-        st = closest_box_stats(torch.stack(ro)[None, :].expand_as(rd), rd, acc[0], valid, wl,
-                               cnt, records, T)
-        _print_closest_stats("K11a", name, st)
-        ops_box = ops_a - float((tile_rays * _worklist_tris(wl, cnt, T)).sum()) * OPS_TRI
-        # bytes: the scene buffer but its triangles, the triangle records of
-        # the groups some ray crosses up to its hit, the records of the
-        # listed groups, the worklists and the answers
-        bytes_box = (bytes_a - T * plain.TRI_COLS * 4 + st["crossed_group_tris"] * plain.TRI_COLS * 4
-                     + st["listed_groups"] * records.shape[1] * 4)
-        bounds_of["K11a"] = _box_bound(ops_box + st["tris"] * OPS_TRI, ops_a, bytes_box, [st],
-                                       bytes_a + records.numel() * 4)
+    # K2a and K11a, one closest pass, test the normal records up to each
+    # ray's current closest hit: their count is the box-culled one, every
+    # listed triangle in brackets
+    st = closest_box_stats(torch.stack(ro)[None, :].expand_as(rd), rd, acc[0], valid, wl, cnt,
+                           records, T)
+    _print_closest_stats("K2a, K11a", name, st)
+    ops_box = ops_a - float((tile_rays * _worklist_tris(wl, cnt, T)).sum()) * OPS_TRI
+    # bytes: the scene buffer but its triangles, the triangle records of the
+    # groups some ray crosses up to its hit, the records of the listed
+    # groups, the worklists and the answers
+    bytes_box = (bytes_a - T * plain.TRI_COLS * 4 + st["crossed_group_tris"] * plain.TRI_COLS * 4
+                 + st["listed_groups"] * records.shape[1] * 4)
+    bounds_of["a"] = _box_bound(ops_box + st["tris"] * OPS_TRI, ops_a, bytes_box, [st],
+                                bytes_a + records.numel() * 4)
+    if k11:  # K11b tests kappa's records: its count is the box-culled one
         stats = shadow_box_stats(p_off, dirs, mags, hit, wl_s, cnt_s, boxes, T, occ, S, P)
         _print_box_stats("K11b", name, stats)
         bounds_of["K11b"] = _box_bound(ops_b - shadow_listed + sum(st["ops"] for st in stats),
@@ -2132,8 +2202,9 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     queries' worklists (K5's box-culled, with the soft records: every
     sphere and plane, and each triangle of each group whose soft-padded box
     the segment crosses, with the count of every listed triangle beside
-    it; K7's likewise with the gradient records, no sphere or plane); the
-    plain versions' times on the same whole frame when ``plain``."""
+    it; K7's likewise with the gradient records, no sphere or plane; K6's
+    with the gradient records and every sphere and plane); the plain
+    versions' times on the same whole frame when ``plain``."""
     from raytpu_torch.core.types import RenderConfig
     from raytpu_torch.render import packed, soft
     from raytpu_torch.utils.profiling import device_ms
@@ -2154,7 +2225,8 @@ def time_soft(dev, built: dict, name: str, plain: bool):
         "K5": (lambda: soft.soft_trans_lights_cuda(p, dirs, mags, *blobs, boxes, wl, cnt, tmin,
                                                    beta),
                lambda: soft.soft_trans_plain(p, dirs, mags, *blobs, tmin, beta)),
-        "K6": (lambda: soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta),
+        "K6": (lambda: soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, tmin, beta,
+                                      grad_boxes),
                lambda: soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, tmin, beta)),
         "K7": (lambda: soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta,
                                        grad_boxes),
@@ -2171,23 +2243,37 @@ def time_soft(dev, built: dict, name: str, plain: bool):
     stats = shadow_box_stats(p, dirs, mags, every, wl, cnt, boxes, T, None, S, P, soft_ops=(
         OPS_SOFT_SPHERE + OPS_SOFT_MUL, OPS_SOFT_PLANE + OPS_SOFT_MUL, OPS_SOFT_TRI + OPS_SOFT_MUL))
     _print_box_stats("K5", name, stats)
-    # K7's box-culled count: the triangles of each group whose gradient
-    # record's padded box the segment crosses, tri_soft's operations each
-    # (its gradient arithmetic, only where the sigmoid is live, not counted)
+    # K7's and K6's box-culled count: the triangles of each group whose
+    # gradient record's padded box the segment crosses, tri_soft's
+    # operations each (their gradient arithmetic, only where the sigmoid is
+    # live, not counted); K6 adds every sphere and plane
+    frame7 = {}
     stats7 = shadow_box_stats(p, dirs, mags, every, wl, cnt, grad_boxes, T, None, S, P,
-                              soft_ops=(0, 0, OPS_SOFT_TRI))
+                              soft_ops=(0, 0, OPS_SOFT_TRI), frame=frame7)
     _print_box_stats("K7", name, stats7)
+    _print_frame_groups("K6, K7", name, frame7)
+    # K6's bytes: rays, g and trans in, the answers out, the spheres and
+    # planes, the worklists, the records of the listed groups and the
+    # triangle records of the groups some query crosses (every triangle
+    # record and no records in brackets)
+    k6_io = rays_in + L * R * 8 + (blobs[0].numel() + blobs[1].numel()) * 4 + wl_bytes \
+        + R * 12 + L * R * 16
     bounds = {
         "K5": _box_bound(sum(st["ops"] for st in stats),
                          sp_ops + L * R * (S + P) * OPS_SOFT_MUL
                          + tests * (OPS_SOFT_TRI + OPS_SOFT_MUL),
                          rays_in + blob_bytes + boxes.numel() * 4 + wl_bytes + L * R * 4, stats),
-        "K6": _bound(sp_ops + tests * OPS_SOFT_TRI,
-                     rays_in + L * R * 8 + blob_bytes + wl_bytes + R * 12 + L * R * 16),
+        "K6": _box_bound(sp_ops + sum(st["ops"] for st in stats7), sp_ops + tests * OPS_SOFT_TRI,
+                         k6_io + frame7["crossed_group_tris"] * blobs[2].shape[1] * 4
+                         + frame7["listed_groups"] * grad_boxes.shape[1] * 4, stats7,
+                         k6_io + blobs[2].numel() * 4),
         "K7": _box_bound(sum(st["ops"] for st in stats7), tests * OPS_SOFT_TRI,
                          rays_in + L * R * 8 + T * 14 * 4 + grad_boxes.numel() * 4 + wl_bytes
                          + T * 9 * 4, stats7,
                          rays_in + L * R * 8 + T * 14 * 4 + wl_bytes + T * 9 * 4)}
+    # K6's time covers its two kernels; its bound counts the function's bytes,
+    # not the (L, R, 3) scratch its walk writes and its light sum reads
+    bounds["K6"]["scratch_bytes"] = 2 * L * R * 12
     out = {"tests_per_query": tests / (L * R), "queries": L * R}
     for key, (kernel, plain_fn) in calls.items():
         ms = device_ms(kernel, iters=5, warmup=1)
@@ -2197,6 +2283,7 @@ def time_soft(dev, built: dict, name: str, plain: bool):
         e = out[key]
         print(f"phase 4: {key} {name}: {ms:.4f} ms, bound {e['bound_ms']:.4f} ms by "
               f"{e['bound_by']} ({e['ops']:.4e} FP32 ops, {e['bytes']} B)" + _listed_note(e)
+              + (f"; scratch not in the bound {e['scratch_bytes']} B" if key == "K6" else "")
               + f", plain {plain_ms if plain_ms is None else round(plain_ms, 2)} ms; "
               f"{out['tests_per_query']:.1f} triangle tests per (shadow ray, light)", flush=True)
     return out
@@ -2481,6 +2568,7 @@ def phase_times(dev, env: dict, built: dict, worst: dict, main: dict, big: dict,
             "max_abs_err": cmp["max_abs_diff"], "max_abs_diff": cmp["max_abs_diff"],
             "flip_frac": cmp.get("flip_frac"), "max_rel_err": cmp.get("max_rel_err"),
             "scene": HEADLINE[key], "library_ms": None,
+            **({"sum_launches": sum(c["K6sum"] for c in main_launches)} if key == "K6" else {}),
             **head,
             "per_scene": {n: v[key] for n, v in per_scene.items() if key in v}})
     entries += probes

@@ -2,8 +2,8 @@
 and the shadow-walk kernels' times and answers, for comparing two trees of
 the repo on one CUDA card.
 
-    python3 frame_ab.py [--out DIR]   # from the root of a tree; prints one JSON line
-    python3 frame_ab.py --compare DIR # the trees' K4, K10, K5, K3, K11a, K9, K2b, K8, K7 answers
+    python3 frame_ab.py [--out DIR] [--kernels K6 K2a]  # from the root of a tree; one JSON line
+    python3 frame_ab.py --compare DIR [--kernels K6 K2a]  # the trees' answers, kernel by kernel
 
 It times animated 640x480 frames through ``render_image`` with CUDA events,
 as ``chip_smoke.py`` phase 4 does: reference (64 frames), bunny and
@@ -45,17 +45,26 @@ closest mode, and shadow mode on every light's shadow queries of its hits
 flattened into one batch, saving its (t, idx, normal, material) and the
 shadow mode's t; and K7 (``soft.soft_dprim``) on K5's queries, worklists
 and transmittance of optional, bunny50k and bunny300k (K7_SCENES) with a
-seeded random cotangent, saving its (T, 9) sums.  Each wrapper is called
+seeded random cotangent, saving its (T, 9) sums; K6 (``soft.soft_dray``)
+on the same inputs (K6_SCENES), saving its g_p, g_dirs and g_mags; and K2a
+(``mega2.mega2_closest``) on frame 0 of bunny and optional and on the
+second rank's tile range of the pixel-sharded bunny render ("bunny px1",
+K2A_SCENES), saving its buffer and tile boxes and recording whether they
+equal K11a's on the same worklists bit for bit.  Each wrapper is called
 with the box records where the tree's takes them, built as the tree's
-route builds them.
+route builds them.  ``--kernels`` keeps the frames and the steps and
+times and saves only the kernels it names (K4 and K11b are timed
+together).
 
 An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
 _work/parent``), then counts the (light, ray) pairs of K4, K5 and K9, the
-(pixel, channel) entries of K10 and K2b and the words of K3's, K11a's and
-K8's answers in which the trees' answers differ, and for K7, whose atomic
-sums move in their last bits from run to run, the largest difference over
-the largest magnitude, which must stay within K7_TOL:
+(pixel, channel) entries of K10 and K2b and the words of K3's, K11a's,
+K8's, K6's and K2a's answers in which the trees' answers differ, and for
+K7, whose atomic sums move in their last bits from run to run, and K6's
+g_p, which a tree may sum over the lights in another order, the largest
+difference over the largest magnitude, which must stay within K7_TOL and
+K6_TOL:
 
     for t in _work/parent . . _work/parent; do (cd $t && python3 $OLDPWD/frame_ab.py \
         --out $OLDPWD/_work/ab); done; python3 frame_ab.py --compare _work/ab
@@ -100,6 +109,18 @@ K8_SCENES = K9_SCENES
 K7_SCENES = ("optional", "bunny50k", "bunny300k")
 #: K7's trees agree within this share of the largest magnitude
 K7_TOL = 1e-4
+#: the scenes on which K6 is timed and its three outputs saved
+K6_SCENES = K7_SCENES
+#: K6's outputs, each saved and compared on its own: g_p, which a tree may
+#: sum over the lights in another order (within K6_TOL of its largest), and
+#: g_dirs and g_mags (bit for bit)
+K6_PARTS = ("k6_gp", "k6_gdirs", "k6_gmags")
+K6_TOL = 1e-4
+#: the frames on which K2a is timed and its buffer and boxes saved: bunny's
+#: and optional's, and (" px1") the tiles of the second of two px ranks
+K2A_SCENES = ("bunny", "optional", "bunny px1")
+#: every kernel this script times, in its order; K4 and K11b together
+KERNELS = ("K4", "K11b", "K10", "K5", "K3", "K11a", "K9", "K2b", "K8", "K7", "K6", "K2a")
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -117,9 +138,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="directory for the kernels' answers, one file per tree, "
                     "kernel and scene")
     ap.add_argument("--compare", metavar="DIR", help="compare the trees' answers in DIR")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the kernels to time and save or compare (default: all)")
     args = ap.parse_args(argv)
     if args.compare:
-        return compare(args.compare)
+        return compare(args.compare, args.kernels)
+    want = set(args.kernels)
 
     import numpy as np
     import torch
@@ -181,31 +205,36 @@ def main(argv=None) -> int:
         out["optional_light_mesh_step_device_busy_ms"] = busy
     if hasattr(cs, "SHARDED_CASES"):
         out["sharded_wall_ms"] = _sharded(cs.SHARDED_CASES)
-    for name in KERNEL_SCENES:
+    for name in KERNEL_SCENES if want & {"K4", "K11b"} else ():
         out[name + "_kernels"] = _shadow_kernels(built[name], cfg, tree, name, args.out)
-    for name in K10_SCENES:
+    for name in K10_SCENES if "K10" in want else ():
         if name in built:
             out[name + "_K10"] = _k10(built[name], cfg, tree, name, args.out)
-    for name in K5_SCENES:
+    for name in K5_SCENES if "K5" in want else ():
         out[name + "_K5"] = _k5(built[name], cfg, tree, name, args.out)
-    for name in K3_SCENES:
+    for name in K3_SCENES if "K3" in want else ():
         out[name + "_K3"] = _k3(built[name], cfg, tree, name, args.out)
-    for name in K11A_SCENES:
+    for name in K11A_SCENES if "K11a" in want else ():
         out[name + "_K11a"] = _k11a(built[name], cfg, tree, name, args.out)
-    for key in K9_SCENES:
+    for key in K9_SCENES if "K9" in want else ():
         name, *order = key.split()
         if name in built:
             out["-".join(key.split()) + "_K9"] = _k9(built[name], cfg, tree, key, args.out,
                                                      rows=bool(order))
-    for name in K2B_SCENES:
+    for name in K2B_SCENES if "K2b" in want else ():
         out[name + "_K2b"] = _k2b(built[name], cfg, tree, name, args.out)
-    for key in K8_SCENES:
+    for key in K8_SCENES if "K8" in want else ():
         name, *order = key.split()
         if name in built:
             out["-".join(key.split()) + "_K8"] = _k8(built[name], cfg, tree, key, args.out,
                                                      rows=bool(order))
-    for name in K7_SCENES:
+    for name in K7_SCENES if "K7" in want else ():
         out[name + "_K7"] = _k7(built[name], cfg, tree, name, args.out)
+    for name in K6_SCENES if "K6" in want else ():
+        out[name + "_K6"] = _k6(built[name], cfg, tree, name, args.out)
+    for key in K2A_SCENES if "K2a" in want else ():
+        out["-".join(key.split()) + "_K2a"] = _k2a(built[key.split()[0]], cfg, tree, key,
+                                                   args.out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -337,16 +366,33 @@ def _k7(scene, cfg, tree: str, name: str, outdir) -> dict:
     """K7's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's soft
     shadow queries at 640x480 as the differentiable path forms them, K5's
     worklists and transmittance and a cotangent drawn from a seeded
-    generator, with the gradient records where the tree's K7 takes them;
-    its (T, 9) sums saved."""
+    generator (``_soft_inputs``), with the gradient records where the
+    tree's K7 takes them; its (T, 9) sums saved."""
     import dataclasses
 
-    import torch
-
-    from raytpu_torch.render import packed, renderer, soft
+    from raytpu_torch.render import soft
     from raytpu_torch.utils.profiling import device_ms
 
     cfg = dataclasses.replace(cfg, soft_shadows=True)
+    p, dirs, mags, g, trans, blobs, wl, cnt = _soft_inputs(scene, cfg)
+    args = [p, dirs, mags, g, trans, blobs[2], wl, cnt, cfg.ray_min, cfg.soft_beta]
+    if "boxes" in inspect.signature(soft.soft_dprim).parameters:
+        args.append(soft.grad_boxes(scene, cfg.soft_beta))
+    out = soft.soft_dprim(*args)
+    res = {"K7_ms": _spread([device_ms(lambda: soft.soft_dprim(*args), iters=KERNEL_ITERS,
+                                       warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "k7", name, tree, out, (p, dirs, mags, g, trans))}
+
+
+def _soft_inputs(scene, cfg):
+    """The soft shadow queries of the scene's unanimated frame at 640x480 as
+    the differentiable path forms them, K5's worklists and transmittance
+    and a cotangent drawn from a seeded generator: ``(p, dirs, mags, g,
+    trans, blobs, wl, cnt)``."""
+    import torch
+
+    from raytpu_torch.render import packed, renderer, soft
+
     W, H, tmin, beta = cfg.width, cfg.height, cfg.ray_min, cfg.soft_beta
     ro, rd = renderer.generate_rays(scene.camera, cfg)
     rd = packed.mega2_fold(rd, H, W)
@@ -357,13 +403,66 @@ def _k7(scene, cfg, tree: str, name: str, outdir) -> dict:
     trans, (blobs, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
     g = torch.rand(trans.shape, generator=torch.Generator(device=trans.device).manual_seed(2),
                    device=trans.device) * 2.0 - 1.0
-    args = [p, dirs, mags, g, trans, blobs[2], wl, cnt, tmin, beta]
-    if "boxes" in inspect.signature(soft.soft_dprim).parameters:
-        args.append(soft.grad_boxes(scene, beta))
-    out = soft.soft_dprim(*args)
-    res = {"K7_ms": _spread([device_ms(lambda: soft.soft_dprim(*args), iters=KERNEL_ITERS,
+    return p, dirs, mags, g, trans, blobs, wl, cnt
+
+
+def _k6(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K6's ms (REPEATS runs of KERNEL_ITERS launches) on K7's inputs
+    (``_soft_inputs``), with the gradient records where the tree's K6
+    takes them; its g_p, g_dirs and g_mags saved, one file each
+    (K6_PARTS)."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.render import soft
+    from raytpu_torch.utils.profiling import device_ms
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    p, dirs, mags, g, trans, blobs, wl, cnt = _soft_inputs(scene, cfg)
+    args = [p, dirs, mags, g, trans, *blobs, wl, cnt, cfg.ray_min, cfg.soft_beta]
+    if "boxes" in inspect.signature(soft.soft_dray).parameters:
+        args.append(soft.grad_boxes(scene, cfg.soft_beta))
+    outs = soft.soft_dray(*args)
+    res = {"K6_ms": _spread([device_ms(lambda: soft.soft_dray(*args), iters=KERNEL_ITERS,
                                        warmup=1) for _ in range(REPEATS)])}
-    return {**res, **_save(outdir, "k7", name, tree, out, (p, dirs, mags, g, trans))}
+    for part, x in zip(K6_PARTS, outs):
+        res[part] = _save(outdir, part, name, tree, x, (p, dirs, mags, g, trans))
+    return res
+
+
+def _k2a(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K2a's ms (REPEATS runs of KERNEL_ITERS launches) on the scene's
+    unanimated frame, or with ``name`` "... px1" on the tiles of the second
+    of two px ranks, its inputs built as the tree's mega2 route builds
+    them; its buffer and tile boxes saved as one row, and whether they
+    equal K11a's on the same worklists and records bit for bit."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, mega3, plain
+    from raytpu_torch.utils.profiling import device_ms
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    tile0, tiles = 0, None
+    if name.endswith("px1"):
+        tiles = -(-mega2.num_tiles(cfg) // 2)
+        tile0 = tiles
+    glo, ghi, records = accel.normal_boxes(scene.triangles)
+    wl, cnt = mega2.primary_worklists(scene, cfg, tile0, tiles, (glo, ghi))
+    walks = "boxes" in inspect.signature(mega2.mega2_closest).parameters
+    args = [buf, counts, *([records] if walks else []), wl, cnt, cfg, tile0, tiles]
+    acc, bounds = mega2.mega2_closest(*args)
+    res = {"K2a_ms": _spread([device_ms(lambda: mega2.mega2_closest(*args), iters=KERNEL_ITERS,
+                                        warmup=1) for _ in range(REPEATS)])}
+    if "boxes" in inspect.signature(mega3.mega3_closest).parameters:
+        acc11, bounds11 = mega3.mega3_closest(buf, counts, mega3.pack_groups(buf, counts),
+                                              records, wl, cnt, cfg, tile0, tiles)
+        res["equal_to_k11a"] = bool(torch.equal(acc.view(torch.int32), acc11.view(torch.int32))
+                                    and torch.equal(bounds.view(torch.int32),
+                                                    bounds11.view(torch.int32)))
+    return {**res, **_save(outdir, "k2a", name, tree,
+                           torch.cat([acc.flatten(), bounds.flatten()]), (buf, wl, cnt))}
 
 
 def _k2b(scene, cfg, tree: str, name: str, outdir) -> dict:
@@ -378,7 +477,8 @@ def _k2b(scene, cfg, tree: str, name: str, outdir) -> dict:
     if "boxes" in inspect.signature(mega2.mega2_shade).parameters:  # K2b walks the records
         glo, ghi, boxes = accel.normal_boxes(scene.triangles)
         wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
-        acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+        k2a_boxes = [boxes] if "boxes" in inspect.signature(mega2.mega2_closest).parameters else []
+        acc, bounds = mega2.mega2_closest(buf, counts, *k2a_boxes, wl, cnt, cfg)
         args = [buf, counts, boxes, *mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi)), acc,
                 cfg]
     else:
@@ -543,14 +643,15 @@ def _shadow_kernels(scene, cfg, tree: str, name: str, outdir) -> dict:
     return res
 
 
-def compare(outdir: str) -> int:
+def compare(outdir: str, kernels=KERNELS) -> int:
     """Count the entries in which two trees' answers differ, kernel by
-    kernel and scene by scene, from the files ``--out`` wrote: K4's, K5's
-    and K9's (light, ray) pairs, K10's and K2b's (pixel, channel) entries,
-    K3's, K11a's and K8's words; for K7 also the largest difference over
-    the largest magnitude.  Non-zero unless every kernel and scene has both
+    kernel and scene by scene, from the files ``--out`` wrote, for the
+    ``kernels`` named: K4's, K5's and K9's (light, ray) pairs, K10's and
+    K2b's (pixel, channel) entries, K3's, K11a's, K8's, K6's and K2a's
+    words; for K7 and K6's g_p also the largest difference over the
+    largest magnitude.  Non-zero unless every kernel and scene has both
     trees' answers, on the same inputs, and none differ (K7: none beyond
-    K7_TOL of the largest)."""
+    K7_TOL of the largest; K6's g_p: K6_TOL)."""
     import glob
 
     import numpy as np
@@ -558,7 +659,11 @@ def compare(outdir: str) -> int:
     ok, out = True, {}
     for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES),
                           ("k3", K3_SCENES), ("k11a", K11A_SCENES), ("k9", K9_SCENES),
-                          ("k2b", K2B_SCENES), ("k8", K8_SCENES), ("k7", K7_SCENES)):
+                          ("k2b", K2B_SCENES), ("k8", K8_SCENES), ("k7", K7_SCENES),
+                          *((part, K6_SCENES) for part in K6_PARTS), ("k2a", K2A_SCENES)):
+        stem = kernel.split("_")[0]  # k6_gp -> k6
+        if not any(k.lower() == stem or (stem, k) == ("k4", "K11b") for k in kernels):
+            continue
         for name in names:
             name = "-".join(name.split())  # "optional_l12 rows" -> optional_l12-rows
             prefix = os.path.join(outdir, f"{kernel}_{name}_")
@@ -579,10 +684,10 @@ def compare(outdir: str) -> int:
                 differ = int((a["x"].view(word) != b["x"].view(word)).sum())
             out[key] = {"trees": [ta, tb], "entries": entries, "entries_differ": differ,
                         "same_inputs": same_inputs}
-            if kernel == "k7":  # atomic sums: within K7_TOL of the largest
+            if kernel in ("k7", "k6_gp"):  # atomic sums, or lights in another order
                 rel = float(np.abs(a["x"] - b["x"]).max()) / max(float(np.abs(b["x"]).max()), 1e-30)
                 out[key]["max_diff_over_largest"] = rel
-                ok = ok and same_inputs and rel <= K7_TOL
+                ok = ok and same_inputs and rel <= (K7_TOL if kernel == "k7" else K6_TOL)
                 continue
             ok = ok and same_inputs and differ == 0
     print(json.dumps({"answers": out, "equal": ok}), flush=True)

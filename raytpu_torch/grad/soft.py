@@ -3,8 +3,8 @@
 Counterpart of ``raytpu/grad/soft.py``.  ``soft_trans_lights`` computes the
 (L, R) transmittance of the shadow rays.  With ``kernels=True`` it is a
 ``torch.autograd.Function``: the forward is K5 (``render/soft.py``), the
-backward K6 for the rays and K7 for the triangle vertices (on the gradient
-records, ``soft.grad_boxes``, built once a backward), and autograd of
+backward K6 for the rays and K7 for the triangle vertices (both on the
+gradient records, ``soft.grad_boxes``, built once a backward), and autograd of
 the eager transmittance of a triangle-free scene for the spheres and planes
 (``_scene_cotangent``).  The backward computes only what its inputs need
 (``ctx.needs_input_grad``), as XLA's dead-code elimination prunes raytpu's:
@@ -64,17 +64,20 @@ class _SoftTrans(torch.autograd.Function):
         g = g.contiguous()
         need = ctx.needs_input_grad
         tmin, beta, (sph, pln, tri), wl, cnt = ctx.tmin, ctx.beta, ctx.blobs, ctx.wl, ctx.cnt
+        rays, verts = any(need[3:6]), any(need[10:13]) and tri.shape[0] > 0
+        # the gradient records, built once a backward for K6 and K7 (the
+        # CPU's plain versions need none)
+        boxes = (soft.grad_boxes(ctx.scene, beta)
+                 if (rays or verts) and p.device.type != "cpu" else None)
         g_ray = (None, None, None)
-        if any(need[3:6]):
-            g_ray = soft.soft_dray(p, dirs, mags, g, trans, sph, pln, tri, wl, cnt, tmin, beta)
+        if rays:
+            g_ray = soft.soft_dray(p, dirs, mags, g, trans, sph, pln, tri, wl, cnt, tmin, beta,
+                                   boxes)
         g_sp = (None,) * 4
         if any(need[6:10]):
             g_sp = _scene_cotangent(ctx.scene, need[6:10], tmin, beta, p, dirs, mags, g, trans)
         g_v = (None,) * 3
-        if any(need[10:13]) and tri.shape[0]:
-            # the gradient records, built once a backward (the CPU's plain
-            # version needs none)
-            boxes = None if p.device.type == "cpu" else soft.grad_boxes(ctx.scene, beta)
+        if verts:
             out = soft.soft_dprim(p, dirs, mags, g, trans, tri, wl, cnt, tmin, beta, boxes)
             g_s, g_e1, g_e2 = out[:, 0:3], out[:, 3:6], out[:, 6:9]
             # e1 = v1 - v0, e2 = v2 - v0, s = p - v0 (pallas_soft.py:1820-1822)

@@ -11,14 +11,16 @@ from raytpu_torch.render.renderer import generate_rays, render_image_ssaa  # noq
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, K1 to K11b and the probes P1, P2."""
+    """Every kernel wrapper's launch count, K1 to K11b and the probes P1, P2;
+    K6's second kernel, its light sum, as K6sum."""
     from raytpu_torch.probes import probe_dma_smem, probe_smem
     from raytpu_torch.render import chunked, cuda_kernel, mega2, mega3, packed, soft
 
     return {"K1": cuda_kernel.MEGA_LAUNCHES, "K2a": mega2.MEGA2_CLOSEST_LAUNCHES,
             "K2b": mega2.MEGA2_SHADE_LAUNCHES, "K3": packed.PACKED_CLOSEST_LAUNCHES,
             "K4": packed.PACKED_ANYHIT_LAUNCHES, "K5": soft.SOFT_TRANS_LAUNCHES,
-            "K6": soft.SOFT_DRAY_LAUNCHES, "K7": soft.SOFT_DPRIM_LAUNCHES,
+            "K6": soft.SOFT_DRAY_LAUNCHES, "K6sum": soft.SOFT_DRAY_SUM_LAUNCHES,
+            "K7": soft.SOFT_DPRIM_LAUNCHES,
             "K8": chunked.CHUNKED_MIN_T_LAUNCHES, "K9": chunked.CHUNKED_ANYHIT_LAUNCHES,
             "K10": chunked.CHUNKED_SHADE_LAUNCHES, "K11a": mega3.MEGA3_CLOSEST_LAUNCHES,
             "K11b": mega3.MEGA3_SHADE_LAUNCHES, "P1": probe_smem.P1_LAUNCHES,
@@ -34,6 +36,7 @@ def reset_launch_counts() -> None:
     mega2.MEGA2_CLOSEST_LAUNCHES = mega2.MEGA2_SHADE_LAUNCHES = 0
     packed.PACKED_CLOSEST_LAUNCHES = packed.PACKED_ANYHIT_LAUNCHES = 0
     soft.SOFT_TRANS_LAUNCHES = soft.SOFT_DRAY_LAUNCHES = soft.SOFT_DPRIM_LAUNCHES = 0
+    soft.SOFT_DRAY_SUM_LAUNCHES = 0
     chunked.CHUNKED_MIN_T_LAUNCHES = chunked.CHUNKED_ANYHIT_LAUNCHES = 0
     chunked.CHUNKED_SHADE_LAUNCHES = 0
     mega3.MEGA3_CLOSEST_LAUNCHES = mega3.MEGA3_SHADE_LAUNCHES = 0

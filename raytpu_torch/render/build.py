@@ -100,11 +100,14 @@ def load():
         lib.raytpu_mega_render.restype = c_int
         # scene, S, P, T | wl, cnt, wl_cols, W, H, tiled, tile0, tiles
         tiles_in = [c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int, c_int]
-        closest_out = [c_float, c_float, c_ptr, c_ptr, c_ptr]  # tmin, offset, acc, bounds, stream
         # feed, mode, shadows, tmin, offset, shadow_dim, acc, out, stream
         shade_out = [c_int, c_int, c_int, c_float, c_float, c_float, c_ptr, c_ptr, c_ptr]
-        lib.raytpu_mega2_closest.argtypes = [c_ptr, c_int, c_int, c_int] + tiles_in + closest_out
+        # scene, S, P, T, boxes | tiles_in | tmin, offset, acc, part, done, bounds, stream
+        lib.raytpu_mega2_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr] + tiles_in
+                                             + [c_float, c_float] + [c_ptr] * 5)
         lib.raytpu_mega2_closest.restype = c_int
+        lib.raytpu_closest_blocks_per_tile.argtypes = []
+        lib.raytpu_closest_blocks_per_tile.restype = c_int
         # scene, S, P, T, L, boxes
         lib.raytpu_mega2_shade.argtypes = ([c_ptr, c_int, c_int, c_int, c_int, c_ptr] + tiles_in
                                            + shade_out)
@@ -135,7 +138,9 @@ def load():
         sp_tri = [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]  # spheres, planes, triangles
         lib.raytpu_soft_trans.argtypes = soft_in + sp_tri + [c_ptr] + soft_wl + [c_ptr, c_ptr]
         lib.raytpu_soft_trans.restype = c_int
-        lib.raytpu_soft_dray.argtypes = soft_in + sp_tri + soft_wl + [c_ptr] * 6
+        # ... boxes, wl, cnt, wl_cols, tmin, beta, g, trans, g_p, g_dirs, g_mags, scratch,
+        # stream
+        lib.raytpu_soft_dray.argtypes = soft_in + sp_tri + [c_ptr] + soft_wl + [c_ptr] * 7
         lib.raytpu_soft_dray.restype = c_int
         # ... triangles, T, boxes, wl, cnt, wl_cols, tmin, beta, g, trans, out, stream
         lib.raytpu_soft_dprim.argtypes = soft_in + [c_ptr, c_int, c_ptr] + soft_wl + [c_ptr] * 4

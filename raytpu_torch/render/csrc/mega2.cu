@@ -23,9 +23,9 @@
 // row-major pixels with the ragged end masked (common.cuh:tile_pixel).
 // Both passes take a range of the frame's tiles [tile0, tile0 + tiles), the
 // per-rank body of the px-sharded render (render_image_mega2_f32's
-// tile0/tiles); K2b then writes the range's rays in feed order.  K2a: one
-// block of 1024 threads per tile, one thread per ray.  K2b: eight blocks of
-// 128 a tile, each warp on an 8x4 pixel block (shadow.cuh:warp_slot).
+// tile0/tiles); K2b then writes the range's rays in feed order.  Both:
+// eight blocks of 128 a tile, each warp on an 8x4 pixel block
+// (shadow.cuh:warp_slot).
 // Worklists hold each tile's passing groups in ascending order; with the
 // strict < update a tie goes to the first primitive in sphere -> plane ->
 // triangle order, as in the eager argmin.
@@ -41,22 +41,26 @@
 // of 1,200 triangles, its chain of launches and its (8,128) register tiles
 // are layout artifacts that are not ported: here each pass is one launch at
 // any triangle count.  Spheres, planes, the camera and the lights sit in
-// shared memory; triangles stay in device memory.  K2a: all threads of a
-// block read the same group at the same time, which the cache serves as a
-// broadcast.  K2b's shadow worklists are the union over a whole tile's
-// offset hit points, so each query walks them with shadow.cuh's group walk,
-// as K11b (mega3.cu) does: the warp's bundle, then each ray, test the
-// groups' normal records (accel.normal_boxes: the padded box, widened for
-// the ray by a bound of tri_t's error that the group's triangle normals
-// narrow for rays far from grazing), a warp leaves a row once its rays are
-// resolved, and a query runs the triangles of the few groups its segment
-// crosses.  The occlusion does not depend on which listed triangles are
-// tested, so the image equals the fold over every listed triangle, and
-// K11b's image, bit for bit.  A miss skips K2b's lights.  The arithmetic is
-// common.cuh's, so the passes agree with their plain versions (mega2.py)
-// up to powf's last bit.
+// shared memory; triangles stay in device memory.  A worklist row is the
+// union over a whole tile, so each ray walks it with shadow.cuh's group
+// walk and the normal records, which the route builds once a frame for
+// both culls and both passes.  K2a is K11a's body (closest.cuh's
+// closest_pass, the closest walk: each ray tests a group's record up to
+// its current closest hit), reading the triangles from the scene buffer;
+// its buffer and boxes equal the fold over every listed triangle, and
+// K11a's, bit for bit.  K2b walks its shadow worklists as K11b (mega3.cu)
+// does: the warp's bundle, then each ray, test the groups' normal records
+// (accel.normal_boxes: the padded box, widened for the ray by a bound of
+// tri_t's error that the group's triangle normals narrow for rays far from
+// grazing), a warp leaves a row once its rays are resolved, and a query
+// runs the triangles of the few groups its segment crosses.  The
+// occlusion does not depend on which listed triangles are tested, so the
+// image equals the fold over every listed triangle, and K11b's image, bit
+// for bit.  A miss skips K2b's lights.  The arithmetic is common.cuh's, so
+// the passes agree with their plain versions (mega2.py) up to powf's last
+// bit.
 
-#include "shadow.cuh"
+#include "closest.cuh"
 
 namespace {
 
@@ -64,123 +68,16 @@ using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
 constexpr int kShadeBlock = 128;  // K2b's threads a block: 4 warps
-constexpr int kGroup = 8;
-constexpr int kAccRows = 11;  // t, normal(3), material(7)
 
-__global__ void __launch_bounds__(kTile) mega2_closest_kernel(
-    const float* __restrict__ scene, int S, int P, int T, const int* __restrict__ wl,
-    const int* __restrict__ cnt, int wl_cols, int W, int H, int tiled, int tile0, float tmin,
-    float normal_offset, float* __restrict__ acc, float* __restrict__ bounds) {
-  extern __shared__ float sm[];  // cam | spheres | planes
-  __shared__ float part[6][32];
-  const int n = kCam + S * kSph + P * kPln;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
-  __syncthreads();
-  const float* cam = sm;
-  const float* sph = cam + kCam;
-  const float* pln = sph + S * kSph;
-  const float* tri = scene + n;  // device memory
-  const int tile = blockIdx.x;
-  const int slots = gridDim.x * kTile;
-
-  int pxi = 0, pyi = 0;
-  const bool valid = tile_pixel(tile0 + tile, threadIdx.x, W, H, tiled, &pxi, &pyi);
-  const float rox = cam[0], roy = cam[1], roz = cam[2];
-  float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
-  float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-  bool is_sph = false;
-  const float* mat = nullptr;
-  if (valid) {
-    raygen(cam, pxi, pyi, W, H, &rdx, &rdy, &rdz);
-    for (int s = 0; s < S; ++s) {
-      const float* r = sph + s * kSph;
-      const float tc = sphere_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
-      if (tc < t) {
-        t = tc;
-        nx = fmaf(tc, rdx, rox) - r[0];
-        ny = fmaf(tc, rdy, roy) - r[1];
-        nz = fmaf(tc, rdz, roz) - r[2];
-        is_sph = true;
-        mat = r + 4;
-      }
-    }
-    for (int p = 0; p < P; ++p) {
-      const float* r = pln + p * kPln;
-      const float tc = plane_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
-      if (tc < t) {
-        t = tc;
-        nx = r[0];
-        ny = r[1];
-        nz = r[2];
-        is_sph = false;
-        mat = r + 4;
-      }
-    }
-    const int* w = wl + (size_t)tile * wl_cols;
-    const int c = min(cnt[tile], wl_cols);
-    for (int e = 0; e < c; ++e) {
-      const int g = w[e];
-      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-      const int k1 = min(g * kGroup + kGroup, T);
-      for (int k = g * kGroup; k < k1; ++k) {
-        const float* r = tri + (size_t)k * kTri;
-        const float tc = tri_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY, false);
-        if (tc < t) {
-          t = tc;
-          nx = r[9];
-          ny = r[10];
-          nz = r[11];
-          is_sph = false;
-          mat = r + 13;
-        }
-      }
-    }
-  }
-
-  float* a = acc + (size_t)tile * kTile + threadIdx.x;  // row q at a[q * slots]
-  float box[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  if (t < INFINITY) {
-    if (is_sph) {  // normalized after the selection (reference: source/Scene.cpp:40)
-      const float n_len = sqrtf(fmaxf(sqn(nx, ny, nz), 1e-20f));
-      nx = nx / n_len;
-      ny = ny / n_len;
-      nz = nz / n_len;
-    }
-    // the offset hit point, exactly as K2b's shade_hit forms its shadow origin
-    const float ox = fmaf(nx, normal_offset, fmaf(t, rdx, rox));
-    const float oy = fmaf(ny, normal_offset, fmaf(t, rdy, roy));
-    const float oz = fmaf(nz, normal_offset, fmaf(t, rdz, roz));
-    box[0] = box[3] = ox;
-    box[1] = box[4] = oy;
-    box[2] = box[5] = oz;
-    a[0] = t;
-    a[slots] = nx;
-    a[2 * slots] = ny;
-    a[3 * slots] = nz;
-    for (int q = 0; q < 7; ++q) a[(4 + q) * slots] = mat[q];
-  } else {
-    a[0] = INFINITY;
-    for (int q = 1; q < kAccRows; ++q) a[q * slots] = 0.0f;
-  }
-
-  // the tile's box: min/max over warps by shuffles, then over the 32 warps
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-    for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-  }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0)
-    for (int q = 0; q < 6; ++q) part[q][warp] = box[q];
-  __syncthreads();
-  if (warp == 0) {
-    for (int q = 0; q < 6; ++q) box[q] = part[q][lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-      for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(0xffffffffu, box[q], off));
-    }
-    if (lane == 0)
-      for (int q = 0; q < 6; ++q) bounds[tile * 6 + q] = box[q];
-  }
+// K2a: closest.cuh's closest pass (K11a's body), the triangles read from
+// the scene buffer as 20-float records.
+__global__ void __launch_bounds__(kClosestBlock, 4) mega2_closest_kernel(
+    const float* __restrict__ scene, int S, int P, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, int W, int H,
+    int tiled, int tile0, float tmin, float normal_offset, float* __restrict__ acc,
+    float* __restrict__ part, unsigned* __restrict__ done, float* __restrict__ bounds) {
+  closest_pass(scene, S, P, T, scene + kCam + S * kSph + P * kPln, boxes, wl, cnt, wl_cols, W,
+               H, tiled, tile0, tmin, normal_offset, acc, part, done, bounds);
 }
 
 // K2b: one thread per ray slot, blocks of kShadeBlock threads, kTile /
@@ -275,17 +172,23 @@ __global__ void __launch_bounds__(kShadeBlock, 4) mega2_shade_kernel(
 extern "C" {
 
 // Launches K2a on `stream` over the frame's tiles [tile0, tile0 + tiles)
-// (the whole frame: 0 and ceil(W*H/1024)).  `wl` (tiles, wl_cols) and `cnt`
-// (tiles,) are the tiles' group worklists; `acc` is 11 x tiles*1024
-// float32 and `bounds` tiles x 6.  Returns cudaGetLastError() after the
-// launch.
-int raytpu_mega2_closest(const float* scene, int S, int P, int T, const int* wl, const int* cnt,
-                         int wl_cols, int W, int H, int tiled, int tile0, int tiles,
-                         float ray_min, float normal_offset, float* acc, float* bounds,
-                         void* stream) {
+// (the whole frame: 0 and ceil(W*H/1024)).  `boxes` (ceil(T/8), 32)
+// float32 are the normal records (accel.normal_boxes), 16-byte aligned;
+// `wl` (tiles, wl_cols) and `cnt` (tiles,) the tiles' group worklists;
+// `acc` is 11 x tiles*1024 float32 and `bounds` tiles x 6; `part` (tiles *
+// raytpu_closest_blocks_per_tile(), 6) float32 scratch for the blocks'
+// partial boxes and `done` (tiles,) uint32 zeros, the blocks' counts
+// (nonzero after it).  Returns cudaGetLastError() after the launch.
+int raytpu_mega2_closest(const float* scene, int S, int P, int T, const float* boxes,
+                         const int* wl, const int* cnt, int wl_cols, int W, int H, int tiled,
+                         int tile0, int tiles, float ray_min, float normal_offset, float* acc,
+                         float* part, unsigned* done, float* bounds, void* stream) {
+  if (tiles == 0) return static_cast<int>(cudaSuccess);
   const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln);
-  mega2_closest_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      scene, S, P, T, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset, acc, bounds);
+  mega2_closest_kernel<<<tiles * kClosestBlocksPerTile, kClosestBlock, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      scene, S, P, T, boxes, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset, acc,
+      part, done, bounds);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,25 +16,25 @@
 //         material kinds -> 0.95 dim per occluded light -> MaxToOne ->
 //         (H, W, 3) float32, or a tile range's rays in feed order.
 //
-// What differs from K2 is which triangles each ray tests.  K2 folds every
-// triangle of its tile's worklist for every ray, a 1024-thread block a
-// tile.  K11a and K11b walk the worklists with shadow.cuh's group walk, a
-// warp at a time: each ray tests the boxes of its row's groups, padded and
-// widened for the ray (after a test of the warp's bundle of rays), and
-// runs the triangles of a group only where its segment crosses the box.
+// K11a and K2a are one body, closest.cuh's closest_pass, which reads the
+// triangles from the blob here and from the scene buffer there.  K11b
+// walks as K2b does, with kappa's 8-float records where K2b reads the
+// normal records.  K11a and K11b walk the worklists with shadow.cuh's
+// group walk, a warp at a time: each ray tests the boxes of its row's
+// groups, padded and widened for the ray (after a test of the warp's
+// bundle of rays), and runs the triangles of a group only where its
+// segment crosses the box.
 // K11a's segment is the ray up to its current closest hit (the closest
 // walk: it shrinks as hits are found and never ends a row early); K11b's
 // is each light's shadow segment, and a warp leaves the row once all its
 // rays are resolved.  Warps then walk different entries, so a block-wide
 // shared-memory ring (raytpu's DMA ring, which K11a used to fold through)
 // no longer feeds them: the records come from device memory through the
-// caches, and blocks are 128 threads, eight to a tile.  The closest walk
-// returns the fold over every listed triangle bit for bit, and the any-hit
-// answer does not depend on which listed triangles are tested, so K11a's
-// buffer and boxes equal K2a's and K11b's image equals K2b's bit for bit
-// as long as the box tests are conservative (shadow.cuh says why they
-// are).  K11a's tile box of offset hit points comes from its eight blocks:
-// min and max are exact in any order.
+// caches, and blocks are 128 threads, eight to a tile.  The any-hit
+// answer does not depend on which listed triangles are tested, so K11b's
+// image equals K2b's bit for bit as long as the box tests are conservative
+// (shadow.cuh says why they are); K11a's buffer and boxes are K2a's, the
+// same function of the same records.
 //
 // What bounds it.  As K2: FP32 arithmetic, ~50 operations for each
 // ray-triangle test and ~100 of shading per light; the bytes (scene, acc,
@@ -44,146 +44,26 @@
 // triangle and the box-culled ones.  Measured by chip_smoke.py beside K2's
 // times on the same frames (PERF.md).
 
-#include "shadow.cuh"
+#include "closest.cuh"
 
 namespace {
 
 using namespace raytpu_dev;
 
 constexpr int kTile = 1024;
-constexpr int kShadeBlock = 128;  // K11a's and K11b's threads a block: 4 warps
-constexpr int kGroup = 8;
-constexpr int kAccRows = 11;  // t, normal(3), material(7)
+constexpr int kShadeBlock = 128;  // K11b's threads a block: 4 warps
 constexpr int kBlocksPerTile = kTile / kShadeBlock;
 
-// K11a: one thread per ray slot, blocks of kShadeBlock threads, kTile /
-// kShadeBlock blocks to a tile; warp w of the tile takes slot warp_slot(w,
-// lane) and writes its ray to acc column tile * 1024 + slot, as K2a does.
-// In-kernel raygen, spheres and planes, then closest_walk over the tile's
-// worklist with the group records, the triangles read from the blob as
-// 20-float records.  Each block reduces the box of its rays' offset hit
-// points into part (tiles * kBlocksPerTile, 6); the last of a tile's
-// blocks to finish (a per-tile counter, zero before the launch) folds the
-// tile's partial boxes in block order into `bounds`.
-__global__ void __launch_bounds__(kShadeBlock, 4) mega3_closest_kernel(
+// K11a: closest.cuh's closest pass, the triangles read from the blob as
+// 20-float records.
+__global__ void __launch_bounds__(kClosestBlock, 4) mega3_closest_kernel(
     const float* __restrict__ scene, int S, int P, int T, const float* __restrict__ blob,
     const float* __restrict__ boxes, const int* __restrict__ wl, const int* __restrict__ cnt,
     int wl_cols, int W, int H, int tiled, int tile0, float tmin, float normal_offset,
     float* __restrict__ acc, float* __restrict__ part, unsigned* __restrict__ done,
     float* __restrict__ bounds) {
-  extern __shared__ float sm[];  // cam | spheres | planes
-  __shared__ float wpart[6][kShadeBlock / 32];
-  const int n = kCam + S * kSph + P * kPln;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) sm[k] = scene[k];
-  __syncthreads();
-  const float* cam = sm;
-  const float* sph = cam + kCam;
-  const float* pln = sph + S * kSph;
-  const int tile = blockIdx.x / kBlocksPerTile;
-  const int slots = (gridDim.x / kBlocksPerTile) * kTile;
-  const int lane = threadIdx.x % 32, warp_in = threadIdx.x / 32;
-  const int j = warp_slot((blockIdx.x % kBlocksPerTile) * (kShadeBlock / 32) + warp_in, lane);
-
-  int pxi = 0, pyi = 0;
-  const bool valid = tile_pixel(tile0 + tile, j, W, H, tiled, &pxi, &pyi);
-  const float rox = cam[0], roy = cam[1], roz = cam[2];
-  float rdx = 0.0f, rdy = 0.0f, rdz = 0.0f;
-  float t = INFINITY, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-  bool is_sph = false;
-  const float* mat = nullptr;  // shared memory or the blob
-  if (valid) {
-    raygen(cam, pxi, pyi, W, H, &rdx, &rdy, &rdz);
-    for (int s = 0; s < S; ++s) {
-      const float* r = sph + s * kSph;
-      const float tc = sphere_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
-      if (tc < t) {
-        t = tc;
-        nx = fmaf(tc, rdx, rox) - r[0];
-        ny = fmaf(tc, rdy, roy) - r[1];
-        nz = fmaf(tc, rdz, roz) - r[2];
-        is_sph = true;
-        mat = r + 4;
-      }
-    }
-    for (int p = 0; p < P; ++p) {
-      const float* r = pln + p * kPln;
-      const float tc = plane_t(r, rox, roy, roz, rdx, rdy, rdz, tmin, INFINITY);
-      if (tc < t) {
-        t = tc;
-        nx = r[0];
-        ny = r[1];
-        nz = r[2];
-        is_sph = false;
-        mat = r + 4;
-      }
-    }
-  }
-  ClosestVisit<kTri> visit{rox, roy, roz, rdx, rdy, rdz, tmin, t};
-  closest_walk<kTri>(blob, T, boxes, wl + (size_t)tile * wl_cols, min(cnt[tile], wl_cols), valid,
-                     visit);
-  if (visit.k >= 0) {
-    const float* r = blob + (size_t)visit.k * kTri;
-    t = visit.t;
-    nx = r[9];
-    ny = r[10];
-    nz = r[11];
-    is_sph = false;
-    mat = r + 13;
-  }
-
-  float* a = acc + (size_t)tile * kTile + j;  // row q at a[q * slots]
-  float box[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  if (t < INFINITY) {  // never for a slot past the frame
-    if (is_sph) {  // normalized after the selection (reference: source/Scene.cpp:40)
-      const float n_len = sqrtf(fmaxf(sqn(nx, ny, nz), 1e-20f));
-      nx = nx / n_len;
-      ny = ny / n_len;
-      nz = nz / n_len;
-    }
-    // the offset hit point, exactly as K11b's shade_hit forms its shadow origin
-    const float ox = fmaf(nx, normal_offset, fmaf(t, rdx, rox));
-    const float oy = fmaf(ny, normal_offset, fmaf(t, rdy, roy));
-    const float oz = fmaf(nz, normal_offset, fmaf(t, rdz, roz));
-    box[0] = box[3] = ox;
-    box[1] = box[4] = oy;
-    box[2] = box[5] = oz;
-    a[0] = t;
-    a[slots] = nx;
-    a[2 * slots] = ny;
-    a[3 * slots] = nz;
-    for (int q = 0; q < 7; ++q) a[(4 + q) * slots] = mat[q];
-  } else {
-    a[0] = INFINITY;
-    for (int q = 1; q < kAccRows; ++q) a[q * slots] = 0.0f;
-  }
-
-  // the block's box: min/max over each warp by shuffles, then over its warps
-  for (int off = 16; off > 0; off >>= 1) {
-    for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], __shfl_xor_sync(kFullWarp, box[q], off));
-    for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], __shfl_xor_sync(kFullWarp, box[q], off));
-  }
-  if (lane == 0)
-    for (int q = 0; q < 6; ++q) wpart[q][warp_in] = box[q];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kShadeBlock / 32; ++w) {
-      for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], wpart[q][w]);
-      for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], wpart[q][w]);
-    }
-    for (int q = 0; q < 6; ++q) part[(size_t)blockIdx.x * 6 + q] = box[q];
-    __threadfence();  // the partial box is visible before the count says so
-    // the tile's last block: every block of the tile has written its box
-    if (atomicAdd(done + tile, 1u) == kBlocksPerTile - 1) {
-      __threadfence();
-      const volatile float* tp = part + (size_t)tile * kBlocksPerTile * 6;
-      for (int q = 0; q < 6; ++q) box[q] = tp[q];
-      for (int b = 1; b < kBlocksPerTile; ++b) {
-        for (int q = 0; q < 3; ++q) box[q] = fminf(box[q], tp[b * 6 + q]);
-        for (int q = 3; q < 6; ++q) box[q] = fmaxf(box[q], tp[b * 6 + q]);
-      }
-      for (int q = 0; q < 6; ++q) bounds[tile * 6 + q] = box[q];
-    }
-  }
+  closest_pass(scene, S, P, T, blob, boxes, wl, cnt, wl_cols, W, H, tiled, tile0, tmin,
+               normal_offset, acc, part, done, bounds);
 }
 
 // K11b: one thread per ray slot, blocks of kShadeBlock threads, kTile /
@@ -286,10 +166,10 @@ extern "C" {
 // triangles, `boxes` (ceil(T/8), 32) float32 the normal records
 // (accel.normal_boxes), both 16-byte aligned; `wl` (tiles, wl_cols) and
 // `cnt` (tiles,) the tiles' group worklists; `acc` 11 x tiles*1024
-// float32, `bounds` tiles x 6;
-// `part` (tiles * 8, 6) float32 scratch for the blocks' partial boxes and
-// `done` (tiles,) uint32 zeros, the blocks' counts (nonzero after it).  Returns the CUDA
-// error of the launch.
+// float32, `bounds` tiles x 6; `part` (tiles *
+// raytpu_closest_blocks_per_tile(), 6) float32 scratch for the blocks'
+// partial boxes and `done` (tiles,) uint32 zeros, the blocks' counts
+// (nonzero after it).  Returns the CUDA error of the launch.
 int raytpu_mega3_closest(const float* scene, int S, int P, int T, const float* blob,
                          const float* boxes, const int* wl, const int* cnt, int wl_cols, int W,
                          int H, int tiled, int tile0, int tiles, float ray_min,
@@ -299,7 +179,7 @@ int raytpu_mega3_closest(const float* scene, int S, int P, int T, const float* b
   const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln);
   const cudaError_t err = allow_smem(mega3_closest_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mega3_closest_kernel<<<tiles * kBlocksPerTile, kShadeBlock, smem,
+  mega3_closest_kernel<<<tiles * kClosestBlocksPerTile, kClosestBlock, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       scene, S, P, T, blob, boxes, wl, cnt, wl_cols, W, H, tiled, tile0, ray_min, normal_offset,
       acc, part, done, bounds);

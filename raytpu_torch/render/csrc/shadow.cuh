@@ -1,5 +1,5 @@
 // The group walk of the box-culled kernels: one warp's 32 rays against the
-// 8-triangle groups of their worklist row.  Ten kernels walk it:
+// 8-triangle groups of their worklist row.  Twelve kernels walk it:
 //
 //   K4 (packed.cu) and K11b (mega3.cu): any-hit toward one light,
 //     8-triangle groups, the 8-float box records (accel.shadow_boxes);
@@ -16,9 +16,11 @@
 //     K5's worklists, the normal records padded for the gradient's support
 //     (normal_boxes(soft_beta=..., support=GRAD_SUPPORT)), its sums taken
 //     per warp after each group (a visit with kReduces);
-//   K3 (packed.cu) and K11a (mega3.cu): the closest hit, 8-triangle
-//     groups, the normal records (kappa's are 2.6-4.7x slower there:
-//     shadow_ablation.py).
+//   K6 (soft.cu): the same gradient on the rays, K7's worklists and
+//     records, each lane summing its own partials (DrayVisit);
+//   K3 (packed.cu), K11a (mega3.cu) and K2a (mega2.cu; K11a's body,
+//     closest.cuh): the closest hit, 8-triangle groups, the normal records
+//     (kappa's are 2.6-4.7x slower there: shadow_ablation.py).
 //
 // A worklist row is the union over a whole 1024-ray tile (the glue's cull,
 // raytpu_torch/render/packed.py and mega2.py), hundreds to thousands of
@@ -83,10 +85,11 @@
 // The first-occluder walk (FirstHitVisit) visits the groups in the row's
 // order and a group's triangles in order, and skips only groups holding no
 // hit of the segment, so the occluder it stops at is the first of the row
-// and its t equals the fold's bit for bit.  The gradient walk (K7) skips
-// only groups whose partials are all exactly 0.0f, so its sums add the
-// same nonzero partials as the walk over every listed group, in another
-// order (atomics: not bit for bit).
+// and its t equals the fold's bit for bit.  The gradient walks (K7, K6)
+// skip only groups whose sigmoid derivative is exactly 0.0f for every
+// triangle, so their sums add the same nonzero partials as the walk over
+// every listed group: K7's in another order (atomics: not bit for bit),
+// K6's, which a lane adds in the row's order, bit for bit.
 //
 // An any-hit warp leaves the row as soon as every lane is resolved
 // (__all_sync over occluded, out of the frame or not queried), instead of

@@ -44,9 +44,12 @@
 // atomicAdd, spread over its lanes.  The order in which warps add is the
 // scheduler's, so K7's output varies in its last bits from run to run: it
 // is NOT deterministic (the TPU kernel is; its grid runs in order).  The
-// tests and chip_smoke.py compare it with a tolerance for that.  K6: one
-// block of 1024 threads per tile, one thread per ray, every listed group;
-// it accumulates in registers and crosses no rays.
+// tests and chip_smoke.py compare it with a tolerance for that.  K6: a
+// thread per (ray, light) as K7, walking K7's rows with the same gradient
+// records; a lane adds its own partials in registers, in the row's order,
+// and crosses no rays; each light's g_p goes to a scratch that a second
+// kernel sums over the lights in order.  No atomics: the
+// same bits every run, and the sums of the walk over every listed group.
 //
 // Arithmetic: dot and cross products fused as fmaf chains (common.cuh,
 // raytpu_torch/core/math3d.py), IEEE expf, division and sqrtf, no other
@@ -59,11 +62,10 @@
 // sigmoid is live for K6 and K7; the bound is the card's FP32 rate
 // (chip_smoke.py counts the tests from the run's worklists).  What the
 // design does about it: the TPU's split between an SMEM launch chain and a
-// DMA-streamed kernel is a layout artifact, gone here; K5 and K7 test
-// boxes before triangles (shadow.cuh); threads of a block read the same
-// triangle at the same time, which the cache broadcasts; K6 and K7 skip
-// the gradient arithmetic where the sigmoid is not live, and K7 skips a
-// warp's shuffles where no lane has a partial.
+// DMA-streamed kernel is a layout artifact, gone here; all three test
+// boxes before triangles (shadow.cuh), K6 and K7 the gradient records; K6
+// and K7 skip the gradient arithmetic where the sigmoid is not live, and
+// K7 skips a warp's shuffles where no lane has a partial.
 
 #include <stdint.h>
 
@@ -254,40 +256,97 @@ __global__ void __launch_bounds__(kBlock, 4) soft_trans_kernel(
   if (valid) trans[lr] = v.tr;
 }
 
-__global__ void __launch_bounds__(kTile) soft_dray_kernel(
+// The ray-side visit (K6): adds the partials of g_p and g_dirs of
+// triangles [k0, k1) into the lane's sums, in order, with the arithmetic
+// of the plain version; a triangle whose sigmoid derivative is 0.0f adds
+// nothing.  It never stops early and crosses no lanes.
+template <int kRec>
+struct DrayVisit {
+  static constexpr bool kStops = false;
+  static constexpr bool kShrinks = false;
+  static constexpr bool kReduces = false;
+  float ox, oy, oz, dx, dy, dz, tmin, mag, beta, gob;
+  float gpx, gpy, gpz, glx, gly, glz;
+  __device__ __forceinline__ void operator()(const float* __restrict__ tri, int k0, int k1) {
+    for (int k = k0; k < k1; ++k) {
+      const float* kt = tri + (size_t)k * kRec;
+      const TriSoft r = tri_soft(kt, ox, oy, oz, dx, dy, dz, tmin, mag, beta);
+      if (r.docc == 0.0f) continue;  // every partial is 0
+      const float g_m = gob / (1.0f - r.occ) * r.docc;
+      float g_nu, g_nv, g_a;
+      tri_grad(r, g_m, &g_nu, &g_nv, &g_a);
+      float ax, ay, az, bx, by, bz, cx, cy, cz;
+      cross3(kt[3], kt[4], kt[5], dx, dy, dz, &ax, &ay, &az);        // e1 x d
+      cross3(kt[6], kt[7], kt[8], r.sx, r.sy, r.sz, &bx, &by, &bz);  // e2 x s
+      cross3(kt[6], kt[7], kt[8], kt[3], kt[4], kt[5], &cx, &cy, &cz);  // e2 x e1
+      // g_s = g_Nu h + g_Nv (e1 x d); g_d = g_Nu (e2 x s) + g_Nv q + g_a (e2 x e1)
+      gpx = gpx + (g_nu * r.hx + g_nv * ax);
+      gpy = gpy + (g_nu * r.hy + g_nv * ay);
+      gpz = gpz + (g_nu * r.hz + g_nv * az);
+      glx = glx + (g_nu * bx + g_nv * r.qx + g_a * cx);
+      gly = gly + (g_nu * by + g_nv * r.qy + g_a * cy);
+      glz = glz + (g_nu * bz + g_nv * r.qz + g_a * cz);
+    }
+  }
+  __device__ __forceinline__ bool resolved() const { return false; }
+};
+
+// K6: a thread per (ray, light), a grid of (kTile / kBlock blocks a tile)
+// x lights, warp w of the tile on the 8x4 pixel block warp_slot(w, lane),
+// as K7.  Spheres and planes first (the plane's far-end term writes
+// g_mags), then the group walk over K5's (tile, light) worklist with the
+// gradient records: a lane skips only groups whose sigmoid derivative is
+// exactly 0.0f for every triangle, which add nothing, so the sums are the
+// walk over every listed group's, in the same order.  This light's g_p
+// goes to the scratch (L, R, 3) that soft_dray_sum_kernel adds up in light
+// order (soft_dray_plain's order).  No atomics: every output element has
+// one writer.  Lanes past R vote in the walk and never write.  A thread
+// per ray taking its lights in a loop, g_p summed in registers (the order
+// of the 1024-thread fold this kernel replaced), took 1.35-1.98x this
+// kernel's time on an H100 (optional, bunny50k, bunny300k;
+// shadow_ablation.py's per_ray): a tile's heavy rays took their lights one
+// after another at the end of the grid.
+__global__ void __launch_bounds__(kBlock, 4) soft_dray_kernel(
     const float* __restrict__ p, const float* __restrict__ dirs, const float* __restrict__ mags,
     int R, int L, const float* __restrict__ sph_g, int S, const float* __restrict__ pln_g, int P,
-    const float* __restrict__ tri, int T, const int* __restrict__ wl, const int* __restrict__ cnt,
-    int wl_cols, float tmin, float beta, const float* __restrict__ gin,
-    const float* __restrict__ trans, float* __restrict__ g_p, float* __restrict__ g_dirs,
-    float* __restrict__ g_mags) {
+    const float* __restrict__ tri, int T, const float* __restrict__ boxes,
+    const int* __restrict__ wl, const int* __restrict__ cnt, int wl_cols, float tmin, float beta,
+    const float* __restrict__ gin, const float* __restrict__ trans, float* __restrict__ g_p,
+    float* __restrict__ g_dirs, float* __restrict__ g_mags) {
   extern __shared__ float sm[];  // spheres | planes
   load_sp(sm, sph_g, S, pln_g, P);
   const float* sph = sm;
   const float* pln = sm + S * kSp;
-  const int tile = blockIdx.x;
-  const int rid = tile * kTile + threadIdx.x;
-  if (rid >= R) return;
-  const float ox = p[3 * rid], oy = p[3 * rid + 1], oz = p[3 * rid + 2];
-  float gpx = 0.0f, gpy = 0.0f, gpz = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const size_t lr = (size_t)l * R + rid;
+  const int tile = blockIdx.x / (kTile / kBlock);
+  const int warp = (blockIdx.x % (kTile / kBlock)) * (kBlock / 32) + threadIdx.x / 32;
+  const int rid = tile * kTile + warp_slot(warp, threadIdx.x % 32);
+  const bool valid = rid < R;  // lanes past the rays vote, never write
+  DrayVisit<kTr> v{};
+  v.tmin = tmin;
+  v.beta = beta;
+  if (valid) v.ox = p[3 * rid], v.oy = p[3 * rid + 1], v.oz = p[3 * rid + 2];
+  const int l = blockIdx.y;
+  const size_t lr = (size_t)l * R + rid;
+  float gmag = 0.0f;
+  if (valid) {
+    const float ox = v.ox, oy = v.oy, oz = v.oz;
     const float dx = dirs[3 * lr], dy = dirs[3 * lr + 1], dz = dirs[3 * lr + 2];
     const float mag = mags[lr];
+    v.dx = dx, v.dy = dy, v.dz = dz, v.mag = mag;
     // d loss / d occ_j = -g * trans / (1 - occ_j): the constant part
     const float gob = -gin[lr] * trans[lr];
-    float glx = 0.0f, gly = 0.0f, glz = 0.0f, gmag = 0.0f;
+    v.gob = gob;
     for (int s = 0; s < S; ++s) {
       const SphereSoft r = sphere_soft(sph + s * kSp, ox, oy, oz, dx, dy, dz, tmin, mag, beta);
       if (r.docc == 0.0f) continue;  // every partial is 0
       const float g_m = gob / (1.0f - r.occ) * r.docc;
       const float c2 = 2.0f * (-g_m / sph[s * kSp + 3]);  // 2 * d loss / d perp^2
-      gpx = gpx + -c2 * (r.lx - r.proj * dx);
-      gpy = gpy + -c2 * (r.ly - r.proj * dy);
-      gpz = gpz + -c2 * (r.lz - r.proj * dz);
-      glx = glx + -c2 * r.proj * r.lx;
-      gly = gly + -c2 * r.proj * r.ly;
-      glz = glz + -c2 * r.proj * r.lz;
+      v.gpx = v.gpx + -c2 * (r.lx - r.proj * dx);
+      v.gpy = v.gpy + -c2 * (r.ly - r.proj * dy);
+      v.gpz = v.gpz + -c2 * (r.lz - r.proj * dz);
+      v.glx = v.glx + -c2 * r.proj * r.lx;
+      v.gly = v.gly + -c2 * r.proj * r.ly;
+      v.glz = v.glz + -c2 * r.proj * r.lz;
     }
     for (int q = 0; q < P; ++q) {
       const float* pl = pln + q * kSp;
@@ -297,49 +356,39 @@ __global__ void __launch_bounds__(kTile) soft_dray_kernel(
       const float g_t = r.near ? g_m : -g_m;
       const float g_num = g_t / r.den;
       const float g_den = -g_t * r.t / r.den;
-      gpx = gpx + -g_num * pl[0];
-      gpy = gpy + -g_num * pl[1];
-      gpz = gpz + -g_num * pl[2];
-      glx = glx + g_den * pl[0];
-      gly = gly + g_den * pl[1];
-      glz = glz + g_den * pl[2];
+      v.gpx = v.gpx + -g_num * pl[0];
+      v.gpy = v.gpy + -g_num * pl[1];
+      v.gpz = v.gpz + -g_num * pl[2];
+      v.glx = v.glx + g_den * pl[0];
+      v.gly = v.gly + g_den * pl[1];
+      v.glz = v.glz + g_den * pl[2];
       gmag = gmag + (r.near ? 0.0f : g_m);
     }
-    const int row = tile * L + l;
-    const int* w = wl + (size_t)row * wl_cols;
-    const int c = min(cnt[row], wl_cols);
-    for (int e = 0; e < c; ++e) {
-      const int g = w[e];
-      if (g < 0 || g > (T - 1) / kGroup) continue;  // not a group of this scene
-      const int k1 = min(g * kGroup + kGroup, T);
-      for (int k = g * kGroup; k < k1; ++k) {
-        const float* kt = tri + (size_t)k * kTr;
-        const TriSoft r = tri_soft(kt, ox, oy, oz, dx, dy, dz, tmin, mag, beta);
-        if (r.docc == 0.0f) continue;
-        const float g_m = gob / (1.0f - r.occ) * r.docc;
-        float g_nu, g_nv, g_a;
-        tri_grad(r, g_m, &g_nu, &g_nv, &g_a);
-        float ax, ay, az, bx, by, bz, cx, cy, cz;
-        cross3(kt[3], kt[4], kt[5], dx, dy, dz, &ax, &ay, &az);        // e1 x d
-        cross3(kt[6], kt[7], kt[8], r.sx, r.sy, r.sz, &bx, &by, &bz);  // e2 x s
-        cross3(kt[6], kt[7], kt[8], kt[3], kt[4], kt[5], &cx, &cy, &cz);  // e2 x e1
-        // g_s = g_Nu h + g_Nv (e1 x d); g_d = g_Nu (e2 x s) + g_Nv q + g_a (e2 x e1)
-        gpx = gpx + (g_nu * r.hx + g_nv * ax);
-        gpy = gpy + (g_nu * r.hy + g_nv * ay);
-        gpz = gpz + (g_nu * r.hz + g_nv * az);
-        glx = glx + (g_nu * bx + g_nv * r.qx + g_a * cx);
-        gly = gly + (g_nu * by + g_nv * r.qy + g_a * cy);
-        glz = glz + (g_nu * bz + g_nv * r.qz + g_a * cz);
-      }
-    }
-    g_dirs[3 * lr] = glx;
-    g_dirs[3 * lr + 1] = gly;
-    g_dirs[3 * lr + 2] = glz;
-    g_mags[lr] = gmag;
   }
-  g_p[3 * rid] = gpx;
-  g_p[3 * rid + 1] = gpy;
-  g_p[3 * rid + 2] = gpz;
+  const int row = tile * L + l;
+  const float o[3] = {v.ox, v.oy, v.oz}, d[3] = {v.dx, v.dy, v.dz};
+  group_walk<kTr, kNormalCols, 1>(tri, T, boxes, wl + (size_t)row * wl_cols,
+                                  min(cnt[row], wl_cols), valid, o, d, v.mag, v);
+  if (valid) {
+    g_dirs[3 * lr] = v.glx;
+    g_dirs[3 * lr + 1] = v.gly;
+    g_dirs[3 * lr + 2] = v.glz;
+    g_mags[lr] = gmag;
+    g_p[3 * lr] = v.gpx;  // this light's g_p, into the scratch (L, R, 3)
+    g_p[3 * lr + 1] = v.gpy;
+    g_p[3 * lr + 2] = v.gpz;
+  }
+}
+
+// K6's light sum: g_p (R, 3) from the scratch (L, R, 3), 0 + light 0 +
+// light 1 + ..., one thread per element.
+__global__ void soft_dray_sum_kernel(const float* __restrict__ scratch, int R, int L,
+                                     float* __restrict__ g_p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 3 * R) return;
+  float x = 0.0f;
+  for (int l = 0; l < L; ++l) x = x + scratch[(size_t)l * 3 * R + i];
+  g_p[i] = x;
 }
 
 // The nine partials [g_s, g_e1, g_e2] of triangle record `kt` for one
@@ -464,18 +513,29 @@ int raytpu_soft_trans(const float* p, const float* dirs, const float* mags, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K6: K5's inputs plus g and trans (L, R) -> g_p (R, 3), g_dirs
-// (L, R, 3), g_mags (L, R), every element written.
+// Launches K6 on `stream` over ceil(R/1024) tiles: K5's inputs with `boxes`
+// (ceil(T/8), 32) the gradient records (accel.normal_boxes with beta and
+// GRAD_SUPPORT), 16-byte aligned, plus g and trans (L, R) -> g_p (R, 3),
+// g_dirs (L, R, 3), g_mags (L, R), every element written; `scratch` (L,
+// R, 3) float32 holds each light's g_p before the light sum, which
+// soft_dray_sum_kernel adds up into g_p (zeros where L is 0).  Returns
+// cudaGetLastError() after the launches.
 int raytpu_soft_dray(const float* p, const float* dirs, const float* mags, int R, int L,
                      const float* sph, int S, const float* pln, int P, const float* tri, int T,
-                     const int* wl, const int* cnt, int wl_cols, float tmin, float beta,
-                     const float* g, const float* trans, float* g_p, float* g_dirs,
-                     float* g_mags, void* stream) {
-  const int tiles = (R + kTile - 1) / kTile;
-  const size_t smem = sizeof(float) * (S + P) * kSp;
-  soft_dray_kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, dirs, mags, R, L, sph, S, pln, P, tri, T, wl, cnt, wl_cols, tmin, beta, g, trans, g_p,
-      g_dirs, g_mags);
+                     const float* boxes, const int* wl, const int* cnt, int wl_cols, float tmin,
+                     float beta, const float* g, const float* trans, float* g_p, float* g_dirs,
+                     float* g_mags, float* scratch, void* stream) {
+  if (R == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L > 0) {
+    const int tiles = (R + kTile - 1) / kTile;
+    const size_t smem = sizeof(float) * (S + P) * kSp;
+    const dim3 grid(tiles * (kTile / kBlock), L);
+    soft_dray_kernel<<<grid, kBlock, smem, st>>>(p, dirs, mags, R, L, sph, S, pln, P, tri, T,
+                                                 boxes, wl, cnt, wl_cols, tmin, beta, g, trans,
+                                                 scratch, g_dirs, g_mags);
+  }
+  soft_dray_sum_kernel<<<(3 * R + 255) / 256, 256, 0, st>>>(scratch, R, L, g_p);
   return static_cast<int>(cudaGetLastError());
 }
 

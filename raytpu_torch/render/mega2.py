@@ -6,14 +6,18 @@ The kernels are ``csrc/mega2.cu``:
   * K2a (``mega2_closest``): the culled closest hit of the camera rays,
     generated in the kernel, tile by tile; it leaves each ray's t, normal
     and material in an (11, nt*1024) buffer and each tile's box of offset
-    hit points in (nt, 6);
+    hit points in (nt, 6); each ray walks its tile's worklist with
+    ``csrc/closest.cuh``'s closest pass, K11a's body, testing a group's
+    normal record up to its current closest hit before the group's
+    triangles;
   * the glue here builds each light's shadow worklists from those boxes
     (``accel.light_shadow_cull_from_aabb``), O(tiles) work;
   * K2b (``mega2_shade``): the culled shadow any-hit per light, shading,
     shadow dim and tone map, into the (H, W, 3) image; its shadow queries
     walk the groups of their worklist rows with ``csrc/shadow.cuh``'s box
-    tests and the normal records of ``accel.normal_boxes``, computed once a
-    frame with the group bounds that both worklist builders take.
+    tests.  Both kernels test the normal records of ``accel.normal_boxes``,
+    computed once a frame with the group bounds that both worklist
+    builders take.
 
 A tile is 1024 rays: a 32x32 pixel block when W and H are multiples of 32,
 else 1024 consecutive row-major pixels (``accel.tile_pixels``).  Given
@@ -76,9 +80,9 @@ def render_image_mega2_f32(scene: Scene, config: RenderConfig, tile0: int | None
     _check(config)
     tile0 = tile0 or 0
     buf, counts = plain.mega_pack(scene, config)
-    glo, ghi, boxes = accel.normal_boxes(scene.triangles)  # once: both culls and K2b
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)  # once: both culls, both kernels
     wl, cnt = primary_worklists(scene, config, tile0, tiles, (glo, ghi))
-    acc, bounds = mega2_closest(buf, counts, wl, cnt, config, tile0, tiles)
+    acc, bounds = mega2_closest(buf, counts, boxes, wl, cnt, config, tile0, tiles)
     if counts[3] == 0:  # no lights: black (W1)
         return black(config, tiles, buf.device)
     wl_s, cnt_s = shadow_worklists(scene, config, bounds, (glo, ghi))
@@ -143,30 +147,49 @@ def _buf_shape(counts):
             + plain.LIGHT_COLS * L,)
 
 
-def mega2_closest(buf, counts, wl, cnt, config: RenderConfig, tile0: int = 0,
+def closest_scratch(lib, nt: int, device):
+    """The closest pass's scratch for ``nt`` tiles (K2a and K11a,
+    ``csrc/closest.cuh``): the blocks' partial boxes ``part`` (nt * the
+    library's blocks a tile, 6) float32 and the tiles' block counts
+    ``done`` (nt,) int32, zero before each launch."""
+    blocks = lib.raytpu_closest_blocks_per_tile()
+    return (torch.empty((nt * blocks, 6), dtype=torch.float32, device=device),
+            torch.zeros((nt,), dtype=torch.int32, device=device))
+
+
+def mega2_closest(buf, counts, boxes, wl, cnt, config: RenderConfig, tile0: int = 0,
                   tiles: int | None = None):
     """K2a -> ``(acc (11, nt*1024) float32, bounds (nt, 6) float32)`` over
-    the frame's tiles, or the ``tiles`` from ``tile0``.  ``wl`` (nt, n)
-    int32 lists each tile's groups, ``cnt`` (nt,) int32 how many of them to
-    walk.  A CPU buffer takes ``mega2_closest_plain``."""
+    the frame's tiles, or the ``tiles`` from ``tile0``.  ``boxes``
+    (ceil(T/8), 32) float32 are the normal records (``accel.normal_boxes``)
+    each ray tests up to its current closest hit before a group's
+    triangles, which CUDA tensors need; ``wl`` (nt, n) int32 lists each
+    tile's groups, ``cnt`` (nt,) int32 how many of them to walk.  A CPU
+    buffer takes ``mega2_closest_plain``, which needs no boxes."""
     global MEGA2_CLOSEST_LAUNCHES
     if buf.device.type == "cpu":
         return mega2_closest_plain(buf, counts, config, tile0, tiles)
+    if boxes is None:
+        raise ValueError("K2a walks the normal records: pass boxes (accel.normal_boxes)")
     _check(config)
     nt = num_tiles(config) if tiles is None else tiles
+    S, P, T, _ = counts
     build.check_tensors("K2a", buf.device, {
         "scene buffer": (buf, torch.float32, _buf_shape(counts)),
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS)),
         "wl": (wl, torch.int32, (nt, wl.shape[-1])), "cnt": (cnt, torch.int32, (nt,))})
-    S, P, T, _ = counts
-    acc = torch.empty((ACC_ROWS, nt * TILE), dtype=torch.float32, device=buf.device)
-    bounds = torch.empty((nt, 6), dtype=torch.float32, device=buf.device)
+    build.check_aligned("K2a", "boxes", boxes, 16)
+    dev = buf.device
+    acc = torch.empty((ACC_ROWS, nt * TILE), dtype=torch.float32, device=dev)
+    bounds = torch.empty((nt, 6), dtype=torch.float32, device=dev)
     lib = build.load()
-    with torch.cuda.device(buf.device):
+    part, done = closest_scratch(lib, nt, dev)
+    with torch.cuda.device(dev):
         err = lib.raytpu_mega2_closest(
-            buf.data_ptr(), S, P, T, wl.data_ptr(), cnt.data_ptr(), wl.shape[1], config.width,
-            config.height, int(is_tiled(config)), tile0, nt, float(config.ray_min),
-            float(config.normal_offset), acc.data_ptr(), bounds.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            buf.data_ptr(), S, P, T, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(), wl.shape[1],
+            config.width, config.height, int(is_tiled(config)), tile0, nt,
+            float(config.ray_min), float(config.normal_offset), acc.data_ptr(), part.data_ptr(),
+            done.data_ptr(), bounds.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2a launch failed: {build.cuda_error_name(lib, err)}")
     MEGA2_CLOSEST_LAUNCHES += 1

@@ -44,7 +44,6 @@ from raytpu_torch.render import build, mega2, packed, plain
 GROUP = 8  #: triangles in a group: one worklist entry, 640 bytes of the blob
 MAX_TRIS = 1048576  #: raytpu's MEGA3_MAX_TRIS
 MAX_LIGHTS = 32  #: K11b keeps each light's shadow answer in one bit of a word
-BLOCK = 128  #: K11a's and K11b's threads a block, eight blocks a 1024-ray tile
 
 #: Launches of K11a and of K11b, counted where the wrappers launch them.
 MEGA3_CLOSEST_LAUNCHES = 0
@@ -132,9 +131,8 @@ def mega3_closest(buf, counts, blob, boxes, wl, cnt, config: RenderConfig, tile0
     dev = buf.device
     acc = torch.empty((mega2.ACC_ROWS, nt * mega2.TILE), dtype=torch.float32, device=dev)
     bounds = torch.empty((nt, 6), dtype=torch.float32, device=dev)
-    part = torch.empty((nt * mega2.TILE // BLOCK, 6), dtype=torch.float32, device=dev)
-    done = torch.zeros((nt,), dtype=torch.int32, device=dev)  # the tiles' block counts
     lib = build.load()
+    part, done = mega2.closest_scratch(lib, nt, dev)
     with torch.cuda.device(dev):
         err = lib.raytpu_mega3_closest(
             buf.data_ptr(), S, P, T, blob.data_ptr(), boxes.data_ptr(), wl.data_ptr(),

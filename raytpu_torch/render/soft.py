@@ -11,7 +11,11 @@ and their streamed forms).  The kernels are ``csrc/soft.cu``:
     groups whose soft normal record (``soft_boxes``) its segment misses, all
     of whose factors are exactly 1.0f;
   * K6 (``soft_dray``): K5's VJP on the ray side, ``g_p`` (R, 3) summed
-    over lights, ``g_dirs`` (L, R, 3) and ``g_mags`` (L, R);
+    over lights, ``g_dirs`` (L, R, 3) and ``g_mags`` (L, R), each ray
+    skipping the groups whose gradient record (``grad_boxes``) its segment
+    misses, whose partials are all exactly 0.0f; a thread per (ray, light)
+    writes its light's ``g_p`` to a scratch that a second kernel sums over
+    the lights in order;
   * K7 (``soft_dprim``): K5's VJP on the triangles, ``[g_s, g_e1, g_e2]``
     (T, 9) summed over rays and lights, with s = p - v0, e1 = v1 - v0 and
     e2 = v2 - v0, each ray skipping the groups whose gradient record
@@ -42,9 +46,11 @@ from raytpu_torch.render.packed import SP_COLS, TILE, TRI_COLS
 
 FLT_EPSILON = plain.FLT_EPSILON
 
-#: Launches of K5, K6 and K7, counted where the wrappers launch them.
+#: Launches of K5, K6 and K7, counted where the wrappers launch them.  K6
+#: is two kernels, its walk and its sum over the lights, each counted.
 SOFT_TRANS_LAUNCHES = 0
 SOFT_DRAY_LAUNCHES = 0
+SOFT_DRAY_SUM_LAUNCHES = 0
 SOFT_DPRIM_LAUNCHES = 0
 
 _dot3, _fma, _cross3 = math3d.dot3, math3d.fma, math3d.cross3
@@ -69,7 +75,7 @@ def soft_boxes(scene: Scene, p, dirs, mags, tmin, beta):
 
 
 def grad_boxes(scene: Scene, beta):
-    """K7's gradient records: ``accel.normal_boxes`` padded for the soft
+    """K6's and K7's gradient records: ``accel.normal_boxes`` padded for the soft
     VJP's support (``accel.GRAD_SUPPORT``: a segment that misses one meets
     no triangle with a partial other than 0.0f)."""
     return accel.normal_boxes(scene.triangles, soft_beta=beta, support=accel.GRAD_SUPPORT)[2]
@@ -129,29 +135,40 @@ def soft_trans_lights_cuda(p, dirs, mags, sph, pln, tri, boxes, wl, cnt, tmin, b
     return trans
 
 
-def soft_dray(p, dirs, mags, g, trans, sph, pln, tri, wl, cnt, tmin, beta):
+def soft_dray(p, dirs, mags, g, trans, sph, pln, tri, wl, cnt, tmin, beta, boxes=None):
     """K6: the ray side of K5's VJP for the upstream cotangent ``g`` and
     K5's output ``trans`` (both (L, R)) -> ``(g_p (R,3), g_dirs (L,R,3),
-    g_mags (L,R))``.  CPU tensors take ``soft_dray_plain``."""
-    global SOFT_DRAY_LAUNCHES
+    g_mags (L,R))``, walking K5's worklists ``wl``, ``cnt`` with the
+    gradient records ``boxes`` (ceil(T/8), 32) of ``grad_boxes``, which
+    CUDA tensors need; deterministic (no atomics).  CPU tensors take
+    ``soft_dray_plain``, which needs no boxes."""
+    global SOFT_DRAY_LAUNCHES, SOFT_DRAY_SUM_LAUNCHES
     if p.device.type == "cpu":
         return soft_dray_plain(p, dirs, mags, g, trans, sph, pln, tri, tmin, beta)
+    if boxes is None:
+        raise ValueError("K6 walks the gradient records: pass boxes (soft.grad_boxes)")
     L, R, S, P, T = _check("K6", p, dirs, mags, sph, pln, tri, wl, cnt,
                            {"g": g, "trans": trans})
+    build.check_tensors("K6", p.device, {
+        "boxes": (boxes, torch.float32, (-(-T // accel.GROUP), accel.NORMAL_COLS))})
+    build.check_aligned("K6", "boxes", boxes, 16)
     dev = p.device
     g_p = torch.empty((R, 3), dtype=torch.float32, device=dev)
     g_dirs = torch.empty((L, R, 3), dtype=torch.float32, device=dev)
     g_mags = torch.empty((L, R), dtype=torch.float32, device=dev)
+    scratch = torch.empty((L, R, 3), dtype=torch.float32, device=dev)  # each light's g_p
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.raytpu_soft_dray(
             p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), S,
-            pln.data_ptr(), P, tri.data_ptr(), T, wl.data_ptr(), cnt.data_ptr(), wl.shape[-1],
-            float(tmin), float(beta), g.data_ptr(), trans.data_ptr(), g_p.data_ptr(),
-            g_dirs.data_ptr(), g_mags.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            pln.data_ptr(), P, tri.data_ptr(), T, boxes.data_ptr(), wl.data_ptr(),
+            cnt.data_ptr(), wl.shape[-1], float(tmin), float(beta), g.data_ptr(),
+            trans.data_ptr(), g_p.data_ptr(), g_dirs.data_ptr(), g_mags.data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: {build.cuda_error_name(lib, err)}")
-    SOFT_DRAY_LAUNCHES += 1
+    SOFT_DRAY_LAUNCHES += 1  # the walk
+    SOFT_DRAY_SUM_LAUNCHES += 1  # the light sum, launched by the same call
     return g_p, g_dirs, g_mags
 
 

@@ -1,17 +1,18 @@
-"""The group walk's kernels K4, K10, K5, K3, K11a, K9, K2b, K8 and K7 on one
-CUDA card with parts of their design taken out: what each part of the walk
-(raytpu_torch/render/csrc/shadow.cuh) buys.
+"""The group walk's kernels K4, K10, K5, K3, K11a, K9, K2b, K8, K7, K6 and
+K2a on one CUDA card with parts of their design taken out: what each part
+of the walk (raytpu_torch/render/csrc/shadow.cuh) buys.
 
     python3 shadow_ablation.py               # prints one JSON line
     python3 shadow_ablation.py --kernels K9  # only K9's cases and variants
 
 Each variant is the kernels' sources built with one change to shadow.cuh,
-packed.cu, chunked.cu, soft.cu, mega3.cu or mega2.cu (nvcc, the package's
-flags, one library per variant under raytpu_torch/_build/ablation, all
-compiled at once).  The kernels run on frame 0 at 640x480, their inputs
-formed as chip_smoke.py phase 4 forms them: K4 on the shadow queries of
-bunny50k and bunny300k, K10 on those of optional_l12, bunny18k_l12 and
-reference_s106 (the chunked route), K5 on the soft shadow queries of
+closest.cuh, packed.cu, chunked.cu, soft.cu, mega3.cu or mega2.cu (nvcc,
+the package's flags, one library per variant under
+raytpu_torch/_build/ablation, all compiled at once).  The kernels run on
+frame 0 at 640x480, their inputs formed as chip_smoke.py phase 4 forms
+them: K4 on the shadow queries of bunny50k and bunny300k, K10 on those of
+optional_l12, bunny18k_l12 and reference_s106 (the chunked route), K5 on
+the soft shadow queries of
 optional, bunny50k and bunny300k, K3 on the camera rays of bunny50k and
 bunny300k (the packed route's), K11a on the frames of optional, bunny50k
 and bunny300k (the mega3 route's), K9 on the shadow queries of
@@ -21,29 +22,42 @@ K2a's buffer of bunny and optional (the mega2 route's), K9 also on the
 folded queries of reference_s106 (no records: the few-groups kernel), K8
 (closest mode) on the camera rays of optional_l12, bunny18k_l12 and
 reference_s106 in 32x32 blocks (the route's) and of the first two
-row-major (``chunked.shade_rays``'), K7 on the soft shadow queries of
-optional, bunny50k and bunny300k with a random cotangent; each is timed
+row-major (``chunked.shade_rays``'), K7 and K6 on the soft shadow
+queries of optional, bunny50k and bunny300k with a random cotangent, K2a
+on the frames of bunny and optional (the mega2 route's); each is timed
 with CUDA events (REPEATS runs of ITERS launches), and each variant's
 answer (K4's, K9's and K5's (L, R), K10's (R, 3) colors, K3's and K8's
-(t, idx, normal, material), K11a's buffer and tile boxes, K2b's image)
-must equal the design's bit for bit, K7's (T, 9) sums within 1e-4 of the
-largest (its atomics add in another order each run; its variant
-soft_records, which is not exact, is timed only, its difference
-printed), and the design's the package wrapper's on the
-same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
-``soft.soft_trans_lights_cuda``, ``packed.winner_search``,
-``mega3.mega3_closest``, ``chunked.any_hit_lights``,
-``mega2.mega2_shade``, ``chunked.chunked_min_t``, ``soft.soft_dprim``):
+(t, idx, normal, material), K11a's and K2a's buffer and tile boxes, K2b's
+image, K6's g_p, g_dirs and g_mags) must equal the design's bit for bit,
+K7's (T, 9) sums within 1e-4 of the largest (its atomics add in another
+order each run) and K6's per_ray and fold1024 within 1e-4 of each
+output's largest (they add the lights in another order); the variant
+soft_records, which is
+not exact, is timed only, its difference printed, and for K6 the (query,
+triangle) pairs with a nonzero partial that it drops are counted
+(``dropped_partials``); the design's answer must equal the package
+wrapper's on the same inputs (``packed.any_hit_lights``,
+``chunked.shadow_shade``, ``soft.soft_trans_lights_cuda``,
+``packed.winner_search``, ``mega3.mega3_closest``,
+``chunked.any_hit_lights``, ``mega2.mega2_shade``,
+``chunked.chunked_min_t``, ``soft.soft_dprim``, ``soft.soft_dray``,
+``mega2.mega2_closest``):
 
   design        the kernels as committed;
   no_bundle     (K4) no test of the warp's bundle: every listed entry goes
                 to each ray's box test;
-  no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b, K8, K7) no per-ray box
-                test: a warp visits a group's triangles for every live
-                lane wherever the bundle test passes;
-  no_boxes      (K4, K8, K7) neither test: every listed triangle, with the
-                warp-granular exit, 128-thread blocks and 8x4 pixel warps
-                kept;
+  no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b, K8, K7, K6, K2a) no
+                per-ray box test: a warp visits a group's triangles for
+                every live lane wherever the bundle test passes;
+  no_boxes      (K4, K8, K7, K6, K2a) neither test: every listed triangle,
+                with the warp-granular exit, 128-thread blocks and 8x4
+                pixel warps kept;
+  fold1024      (K6, K2a) the parent's layout: neither test, one
+                1024-thread block a tile, K6's thread taking its ray's
+                lights in a loop;
+  per_ray       (K6) the other form of K6: a thread per ray, its lights in
+                a loop, g_p summed in registers across them, no second
+                kernel;
   no_warp_exit  (K4) a warp walks its whole row even when every lane is
                 resolved;
   rows          (K4) each warp takes a row of 32 pixels, not an 8x4 block;
@@ -53,7 +67,7 @@ same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
                 8x4 pixel block;
   atomics       (K7) each lane adds its own nonzero partials with
                 atomicAdd as it visits, not the warp's sums after each group;
-  soft_records  (K7) K5's soft records (support 20) instead of the
+  soft_records  (K7, K6) K5's soft records (support 20) instead of the
                 gradient records: not exact (it drops partials that are
                 small but not 0), timed only;
   block1024     (K4, K10, K5, K3, K11a, K9, K2b, K8, K7) one 1024-thread
@@ -72,8 +86,8 @@ same inputs (``packed.any_hit_lights``, ``chunked.shadow_shade``,
   no_direct     (K10, K9, K8) a scene of a few groups (reference_s106) is
                 given the normal records too, so it takes the walk's
                 kernel, not the one that tests every listed triangle;
-  regs64        (K10, K5, K2b, K8, K7) at most 64 registers a thread
-                (launch bounds of 8 blocks of 128 an SM, not 4);
+  regs64        (K10, K5, K2b, K8, K7, K6, K2a) at most 64 registers a
+                thread (launch bounds of 8 blocks of 128 an SM, not 4);
   bounds4       (K9) launch bounds of 4 blocks of 128 an SM, not 8 (at most
                 128 registers a thread, not 64);
   bounds2       (K9, K2b, K8, K7) launch bounds of 2 blocks of 128 an SM,
@@ -114,11 +128,18 @@ K2B_SCENES = ("bunny", "optional")
 K8_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106", "optional_l12 rows",
              "bunny18k_l12 rows")
 K7_SCENES = ("optional", "bunny50k", "bunny300k")
+K6_SCENES = K7_SCENES
+K2A_SCENES = ("bunny", "optional")
 K8_BOUNDS = "__launch_bounds__(kShadeBlock, 4) chunked_min_t_kernel"
 K8_SLOT = "const int rid = tile * kTile + warp_slot(warp, lane);"
 K7_BOUNDS = "__launch_bounds__(kBlock, 4) soft_dprim_kernel"
-#: K7's sums add in another order each run: within this share of the
-#: largest magnitude, as chip_smoke.py phase 2 holds them
+K6_BOUNDS = "__launch_bounds__(kBlock, 4) soft_dray_kernel"
+K2A_BOUNDS = "__launch_bounds__(kClosestBlock, 4) mega2_closest_kernel"
+K11A_BOUNDS = "__launch_bounds__(kClosestBlock, 4) mega3_closest_kernel"
+CLOSEST_BLOCK = "constexpr int kClosestBlock = 128;"
+#: K7's sums add in another order each run, and K6's other form sums its
+#: lights in another order: within this share of each output's largest
+#: magnitude, as chip_smoke.py phase 2 holds them
 K7_TOL = 1e-4
 #: K7's visit for the variant atomics: each lane adds its own nonzero
 #: partials with atomicAdd as it visits, no warp sum
@@ -130,8 +151,48 @@ K7_ATOMICS = """    for (int k = k0; k < k1; ++k) {
       for (int j = 0; j < 9; ++j)
         if (part[j] != 0.0f) atomicAdd(out + (size_t)k * 9 + j, part[j]);
     }"""
+#: K6's other form for the variants per_ray and fold1024: a thread per ray
+#: taking its lights in a loop, g_p summed in registers across them and
+#: written once, one kernel and no light sum; (file, design text, variant
+#: text) each
+K6_PER_RAY = [
+    ("soft.cu", """  const int l = blockIdx.y;
+  const size_t lr = (size_t)l * R + rid;
+  float gmag = 0.0f;
+""", """  for (int l = 0; l < L; ++l) {
+  const size_t lr = (size_t)l * R + rid;
+  float gmag = 0.0f;
+  v.glx = v.gly = v.glz = 0.0f;
+"""),
+    ("soft.cu", """    g_p[3 * lr] = v.gpx;  // this light's g_p, into the scratch (L, R, 3)
+    g_p[3 * lr + 1] = v.gpy;
+    g_p[3 * lr + 2] = v.gpz;
+  }
+}
+""", """  }
+  }
+  if (valid) {
+    g_p[3 * rid] = v.gpx;
+    g_p[3 * rid + 1] = v.gpy;
+    g_p[3 * rid + 2] = v.gpz;
+  }
+}
+"""),
+    ("soft.cu", """    const dim3 grid(tiles * (kTile / kBlock), L);
+    soft_dray_kernel<<<grid, kBlock, smem, st>>>(p, dirs, mags, R, L, sph, S, pln, P, tri, T,
+                                                 boxes, wl, cnt, wl_cols, tmin, beta, g, trans,
+                                                 scratch, g_dirs, g_mags);
+  }
+  soft_dray_sum_kernel<<<(3 * R + 255) / 256, 256, 0, st>>>(scratch, R, L, g_p);
+""", """    soft_dray_kernel<<<tiles * (kTile / kBlock), kBlock, smem, st>>>(
+        p, dirs, mags, R, L, sph, S, pln, P, tri, T, boxes, wl, cnt, wl_cols, tmin, beta, g,
+        trans, g_p, g_dirs, g_mags);
+  }
+""")]
 #: variants timed only, their answers' difference printed (not exact)
 INEXACT = ("soft_records",)
+#: K6's variants that add its sums in another order: within K7_TOL
+K6_REORDERED = ("per_ray", "fold1024")
 K9_WALK = "shadow_walk<kTr, kNormalCols, kChunk / 8>"
 K2B_WALK = "shadow_walk<kTri, kNormalCols>"
 K9_BOUNDS = "__launch_bounds__(kShadeBlock, 8) chunked_anyhit_kernel"
@@ -143,12 +204,23 @@ CLOSEST_WALK = ("group_walk<kRec, kNormalCols, kExpand>(tri, T, boxes, w, c, liv
                 "visit);")
 #: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": ("K4 K10 K5 K3 K11a K9 K2b K8 K7", []),
+    "design": ("K4 K10 K5 K3 K11a K9 K2b K8 K7 K6 K2a", []),
     "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
-    "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b K8 K7",
+    "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b K8 K7 K6 K2a",
                    [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
-    "no_boxes": ("K4 K8 K7", [("shadow.cuh", BUNDLE, "cand = true;"),
-                              ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "no_boxes": ("K4 K8 K7 K6 K2a", [("shadow.cuh", BUNDLE, "cand = true;"),
+                                     ("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
+    "fold1024": ("K6 K2a", [
+        ("shadow.cuh", BUNDLE, "cand = true;"), ("shadow.cuh", RAY_BOX, "const bool pass = live;"),
+        ("soft.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
+        *K6_PER_RAY,
+        ("soft.cu", K6_BOUNDS, K6_BOUNDS.replace(", 4)", ", 1)")),
+        ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
+         "__launch_bounds__(kBlock, 1) soft_trans_kernel"),
+        ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 1)")),
+        ("closest.cuh", CLOSEST_BLOCK, CLOSEST_BLOCK.replace("128", "1024")),
+        ("mega2.cu", K2A_BOUNDS, K2A_BOUNDS.replace(", 4)", ", 1)"))]),
+    "per_ray": ("K6", K6_PER_RAY),
     "no_warp_exit": ("K4", [("shadow.cuh", "if (__all_sync(kFullWarp, !live)) return;", "")]),
     "rows": ("K4", [("shadow.cuh",
                      "return ((warp / 4) * 4 + lane / 8) * 32 + (warp % 4) * 8 + lane % 8;",
@@ -161,8 +233,8 @@ VARIANTS = {
                         "static constexpr bool kReduces = false;"),
                        ("soft.cu", "    pending = true;  // reduce computes this lane's partials",
                         K7_ATOMICS)]),
-    # the same library, given K5's soft records (k7_launcher)
-    "soft_records": ("K7", []),
+    # the same library, given K5's soft records (k7_launcher, k6_launcher)
+    "soft_records": ("K7 K6", []),
     "block1024": ("K4 K10 K5 K3 K11a K9 K2b K8 K7", [
         ("packed.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 1024;"),
         ("packed.cu", "__launch_bounds__(kBlock, 4) packed_anyhit_kernel",
@@ -170,8 +242,8 @@ VARIANTS = {
         ("packed.cu", "__launch_bounds__(kBlock, 4) packed_closest_kernel",
          "__launch_bounds__(kBlock, 1) packed_closest_kernel"),
         ("mega3.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
-        ("mega3.cu", "__launch_bounds__(kShadeBlock, 4) mega3_closest_kernel",
-         "__launch_bounds__(kShadeBlock, 1) mega3_closest_kernel"),
+        ("closest.cuh", CLOSEST_BLOCK, CLOSEST_BLOCK.replace("128", "1024")),
+        ("mega3.cu", K11A_BOUNDS, K11A_BOUNDS.replace(", 4)", ", 1)")),
         ("mega3.cu", "__launch_bounds__(kShadeBlock, 4) mega3_shade_kernel",
          "__launch_bounds__(kShadeBlock, 1) mega3_shade_kernel"),
         ("chunked.cu", "constexpr int kShadeBlock = 128;", "constexpr int kShadeBlock = 1024;"),
@@ -203,14 +275,16 @@ VARIANTS = {
         ("chunked.cu", K9_WALK, K9_WALK.replace("kNormalCols", "kBoxCols")),
         ("mega2.cu", K2B_WALK, K2B_WALK.replace("kNormalCols", "kBoxCols"))]),
     "whole_line": ("K3 K11a K8", [("shadow.cuh", "    return visit.t;", "    return INFINITY;")]),
-    "regs64": ("K10 K5 K2b K8 K7", [
+    "regs64": ("K10 K5 K2b K8 K7 K6 K2a", [
         ("chunked.cu", "__launch_bounds__(kShadeBlock, kWalk ? 4 : 8) chunked_shadow_shade_kernel",
          "__launch_bounds__(kShadeBlock, 8) chunked_shadow_shade_kernel"),
         ("soft.cu", "__launch_bounds__(kBlock, 4) soft_trans_kernel",
          "__launch_bounds__(kBlock, 8) soft_trans_kernel"),
         ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 8)")),
         ("chunked.cu", K8_BOUNDS, K8_BOUNDS.replace(", 4)", ", 8)")),
-        ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 8)"))]),
+        ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 8)")),
+        ("soft.cu", K6_BOUNDS, K6_BOUNDS.replace(", 4)", ", 8)")),
+        ("mega2.cu", K2A_BOUNDS, K2A_BOUNDS.replace(", 4)", ", 8)"))]),
     "bounds4": ("K9", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 4)"))]),
     "bounds2": ("K9 K2b K8 K7", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
                                  ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 2)")),
@@ -226,7 +300,9 @@ SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
            "K9": ("chunked.cu", "chunked_anyhit_kernelILb1E"),  # the walk's instance
            "K2b": ("mega2.cu", "mega2_shade"),
            "K8": ("chunked.cu", "chunked_min_t_kernelILb1ELb0E"),  # the closest walk's instance
-           "K7": ("soft.cu", "soft_dprim")}
+           "K7": ("soft.cu", "soft_dprim"),
+           "K6": ("soft.cu", "soft_dray_kernel"),
+           "K2a": ("mega2.cu", "mega2_closest")}
 K3_SCENES = ("bunny50k", "bunny300k")
 K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 
@@ -246,8 +322,8 @@ def build_variants(out: Path, keys: list) -> dict:
             continue
         src = out / name
         src.mkdir(parents=True)
-        for f in ("common.cuh", "shadow.cuh", "packed.cu", "chunked.cu", "soft.cu", "mega3.cu",
-                  "mega2.cu"):
+        for f in ("common.cuh", "shadow.cuh", "closest.cuh", "packed.cu", "chunked.cu", "soft.cu",
+                  "mega3.cu", "mega2.cu"):
             shutil.copy(csrc / f, src / f)
         for f, old, new in patches:
             text = (src / f).read_text()
@@ -441,12 +517,14 @@ def k11a_launcher(scene, cfg, dev):
     kappa = packed.shadow_records(boxes)
     wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
     nt = wl.shape[0]
-    part = torch.empty((nt * 8, 6), dtype=torch.float32, device=dev)
-    done = torch.zeros((nt,), dtype=torch.int32, device=dev)  # the tiles' block counts
+    scratch = {}  # each variant's part and done, sized by its library's blocks a tile
     n_acc = mega2.ACC_ROWS * nt * mega2.TILE
 
     def launch(lib, out, variant):
         b = kappa if variant == "kappa_records" else boxes
+        if variant not in scratch:
+            scratch[variant] = mega2.closest_scratch(lib, nt, dev)
+        part, done = scratch[variant]
         done.zero_()  # as the wrapper's fresh zeros
         return lib.raytpu_mega3_closest(
             buf.data_ptr(), S, P, T, blob.data_ptr(), b.data_ptr(), wl.data_ptr(),
@@ -506,7 +584,7 @@ def k2b_launcher(scene, cfg, dev):
     glo, ghi, boxes = accel.normal_boxes(scene.triangles)
     kappa = packed.shadow_records(boxes)
     wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
-    acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+    acc, bounds = mega2.mega2_closest(buf, counts, boxes, wl, cnt, cfg)
     wl_s, cnt_s = mega2.shadow_worklists(scene, cfg, bounds, (glo, ghi))
     nt = wl_s.shape[0]
 
@@ -599,6 +677,133 @@ def k7_launcher(scene, cfg, dev):
     return torch.empty_like(want), launch, None, want
 
 
+def k6_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), {what: count}, the package's
+    answer) for K6 on K7's inputs (``k7_launcher``), with the gradient
+    records; the variant soft_records gets K5's soft records, and the count
+    is of the (query, triangle) pairs with a nonzero partial of K6 that
+    those records drop (``dropped_partials``).  The answer flat: g_p (R,
+    3), g_dirs (L, R, 3), g_mags (L, R); ``launch.parts`` their sizes.
+    Every launch gets an (L, R, 3) scratch, which the form with a thread
+    per (ray, light) needs."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.render import packed, soft
+
+    cfg = dataclasses.replace(cfg, soft_shadows=True)
+    tmin, beta = cfg.ray_min, cfg.soft_beta
+    _, _, (p, dirs, mags) = _frame_queries(scene, cfg, _packed_closest)
+    trans, (blobs, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, tmin, beta)
+    soft_rec = soft.soft_boxes(scene, p, dirs, mags, tmin, beta)[0]
+    boxes = soft.grad_boxes(scene, beta)
+    g = torch.rand(trans.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev) * 2.0 - 1.0
+    sph, pln, tri = blobs
+    L, R = dirs.shape[:2]
+    scratch = torch.empty((L * R * 3,), dtype=torch.float32, device=dev)
+
+    def launch(lib, out, variant):
+        b = soft_rec if variant == "soft_records" else boxes
+        ptr = out.data_ptr()
+        return lib.raytpu_soft_dray(
+            p.data_ptr(), dirs.data_ptr(), mags.data_ptr(), R, L, sph.data_ptr(), sph.shape[0],
+            pln.data_ptr(), pln.shape[0], tri.data_ptr(), tri.shape[0], b.data_ptr(),
+            wl.data_ptr(), cnt.data_ptr(), wl.shape[-1], float(tmin), float(beta), g.data_ptr(),
+            trans.data_ptr(), ptr, ptr + 12 * R, ptr + 12 * R * (L + 1), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    launch.parts = (3 * R, 3 * L * R, L * R)
+    want = torch.cat([x.flatten() for x in soft.soft_dray(p, dirs, mags, g, trans, sph, pln, tri,
+                                                          wl, cnt, tmin, beta, boxes)])
+    dropped = dropped_partials(p, dirs, mags, g, trans, tri, wl, cnt, soft_rec, boxes, tmin, beta)
+    return torch.empty_like(want), launch, {"soft_records_drop": dropped}, want
+
+
+def dropped_partials(p, dirs, mags, g, trans, tri, wl, cnt, narrow, wide, tmin, beta) -> dict:
+    """The (query, triangle) pairs of the worklists whose group the records
+    ``wide`` pass for the query's segment and ``narrow`` reject
+    (``accel.segment_box_test``), and of those the pairs with a K6 partial
+    (g_p or g_dirs, ``soft._tri_soft``'s arithmetic) other than 0.0f: what
+    a walk over ``narrow`` drops that one over ``wide`` adds."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import soft
+
+    L, R = dirs.shape[:2]
+    T, ng = tri.shape[0], wide.shape[0]
+    out = {"pairs": 0, "nonzero": 0}
+    for li in range(L):
+        inv = accel.inv_dir(dirs[li])
+        for t0 in range(cnt.shape[0]):
+            r0, r1 = t0 * 1024, min((t0 + 1) * 1024, R)
+            c = int(cnt[t0, li])
+            if c == 0:
+                continue
+            grp = wl[t0, li, :c].long()
+            grp = grp[(grp >= 0) & (grp < ng)]
+            o, iv, mg, d = p[r0:r1], inv[r0:r1], mags[li, r0:r1], dirs[li, r0:r1]
+            ring = (accel.segment_box_test(o, iv, mg, wide[grp], d=d)
+                    & ~accel.segment_box_test(o, iv, mg, narrow[grp], d=d))  # (rays, groups)
+            ray, col = ring.nonzero(as_tuple=True)
+            if ray.numel() == 0:
+                continue
+            k = (grp[col][:, None] * accel.GROUP + torch.arange(accel.GROUP, device=p.device))
+            ray = (ray[:, None] + r0).expand_as(k)[k < T]
+            k = k[k < T]
+            out["pairs"] += int(k.numel())
+            rows = soft._rows(tri[k], 13)
+            rows = tuple(x[0] for x in rows)
+            oo = tuple(p[ray, i] for i in range(3))
+            dd = tuple(dirs[li, ray, i] for i in range(3))
+            occ, docc, u, v, w, inv_a, h, s, q = soft._tri_soft(rows, oo, dd, tmin,
+                                                                 mags[li, ray], beta)
+            gob = -g[li, ray] * trans[li, ray]
+            g_nu, g_nv, g_a = soft._tri_grad(u, v, w, inv_a, gob / (1.0 - occ) * docc)
+            e1d = soft._cross3(rows[3], rows[4], rows[5], *dd)
+            e2s = soft._cross3(rows[6], rows[7], rows[8], *s)
+            e21 = soft._cross3(rows[6], rows[7], rows[8], rows[3], rows[4], rows[5])
+            parts = ([g_nu * h[i] + g_nv * e1d[i] for i in range(3)]
+                     + [g_nu * e2s[i] + g_nv * q[i] + g_a * e21[i] for i in range(3)])
+            out["nonzero"] += int(torch.stack(parts).ne(0.0).any(dim=0).sum())
+    return out
+
+
+def k2a_launcher(scene, cfg, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K2a on the scene's frame 0, its inputs built as the mega2 route builds
+    them: the buffer (11, nt * 1024) and the tile boxes (nt, 6), flat."""
+    import torch
+
+    from raytpu_torch.ops import accel
+    from raytpu_torch.render import mega2, plain
+
+    buf, counts = plain.mega_pack(scene, cfg)
+    S, P, T, _ = counts
+    glo, ghi, boxes = accel.normal_boxes(scene.triangles)
+    wl, cnt = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
+    nt = wl.shape[0]
+    scratch = {}  # each variant's part and done, sized by its library's blocks a tile
+    n_acc = mega2.ACC_ROWS * nt * mega2.TILE
+
+    def launch(lib, out, variant):
+        if variant not in scratch:
+            scratch[variant] = mega2.closest_scratch(lib, nt, dev)
+        part, done = scratch[variant]
+        done.zero_()  # as the wrapper's fresh zeros
+        return lib.raytpu_mega2_closest(
+            buf.data_ptr(), S, P, T, boxes.data_ptr(), wl.data_ptr(), cnt.data_ptr(),
+            wl.shape[1], cfg.width, cfg.height, int(mega2.is_tiled(cfg)), 0, nt,
+            float(cfg.ray_min), float(cfg.normal_offset), out.data_ptr(), part.data_ptr(),
+            done.data_ptr(), out.data_ptr() + 4 * n_acc, torch.cuda.current_stream().cuda_stream)
+
+    acc, bounds = mega2.mega2_closest(buf, counts, boxes, wl, cnt, cfg)
+    want = torch.cat([acc.flatten(), bounds.flatten()])
+    return torch.empty((n_acc + nt * 6,), dtype=torch.float32, device=dev), launch, None, want
+
+
 def glue_ms(records, inputs) -> dict:
     """The median ms of REPEATS timings of ITERS back-to-back calls of
     ``records()`` and of ``inputs()``."""
@@ -646,7 +851,37 @@ def _bind(lib_path: str, kernels: list):
     if "K7" in kernels:
         lib.raytpu_soft_dprim.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int, c_ptr, c_int, c_ptr,
                                            c_ptr, c_ptr, c_int, c_float, c_float] + [c_ptr] * 4)
+    if "K6" in kernels:
+        lib.raytpu_soft_dray.argtypes = ([c_ptr, c_ptr, c_ptr, c_int, c_int] + sp_tri
+                                         + [c_ptr, c_ptr, c_ptr, c_int, c_float, c_float]
+                                         + [c_ptr] * 7)
+    if "K11a" in kernels or "K2a" in kernels:
+        lib.raytpu_closest_blocks_per_tile.argtypes = []
+        lib.raytpu_closest_blocks_per_tile.restype = c_int
+    if "K2a" in kernels:
+        lib.raytpu_mega2_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
+                                             + [c_int] * 6 + [c_float, c_float] + [c_ptr] * 5)
     return lib
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _k6_differ(a, b, parts) -> float:
+    """The largest of K6's three outputs' max |a - b| over the largest |b|
+    (0.0 where equal bit for bit), ``parts`` their sizes in the flat
+    answers."""
+    if _same_bits(a, b):
+        return 0.0
+    worst, i = 0.0, 0
+    for n in parts:
+        x, y = a[i:i + n], b[i:i + n]
+        worst = max(worst, float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30))
+        i += n
+    return max(worst, 1e-38)  # not bit for bit
 
 
 def main(argv=None) -> int:
@@ -675,7 +910,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RenderConfig()
     out = {"card": smi, "registers": {n: r for n, (_, r) in libs.items()}, "ms": {},
-           "records": {}}
+           "records": {}, "k6_dropped": {}}
     bound = {n: _bind(str(lib), list(regs)) for n, (lib, regs) in libs.items()}
 
     def scene(name):
@@ -691,7 +926,8 @@ def main(argv=None) -> int:
                              ("K5", K5_SCENES, k5_launcher), ("K3", K3_SCENES, k3_launcher),
                              ("K11a", K11A_SCENES, k11a_launcher),
                              ("K9", K9_SCENES, k9_launcher), ("K2b", K2B_SCENES, k2b_launcher),
-                             ("K8", K8_SCENES, k8_launcher), ("K7", K7_SCENES, k7_launcher)):
+                             ("K8", K8_SCENES, k8_launcher), ("K7", K7_SCENES, k7_launcher),
+                             ("K6", K6_SCENES, k6_launcher), ("K2a", K2A_SCENES, k2a_launcher)):
         if key not in keys:
             continue
         variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
@@ -722,6 +958,16 @@ def main(argv=None) -> int:
                 if differ(answers["design"], want) > K7_TOL or bad:
                     raise AssertionError(f"K7 {scene_name}: beyond {K7_TOL} of the largest: "
                                          f"{bad}, or the design against the package's")
+            elif key == "K6":  # bit for bit but where the lights add in another order
+                diffs = {n: _k6_differ(a, answers["design"], launch.parts)
+                         for n, a in answers.items()}
+                out["k6_diff_to_design"] = out.get("k6_diff_to_design", {})
+                out["k6_diff_to_design"][scene_name] = diffs
+                bad = {n: v for n, v in diffs.items() if n not in INEXACT
+                       and v > (K7_TOL if n in K6_REORDERED else 0.0)}
+                if not _same_bits(answers["design"], want) or bad:
+                    raise AssertionError(f"K6 {scene_name}: {bad} differ from the design's "
+                                         f"answer, or the design from the package's")
             else:
                 differ = int((answers["design"].view(torch.uint8) != want.view(torch.uint8)).sum())
                 if differ:
@@ -736,7 +982,7 @@ def main(argv=None) -> int:
             out["ms"][f"{key} {scene_name}"] = {
                 n: {"median": v[len(v) // 2], "min": v[0], "max": v[-1]} for n, v in ms.items()}
             if glue is not None:
-                out["records"][f"{key} {scene_name}"] = glue
+                out["records" if key != "K6" else "k6_dropped"][f"{key} {scene_name}"] = glue
     out["answers_equal_to_design"] = True
     print(json.dumps(out), flush=True)
     return 0

@@ -251,9 +251,10 @@ def test_route_wrappers_refuse_what_the_kernels_do_not_take():
     wl, cnt = mega2.primary_worklists(scene, cfg)
     before = (mega2.MEGA2_CLOSEST_LAUNCHES, mega2.MEGA2_SHADE_LAUNCHES,
               packed.PACKED_CLOSEST_LAUNCHES)
-    with pytest.raises(ValueError, match="K2a runs on CUDA"):
-        mega2.mega2_closest(buf.to("meta"), counts, wl.to("meta"), cnt.to("meta"), cfg)
     records = accel.normal_boxes(scene.triangles)[2]
+    with pytest.raises(ValueError, match="K2a runs on CUDA"):
+        mega2.mega2_closest(buf.to("meta"), counts, records.to("meta"), wl.to("meta"),
+                            cnt.to("meta"), cfg)
     acc = torch.zeros((mega2.ACC_ROWS, mega2.num_tiles(cfg) * mega2.TILE))
     wl_s, cnt_s = wl[:, None].expand(-1, counts[3], -1), cnt[:, None].expand(-1, counts[3])
     with pytest.raises(ValueError, match="K2b runs on CUDA"):
@@ -272,6 +273,58 @@ def test_route_wrappers_refuse_what_the_kernels_do_not_take():
             route(scene, RenderConfig(width=8, height=8, soft_shadows=True))
     assert (mega2.MEGA2_CLOSEST_LAUNCHES, mega2.MEGA2_SHADE_LAUNCHES,
             packed.PACKED_CLOSEST_LAUNCHES) == before
+
+
+def test_k2a_refuses_to_run_without_the_normal_records():
+    """K2a walks the normal records (``accel.normal_boxes``): a wrapper call
+    on tensors off the CPU without them raises before a launch, on any
+    device; with them, tensors off CUDA still raise."""
+    scene = _scene("bunny")
+    cfg = RenderConfig(width=32, height=24)
+    buf, counts = plain.mega_pack(scene, cfg)
+    wl, cnt = mega2.primary_worklists(scene, cfg)
+    before = mega2.MEGA2_CLOSEST_LAUNCHES
+    with pytest.raises(ValueError, match="K2a walks the normal records"):
+        mega2.mega2_closest(buf.to("meta"), counts, None, wl.to("meta"), cnt.to("meta"), cfg)
+    assert mega2.MEGA2_CLOSEST_LAUNCHES == before
+    # the CPU's plain version needs none
+    acc, bounds = mega2.mega2_closest(buf, counts, None, wl, cnt, cfg)
+    assert acc.shape == (mega2.ACC_ROWS, mega2.num_tiles(cfg) * mega2.TILE)
+    assert bounds.shape == (mega2.num_tiles(cfg), 6)
+
+
+@pytest.mark.cuda
+def test_k2a_equals_k11a_on_the_card():
+    """K2a is K11a's closest pass over the scene buffer's triangles: its
+    buffer and tile boxes equal K11a's on the same worklists and records
+    bit for bit, and its own launch's over records that pass every group,
+    on bunny and optional at 64x32 and 50x37 (ragged) and on a tile range
+    with a padded tile past the frame, the range's counters zeroed by the
+    wrapper.  Run on a machine with a card with
+    ``pytest -m cuda tests/test_torch_bigmesh.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from raytpu_torch.render import mega3
+
+    for name in ("bunny", "optional"):
+        scene = scenes.get(name).build("cuda")
+        glo, ghi, records = accel.normal_boxes(scene.triangles)
+        opened = accel.open_normal_boxes(records.shape[0], "cuda")
+        for w, h in ((64, 32), (50, 37)):
+            cfg = RenderConfig(width=w, height=h)
+            buf, counts = plain.mega_pack(scene, cfg)
+            blob = mega3.pack_groups(buf, counts)
+            nt = mega2.num_tiles(cfg)
+            for tile0, tiles in ((0, None), (1, nt)):  # the range ends past the frame
+                wl, cnt = mega2.primary_worklists(scene, cfg, tile0, tiles, (glo, ghi))
+                before = mega2.MEGA2_CLOSEST_LAUNCHES
+                got = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg, tile0, tiles)
+                assert mega2.MEGA2_CLOSEST_LAUNCHES == before + 1
+                for want in (mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg, tile0,
+                                                 tiles),
+                             mega2.mega2_closest(buf, counts, opened, wl, cnt, cfg, tile0, tiles)):
+                    for a, b in zip(got, want):
+                        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -296,7 +349,7 @@ def test_big_mesh_kernels_match_plain_versions_on_the_card():
         buf, counts = plain.mega_pack(bunny, cfg)
         glo, ghi, records = accel.normal_boxes(bunny.triangles)
         wl, cnt = mega2.primary_worklists(bunny, cfg, group_bounds=(glo, ghi))
-        acc, bounds = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+        acc, bounds = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg)
         wl_s, cnt_s = mega2.shadow_worklists(bunny, cfg, bounds, (glo, ghi))
         shaded = mega2.mega2_shade(buf, counts, records, wl_s, cnt_s, acc, cfg)
         opened = accel.open_normal_boxes(records.shape[0], "cuda")

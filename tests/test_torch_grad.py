@@ -585,17 +585,110 @@ def test_soft_wrappers_refuse_what_the_kernels_do_not_take():
     g = torch.ones_like(mags)
     meta = [x.to("meta") for x in (p, dirs, mags, g, *blobs, boxes, wl, cnt)]
     mp, md, mm, mg, ms, mpl, mt, mb, mwl, mcnt = meta
-    before = (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DPRIM_LAUNCHES)
+    before = (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DRAY_SUM_LAUNCHES,
+              soft.SOFT_DPRIM_LAUNCHES)
     with pytest.raises(ValueError, match="K5 runs on CUDA"):
         soft.soft_trans_lights_cuda(mp, md, mm, ms, mpl, mt, mb, mwl, mcnt, 1e-4, 300.0)
     with pytest.raises(ValueError, match="K6 runs on CUDA"):
-        soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, 300.0)
+        soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, 300.0, mb)
     with pytest.raises(ValueError, match="K7 runs on CUDA"):
         soft.soft_dprim(mp, md, mm, mg, mg, mt, mwl, mcnt, 1e-4, 300.0)
     with pytest.raises(ValueError, match="K7 runs on CUDA"):
         soft.soft_dprim(mp, md, mm, mg, mg, mt, mwl, mcnt, 1e-4, 300.0, mb)
-    assert (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES,
+    assert (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DRAY_SUM_LAUNCHES,
             soft.SOFT_DPRIM_LAUNCHES) == before
+
+
+def _dray_walk_twin(p, dirs, mags, g, trans, sph, pln, tri, boxes, tmin, beta):
+    """A torch twin of K6's walk: ``soft.soft_dray_plain``'s arithmetic and
+    order of sums, over a row listing every group in ascending order, where
+    each (ray, light) takes a group's triangles only if its segment crosses
+    the group's gradient record (``accel.segment_box_test``, the kernels'
+    per-ray test): a skipped group adds nothing.  Returns the sums and the
+    share of (ray, light, group) triples skipped."""
+    L, R, T = dirs.shape[0], p.shape[0], tri.shape[0]
+    inv_col = torch.arange(T) // accel.GROUP
+    g_p = torch.zeros((R, 3), dtype=torch.float32)
+    g_dirs, g_mags, skipped = [], [], 0.0
+    for li in range(L):
+        o, d, mag = soft._ray_cols(p, dirs, mags, li)
+        crosses = accel.segment_box_test(p, accel.inv_dir(dirs[li]), mags[li], boxes,
+                                         d=dirs[li])  # (R, ceil(T/8))
+        skipped += float((~crosses).float().mean()) / L
+        gob = (-g[li] * trans[li])[:, None]
+        gp = [torch.zeros((R,), dtype=torch.float32) for _ in range(3)]
+        gl = [torch.zeros_like(gp[0]) for _ in range(3)]
+        gm = torch.zeros_like(gp[0])
+        if sph.shape[0]:
+            sr = soft._rows(sph, 4)
+            occ, docc, Lv, proj = soft._sphere_soft(sr, o, d, tmin, mag, beta)
+            c2 = 2.0 * (-(gob / (1.0 - occ) * docc) / sr[3])
+            for c in range(3):
+                gp[c] = gp[c] + (-c2 * (Lv[c] - proj * d[c])).sum(dim=1)
+                gl[c] = gl[c] + (-c2 * proj * Lv[c]).sum(dim=1)
+        if pln.shape[0]:
+            pl = soft._rows(pln, 4)
+            occ, docc, t, den, near = soft._plane_soft(pl, o, d, tmin, mag, beta)
+            g_m = gob / (1.0 - occ) * docc
+            g_t = torch.where(near, g_m, -g_m)
+            for c in range(3):
+                gp[c] = gp[c] + (-(g_t / den) * pl[c]).sum(dim=1)
+                gl[c] = gl[c] + ((-g_t * t / den) * pl[c]).sum(dim=1)
+            gm = gm + torch.where(near, 0.0, g_m).sum(dim=1)
+        for a, b in soft.plain._tri_chunks(T, R, p.device):
+            k = soft._rows(tri[a:b], 13)
+            occ, docc, u, v, w, inv_a, h, s, q = soft._tri_soft(k, o, d, tmin, mag, beta)
+            g_nu, g_nv, g_a = soft._tri_grad(u, v, w, inv_a, gob / (1.0 - occ) * docc)
+            e1d = soft._cross3(k[3], k[4], k[5], *d)
+            e2s = soft._cross3(k[6], k[7], k[8], *s)
+            e21 = soft._cross3(k[6], k[7], k[8], k[3], k[4], k[5])
+            walked = crosses[:, inv_col[a:b]]
+            for c in range(3):
+                gp[c] = gp[c] + torch.where(walked, g_nu * h[c] + g_nv * e1d[c], 0.0).sum(dim=1)
+                gl[c] = gl[c] + torch.where(
+                    walked, g_nu * e2s[c] + g_nv * q[c] + g_a * e21[c], 0.0).sum(dim=1)
+        g_p = g_p + torch.stack(gp, dim=1)
+        g_dirs.append(torch.stack(gl, dim=1))
+        g_mags.append(gm)
+    return (g_p, torch.stack(g_dirs), torch.stack(g_mags)), skipped
+
+
+def test_k6_walk_twin_equals_the_plain_version():
+    """K6's walk skips, per (ray, light), the groups whose gradient record
+    (``soft.grad_boxes``) its segment misses; their partials are all
+    exactly 0.0f, so the torch twin of the walk (``_dray_walk_twin``)
+    equals ``soft_dray_plain`` bit for bit on bunny's soft shadow queries
+    and cotangent, while skipping most groups."""
+    (p, dirs, mags, g), _ = _inputs("bunny")
+    scene = _scene("bunny")
+    sph, pln, tri = packed.soft_packs(scene)
+    trans = soft.soft_trans_plain(p, dirs, mags, sph, pln, tri, 1e-4, BETA)
+    want = soft.soft_dray_plain(p, dirs, mags, g, trans, sph, pln, tri, 1e-4, BETA)
+    got, skipped = _dray_walk_twin(p, dirs, mags, g, trans, sph, pln, tri,
+                                   soft.grad_boxes(scene, BETA), 1e-4, BETA)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[0].abs().max()) > 0.0 and skipped > 0.5
+
+
+def test_soft_dray_refuses_to_run_without_the_gradient_records():
+    """K6 walks the gradient records (``soft.grad_boxes``): a call on
+    tensors off the CPU without them raises before a launch, on any
+    device; with them, tensors off CUDA still raise."""
+    scene = _scene("bunny")
+    p, dirs, mags = _shadow_inputs(scene, 8, 8)
+    blobs = packed.soft_packs(scene)
+    wl, cnt = soft.soft_worklists(scene, p, dirs, mags, 1e-4, BETA)
+    boxes = soft.grad_boxes(scene, BETA)
+    g = torch.ones_like(mags)
+    mp, md, mm, mg, ms, mpl, mt, mwl, mcnt, mb = (
+        x.to("meta") for x in (p, dirs, mags, g, *blobs, wl, cnt, boxes))
+    before = soft.SOFT_DRAY_LAUNCHES
+    with pytest.raises(ValueError, match="K6 walks the gradient records"):
+        soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, BETA)
+    with pytest.raises(ValueError, match="K6 runs on CUDA"):
+        soft.soft_dray(mp, md, mm, mg, mg, ms, mpl, mt, mwl, mcnt, 1e-4, BETA, mb)
+    assert soft.SOFT_DRAY_LAUNCHES == before
 
 
 @pytest.mark.parametrize("name", SOFT_NAMES)
@@ -711,8 +804,8 @@ def test_soft_kernels_match_plain_versions_on_the_card():
             g = torch.rand(mags.shape, device=dev) * 2.0 - 1.0
             before = (soft.SOFT_TRANS_LAUNCHES, soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DPRIM_LAUNCHES)
             trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, 1e-4, BETA)
-            ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, 1e-4, BETA)
             grad_boxes = soft.grad_boxes(scene, BETA)
+            ray = soft.soft_dray(p, dirs, mags, g, trans, *blobs, wl, cnt, 1e-4, BETA, grad_boxes)
             prim = soft.soft_dprim(p, dirs, mags, g, trans, blobs[2], wl, cnt, 1e-4, BETA,
                                    grad_boxes)
             torch.cuda.synchronize()
@@ -758,3 +851,39 @@ def test_soft_kernels_match_plain_versions_on_the_card():
             assert torch.isfinite(got).all() and float((got - want).abs().max()) <= 1e-3 * scale
         if name == "far_plane":  # the sphere and plane cotangents are not all zero
             assert all(float(x.abs().max()) > 0.0 for x in grads[False][3:])
+
+
+@pytest.mark.cuda
+def test_k6_walk_is_deterministic_on_the_card():
+    """K6 on the gradient records: within 1e-4 of each output's largest
+    magnitude of its plain version, and two launches, and its walk over
+    records that pass every group (the same partials in the same order),
+    equal to it bit for bit (no atomics), on bunny's and optional's shadow
+    queries at 64x32 and 50x37 (a ragged last tile).  Run on a machine with
+    a card with ``pytest -m cuda tests/test_torch_grad.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for name in ("bunny", "optional"):
+        scene = _scene(name).to(dev)
+        blobs = packed.soft_packs(scene)
+        boxes = soft.grad_boxes(scene, BETA)
+        every = accel.open_normal_boxes(boxes.shape[0], dev)
+        for w, h in ((64, 32), (50, 37)):
+            p, dirs, mags = _shadow_inputs(scene, w, h)
+            g = torch.rand(mags.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                           device=dev) * 2.0 - 1.0
+            trans, (_, wl, cnt) = soft.soft_trans_lights_kernel(scene, p, dirs, mags, 1e-4, BETA)
+            args = (p, dirs, mags, g, trans, *blobs, wl, cnt, 1e-4, BETA)
+            before = (soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DRAY_SUM_LAUNCHES)
+            first, second = soft.soft_dray(*args, boxes), soft.soft_dray(*args, boxes)
+            assert (soft.SOFT_DRAY_LAUNCHES, soft.SOFT_DRAY_SUM_LAUNCHES) == (before[0] + 2,
+                                                                            before[1] + 2)
+            opened = soft.soft_dray(*args, every)
+            want = soft.soft_dray_plain(p, dirs, mags, g, trans, *blobs, 1e-4, BETA)
+            for a, b, o, ref in zip(first, second, opened, want):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                assert torch.equal(a.view(torch.int32), o.view(torch.int32))
+                scale = max(float(ref.abs().max()), 1e-6)
+                assert float((a - ref).abs().max()) <= 1e-4 * scale
+

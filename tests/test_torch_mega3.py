@@ -301,7 +301,7 @@ def test_k11_matches_plain_versions_and_k2_on_the_card():
             records = accel.normal_boxes(scene.triangles)[2]
             before = (mega3.MEGA3_CLOSEST_LAUNCHES, mega3.MEGA3_SHADE_LAUNCHES)
             acc, bounds = mega3.mega3_closest(buf, counts, blob, records, wl, cnt, cfg)
-            acc2, bounds2 = mega2.mega2_closest(buf, counts, wl, cnt, cfg)
+            acc2, bounds2 = mega2.mega2_closest(buf, counts, records, wl, cnt, cfg)
             assert torch.equal(acc, acc2) and torch.equal(bounds, bounds2)
             acc_p, _ = mega2.mega2_closest_plain(buf, counts, cfg)
             assert (acc[0] == acc_p[0]).float().mean() >= 0.9999

@@ -1050,9 +1050,11 @@ def test_normal_records_widen_enough_at_the_determinant_bound(name):
 
 def _grad_nonzero(tri, p, d, mag, g):
     """(R, T) bool: some of the nine partials of plain ``soft_dprim``
-    (K7's arithmetic, ``soft._tri_soft`` and ``soft._tri_grad``) for query
-    r, triangle k and cotangent ``g`` (R,) (trans taken as 1) is not 0.0f,
-    in plain's chunks of triangles."""
+    (K7's arithmetic, ``soft._tri_soft`` and ``soft._tri_grad``) or of
+    the six triangle partials of plain ``soft_dray`` (K6's: g_p, whose
+    terms are K7's g_s, and g_dirs) for query r, triangle k and cotangent
+    ``g`` (R,) (trans taken as 1) is not 0.0f, in plain's chunks of
+    triangles."""
     o3 = tuple(x[:, None] for x in p.unbind(1))
     d3 = tuple(x[:, None] for x in d.unbind(1))
     out = []
@@ -1063,9 +1065,12 @@ def _grad_nonzero(tri, p, d, mag, g):
         g_nu, g_nv, g_a = soft._tri_grad(u, v, w, inv_a, g_m)
         e1d = soft._cross3(k[3], k[4], k[5], *d3)
         ds = soft._cross3(*d3, *s)
+        e2s = soft._cross3(k[6], k[7], k[8], *s)
+        e21 = soft._cross3(k[6], k[7], k[8], k[3], k[4], k[5])
         parts = ([g_nu * h[c] + g_nv * e1d[c] for c in range(3)]
                  + [g_nv * ds[c] + g_a * h[c] for c in range(3)]
-                 + [-g_nu * ds[c] + g_a * e1d[c] for c in range(3)])
+                 + [-g_nu * ds[c] + g_a * e1d[c] for c in range(3)]
+                 + [g_nu * e2s[c] + g_nv * q[c] + g_a * e21[c] for c in range(3)])
         out.append(torch.stack(parts).ne(0.0).any(dim=0))
     return torch.cat(out, dim=1)
 
@@ -1073,15 +1078,15 @@ def _grad_nonzero(tri, p, d, mag, g):
 @pytest.mark.parametrize("name", ["bunny", "slivers", "grazing"])
 def test_grad_records_pass_every_nonzero_partial(name):
     """The gradient records (``soft.grad_boxes``: ``accel.normal_boxes`` at
-    ``accel.GRAD_SUPPORT``) against K7's plain partials: on rays crossing
-    the triangles' planes just inside and just outside the gradient's
-    support (``_margin_rays`` at GRAD_SUPPORT), on bunny and on sliver
-    triangles, and on bunny's grazing rays, every (query, triangle) pair
-    with a partial other than 0.0f passes the per-ray and the bundle test
-    of its group, so K7's walk adds every nonzero partial of the walk over
-    every listed group.  On bunny some of those pairs lie outside K5's soft
-    records (support 20): they would drop partials that are small but not
-    0."""
+    ``accel.GRAD_SUPPORT``) against K7's and K6's plain partials: on rays
+    crossing the triangles' planes just inside and just outside the
+    gradient's support (``_margin_rays`` at GRAD_SUPPORT), on bunny and on
+    sliver triangles, and on bunny's grazing rays, every (query, triangle)
+    pair with a partial other than 0.0f passes the per-ray and the bundle
+    test of its group, so K7's and K6's walks add every nonzero partial of
+    the walk over every listed group.  On bunny some of those pairs lie
+    outside K5's soft records (support 20): they would drop partials that
+    are small but not 0."""
     rng = np.random.default_rng(17)
     if name == "slivers":
         tri, tris = _slivers(rng)
@@ -1178,6 +1183,6 @@ def test_k3_and_k11a_match_plain_versions_on_the_card():
             wl2, cnt2 = mega2.primary_worklists(scene, cfg, group_bounds=(glo, ghi))
             acc, bounds = mega3.mega3_closest(buf, counts, blob, records, wl2, cnt2, cfg)
             acc_o, bounds_o = mega3.mega3_closest(buf, counts, blob, opened, wl2, cnt2, cfg)
-            acc2, bounds2 = mega2.mega2_closest(buf, counts, wl2, cnt2, cfg)
+            acc2, bounds2 = mega2.mega2_closest(buf, counts, records, wl2, cnt2, cfg)
             for a, b in ((acc, acc2), (bounds, bounds2), (acc, acc_o), (bounds, bounds_o)):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
