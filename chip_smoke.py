@@ -6,7 +6,8 @@ Phases (each passes or raises; nothing is caught):
   0. environment: the card's name and power limit, torch and CUDA versions;
   1. build every kernel from raytpu_torch/render/csrc with nvcc;
   2. each kernel against its plain PyTorch version on the card: K1 on the
-     small scenes and the OBJ scene w4_test, K2a + K2b (the mega2 route) on
+     small scenes and the OBJ scene w4_test (and its whole frame equal bit
+     for bit to its own tile ranges on reference at 640x480 and 50x37), K2a + K2b (the mega2 route) on
      bunny and optional (K2b bit for bit, and equal to K11b's image and to
      its own launch over records that pass every group; K2a's buffer and
      boxes equal bit for bit to K11a's, to its own launch over such records
@@ -99,8 +100,10 @@ Phases (each passes or raises; nothing is caught):
      share and peak memory; K8, K9 and K10 and the chunked fixtures' frames;
      K11a and K11b beside K2a's and K2b's times on the same frames, and the
      mega3 frames with their idle share; P1 in each variant and T against
-     its operation bound (and the non-FMA issue rate), P2's bytes/s on a
-     155.7 MB blob against 3.35 TB/s.
+     its operation bound (and the non-FMA issue rate, and its fold loop's
+     SASS instructions a test at that rate), P2's bytes/s on a 155.7 MB
+     blob against 3.35 TB/s; K1 and P1 with ptxas's registers and spills,
+     K1 with its tests' SASS instructions a ray (cuobjdump).
 
 The chunked route's fixtures are registry scenes carried across with
 ``convert`` and edited (raytpu's registry has no scene past its caps):
@@ -391,6 +394,21 @@ def phase_compare(dev) -> dict:
         print(f"phase 2: {name:24s} max|f32 diff| {diff:.3e}  flips {flips:.5f}  mean {mean:.5f}")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], diff)
         worst["flip_frac"] = max(worst["flip_frac"], flips)
+    for cfg in (full, RenderConfig(width=50, height=37)):
+        # the whole frame (32x32 pixel tiles at 640x480) against row-major
+        # tile ranges, the last ending past the frame
+        whole = ck.render_image_mega_f32(ref_scene, cfg)
+        nt = -(-(cfg.width * cfg.height) // 1024)
+        cuts = sorted({0, 1, nt // 3, nt - 1, nt + 1})
+        flat = torch.cat([ck.render_image_mega_f32(ref_scene, cfg, tile0=a, tiles=b - a)
+                          for a, b in zip(cuts, cuts[1:])])
+        n = cfg.width * cfg.height
+        if (not torch.equal(flat[:n].view(torch.int32), whole.reshape(-1, 3).view(torch.int32))
+                or flat[n:].any()):
+            raise AssertionError(f"K1 reference {cfg.width}x{cfg.height}: the whole frame is not "
+                                 f"its tile ranges {cuts}, bit for bit")
+        print(f"phase 2: K1 reference {cfg.width}x{cfg.height}: the whole frame equals its tile "
+              f"ranges {cuts} bit for bit, black past the frame", flush=True)
     return worst
 
 
@@ -1625,6 +1643,68 @@ def count_ops(scene, config) -> float:
     return float(ops)
 
 
+def k1_tests(scene, config) -> dict:
+    """The primitive tests K1 runs on this frame's data, by pass and kind:
+    every ray tests every sphere, plane and triangle for its closest hit;
+    each hit ray's shadow query for each light tests spheres, then planes,
+    then triangles, up to its first occluder (decisions from the eager
+    path, as ``count_ops`` takes them)."""
+    from raytpu_torch.ops import intersect
+    from raytpu_torch.render.renderer import generate_rays, shadow_query_inputs
+
+    S, P, T, L = scene.spheres.count, scene.planes.count, scene.triangles.count, scene.lights.count
+    R = config.width * config.height
+    out = {"closest": {"sphere": R * S, "plane": R * P, "triangle": R * T},
+           "shadow": {"sphere": 0, "plane": 0, "triangle": 0}}
+    if not (config.shadows and S + P + T):
+        return out
+    ro, rd = generate_rays(scene.camera, config)
+    rec = intersect.closest_hit(scene, ro.expand_as(rd), rd, config.ray_min)
+    p_off, dirs, mags = shadow_query_inputs(scene, rec, config)
+    for li in range(L):
+        occ = torch.isfinite(intersect.scene_t_matrix(scene, p_off, dirs[li], config.ray_min,
+                                                      mags[li], shadow_pass=True))[rec.hit]
+        first = torch.where(occ.any(dim=1), occ.to(torch.int8).argmax(dim=1), S + P + T)
+        for kind, lo, n in (("sphere", 0, S), ("plane", S, P), ("triangle", S + P, T)):
+            out["shadow"][kind] += int(torch.clamp(first - lo + 1, 0, n).sum())
+    return out
+
+
+def k1_sass(scene, config) -> dict:
+    """K1's primitive tests in SASS instructions (``sass_loops``): each
+    pass's and kind's fewest instructions a test over its innermost loops
+    (an unrolled loop and its remainder), times this frame's tests of that
+    pass and kind (``k1_tests``).  A loop is the closest pass's when no
+    other loop holds it, the shadow queries' when the lights' loop does; a
+    sphere loop takes square roots and no division, plane and triangle
+    loops a division a test and no square root, a triangle's more than 20
+    FP32 operations a division.  Raygen, the hit's tail and the shading
+    are not counted; a test that returns an early miss skips part of its
+    loop's instructions, so the sum is an estimate of the tests' share, not
+    a bound.  ``instructions`` is None when some pass and kind has no
+    loop."""
+    loops = sass_loops("mega_kernel")
+    cost = {}
+    for lp in loops:
+        if lp["sqrt"] and not lp["rcp"]:
+            kind, tests = "sphere", lp["sqrt"]
+        elif lp["rcp"] and not lp["sqrt"]:
+            kind, tests = "plane" if lp["fp32"] <= 20 * lp["rcp"] else "triangle", lp["rcp"]
+        else:
+            continue
+        key = ("shadow" if lp["nested"] else "closest", kind)
+        cost[key] = min(cost.get(key, math.inf), lp["instructions"] / tests)
+    out = {"loops": loops, "instructions": None}
+    if len(cost) != 6:
+        return out
+    tests = k1_tests(scene, config)
+    per_test = {f"{p} {k}": n for (p, k), n in sorted(cost.items())}
+    total = sum(n * tests[p][k] for (p, k), n in cost.items())
+    out.update({"per_test": per_test, "tests": tests, "instructions": total,
+                "per_ray": total / (config.width * config.height)})
+    return out
+
+
 def frame_breakdown(frame, n: int, top: list | None = None):
     """(device activities per frame, device-busy ms per frame) over ``n``
     calls of ``frame`` under torch.profiler, or (None, None) when the
@@ -1654,6 +1734,80 @@ def _bound(ops: float, nbytes: float) -> dict:
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def ptxas_usage(entry: str) -> dict:
+    """Registers and spill bytes that ptxas printed in phase 1's build for
+    the first kernel entry whose mangled name holds ``entry``."""
+    import re
+
+    from raytpu_torch.render import build
+
+    lines = build.last_build_log.splitlines()
+    i = next(i for i, ln in enumerate(lines) if "Compiling entry" in ln and entry in ln)
+    spill = next(ln for ln in lines[i:] if "spill stores" in ln)
+    regs = next(ln for ln in lines[i:] if "registers" in ln and "Used" in ln)
+    stores, loads = (int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", spill))
+    return {"registers": int(re.search(r"Used (\d+) registers", regs).group(1)),
+            "spill_store_bytes": stores, "spill_load_bytes": loads}
+
+
+_SASS = {}
+
+
+def sass_loops(entry: str) -> list:
+    """The innermost loops of the first kernel in the built library whose
+    mangled name holds ``entry``, from ``cuobjdump -sass``: a loop runs
+    from a backward branch's target to the last branch back to it.  Per
+    loop: its instructions (NOPs left out), MUFU.RCP (one a division or
+    reciprocal), MUFU.RSQ and MUFU.SQRT (one a square root), FP32 adds,
+    multiplies and fused multiply-adds, and whether another loop holds it."""
+    import re
+
+    from raytpu_torch.render import build
+
+    if "dump" not in _SASS:
+        tool = Path(build.nvcc_path()).with_name("cuobjdump")
+        _SASS["dump"] = subprocess.run([str(tool), "-sass", str(build.BUILD_DIR / build.LIB_NAME)],
+                                       capture_output=True, text=True, check=True,
+                                       timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", _SASS["dump"])
+    body = next(f for f in funcs[1:] if entry in f.split("\n", 1)[0])
+    insts, labels, pending = [], {}, []
+    for ln in body.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2).strip()
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        words = text.split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        insts.append((addr, op, text))
+    heads = {}
+    for addr, op, text in insts:
+        if op.startswith("BRA"):
+            m = re.search(r"\((\.L_x_\d+)\)", text) or re.search(r"(0x[0-9a-f]+)", text)
+            target = labels.get(m.group(1)) if m.group(1).startswith(".L") else int(m.group(1), 16)
+            if target is not None and target <= addr:
+                heads[target] = max(heads.get(target, 0), addr)
+    loops = sorted(heads.items())
+    inner = [(a, b) for a, b in loops
+             if not any(a <= a2 and b2 <= b and (a2, b2) != (a, b) for a2, b2 in loops)]
+    out = []
+    for a, b in inner:
+        ops = [op for addr, op, _ in insts if a <= addr <= b and op != "NOP"]
+        out.append({"start": a, "instructions": len(ops),
+                    "nested": any(a2 <= a and b <= b2 and (a2, b2) != (a, b) for a2, b2 in loops),
+                    "rcp": sum(op.startswith("MUFU.RCP") for op in ops),
+                    "sqrt": sum(op.startswith(("MUFU.RSQ", "MUFU.SQRT")) for op in ops),
+                    "fp32": sum(op.split(".")[0] in ("FADD", "FMUL", "FFMA") for op in ops)})
+    return out
 
 
 def time_frames(spec, scene, config, frames: int, dev, render=None):
@@ -1694,17 +1848,30 @@ def time_k1(dev, env: dict, built: dict, worst: dict, main: dict):
     plain_ms = device_ms(lambda: math3d.quantize_u8(ck.render_image_mega_f32_plain(scene, config)),
                          iters=5, warmup=1)
     bound = _bound(count_ops(scene, config), buf.numel() * 4 + out.numel() * 4)
+    issue_rate = FP32_LANES * _sm_clock_hz()
+    usage = ptxas_usage("mega_kernel")
+    sass = k1_sass(scene, config)
+    issue_ms = bound["ops"] / issue_rate * 1e3
+    sass_ms = None if sass["instructions"] is None else sass["instructions"] / issue_rate * 1e3
+    # the tests' instructions each counted whole: an early miss skips part of one
     print(f"phase 4: K1 reference: kernel {kernel_ms:.4f} ms, frame {frame_ms:.4f} ms "
           f"({rays_per_s:.4e} primary rays/s), plain {plain_ms:.3f} ms at {W}x{H}; "
           f"{bound['ops']:.4e} FP32 ops -> {bound['ops_ms']:.4f} ms at 67 TFLOP/s, "
-          f"{bound['bytes']} B -> {bound['bytes_ms']:.6f} ms at 3.35 TB/s; per frame {acts} "
-          f"device activities, busy {busy_ms} ms, idle share {idle}", flush=True)
+          f"{issue_ms:.4f} ms at the non-FMA issue rate ({issue_rate:.4e} op/s), "
+          f"{bound['bytes']} B -> {bound['bytes_ms']:.6f} ms at 3.35 TB/s; SASS: "
+          f"{sass.get('per_ray')} test instructions a ray, each test counted whole -> "
+          f"{sass_ms} ms at the issue rate "
+          f"(per test {json.dumps(sass.get('per_test'))}; loops {json.dumps(sass['loops'])}); "
+          f"ptxas {json.dumps(usage)}; per frame {acts} device activities, busy {busy_ms} ms, "
+          f"idle share {idle}; {env['nvidia_smi']}", flush=True)
     kernel = {"name": "mega", "id": "K1", "route": "cuda",
               "source": "raytpu_torch/render/csrc/mega.cu",
               "replaces": "raytpu/render/pallas_kernel.py:879", "launches": main["launches"],
               "max_abs_err": worst["max_abs_diff"], "max_abs_diff": worst["max_abs_diff"],
               "flip_frac": worst["flip_frac"], "ms": kernel_ms, "plain_ms": plain_ms,
-              "plain_size": f"{W}x{H}", "library_ms": None, **bound}
+              "plain_size": f"{W}x{H}", "library_ms": None, **bound, **usage,
+              "issue_bound_ms": issue_ms, "sass_test_instructions_per_ray": sass.get("per_ray"),
+              "sass_tests_ms": sass_ms}
     line = {"scene": "reference", "size": f"{W}x{H}", "frames": FRAMES, "route": "mega",
             "launches": {"K1": main["launches"]}, "kernel_ms": {"K1": kernel_ms},
             "frame_ms": frame_ms, "primary_rays_per_s": rays_per_s,
@@ -2806,6 +2973,14 @@ def time_probes(dev, env: dict, worst: dict, paths: dict) -> list:
     from raytpu_torch.utils.profiling import device_ms
 
     issue_rate = FP32_LANES * _sm_clock_hz()
+    # the in-order staged instance's fold loop: its instructions a test
+    usage = ptxas_usage("smem_fold_kernelILb1ELb0E")
+    loops = sass_loops("smem_fold_kernelILb1ELb0E")
+    fold = max(loops, key=lambda lp: lp["rcp"])
+    per_test = fold["instructions"] / fold["rcp"]
+    print(f"phase 4: P1 SASS (staged, in order): {per_test:.2f} instructions a test (loop of "
+          f"{fold['instructions']} with {fold['rcp']} tests; loops {json.dumps(loops)}); ptxas "
+          f"{json.dumps(usage)}", flush=True)
     variants = {}
     for T in P1_TS:
         tri = torch.from_numpy(ps.make_triangles(T, 0)).to(dev)
@@ -2817,22 +2992,24 @@ def time_probes(dev, env: dict, worst: dict, paths: dict) -> list:
                 ops = OPS_P1_TEST * P1_TILES * ps.TILE * T
                 bound = _bound(ops, 4 * T * (ps.TRI_COLS + int(worklist)) + 4 * ps.TILE * P1_TILES)
                 issue_ms = ops / issue_rate * 1e3
+                sass_ms = per_test * P1_TILES * ps.TILE * T / issue_rate * 1e3
                 key = f"T={T} worklist={int(worklist)} staged={int(staged)}"
                 variants[key] = {"ms": r["ms"], "ns_per_tile_tri": r["ns_per_tile_tri"],
                                  "tests_per_s": r["tests_per_s"], "plain_ms": plain_ms,
-                                 "issue_bound_ms": issue_ms, **bound}
+                                 "issue_bound_ms": issue_ms, "sass_bound_ms": sass_ms, **bound}
                 print(f"phase 4: P1 {key}: {r['ms']:.4f} ms, {r['ns_per_tile_tri']:.3f} ns/(tile,"
                       f"tri), {r['tests_per_s']:.4e} tests/s; bound {bound['bound_ms']:.4f} ms "
                       f"({ops:.4e} FP32 ops at 67 TFLOP/s), {issue_ms:.4f} ms at the non-FMA "
-                      f"issue rate ({issue_rate:.4e} op/s); plain {plain_ms:.2f} ms; "
-                      f"{env['nvidia_smi']}", flush=True)
+                      f"issue rate ({issue_rate:.4e} op/s), {sass_ms:.4f} ms at {per_test:.2f} "
+                      f"SASS instructions a test; plain {plain_ms:.2f} ms; {env['nvidia_smi']}",
+                      flush=True)
     head = variants[f"T={P1_TS[-1]} worklist=1 staged=1"]
     p1 = {"name": "probe_smem_fold", "id": "P1", "route": "cuda",
           "source": "raytpu_torch/render/csrc/probes.cu", "replaces": "probes/probe_smem.py:17",
           "launches": paths["P1"]["launches"], "max_abs_err": worst["P1"]["max_abs_diff"],
           "max_abs_diff": worst["P1"]["max_abs_diff"], "library_ms": None,
-          "shape": f"T={P1_TS[-1]} worklist=1 staged=1, {P1_TILES} tiles", **head,
-          "variants": variants}
+          "shape": f"T={P1_TS[-1]} worklist=1 staged=1, {P1_TILES} tiles", **head, **usage,
+          "sass_instructions_per_test": per_test, "variants": variants}
     blob, wl, cnt = pd.timed_shape(dev, P2_BLOCKS, P2_PER_BLOCK)
     ms = pd.time_ms(blob, wl, cnt, P2_BLOCKS)
     plain_ms = device_ms(lambda: pd.dma_ring_sum_plain(blob, wl, cnt, P2_BLOCKS), iters=3)

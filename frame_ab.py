@@ -50,7 +50,13 @@ on the same inputs (K6_SCENES), saving its g_p, g_dirs and g_mags; and K2a
 (``mega2.mega2_closest``) on frame 0 of bunny and optional and on the
 second rank's tile range of the pixel-sharded bunny render ("bunny px1",
 K2A_SCENES), saving its buffer and tile boxes and recording whether they
-equal K11a's on the same worklists bit for bit.  Each wrapper is called
+equal K11a's on the same worklists bit for bit; K1 (``cuda_kernel.launch_mega``)
+on chip_smoke.py phase 2's frames (K1_SCENES: reference in each lighting
+mode, without shadows, at t = 1.25 and at 50x37, w2, w3_test, w1, a
+directional light, w4_test), saving its image; and P1 (``probe_smem.smem_fold``) in each
+of its twelve cases (P1_CASES: T, worklist, staged) over 300 tiles, timed
+on raytpu's uniform draw, saving its output on that draw and on the draw
+in front of the rays.  Each wrapper is called
 with the box records where the tree's takes them, built as the tree's
 route builds them.  ``--kernels`` keeps the frames and the steps and
 times and saves only the kernels it names (K4 and K11b are timed
@@ -60,7 +66,7 @@ An A/B compares two trees in one call on one card, in turns, with the
 other tree unpacked under ``_work/`` (``git archive <commit> | tar -x -C
 _work/parent``), then counts the (light, ray) pairs of K4, K5 and K9, the
 (pixel, channel) entries of K10 and K2b and the words of K3's, K11a's,
-K8's, K6's and K2a's answers in which the trees' answers differ, and for
+K8's, K6's, K2a's, K1's and P1's answers in which the trees' answers differ, and for
 K7, whose atomic sums move in their last bits from run to run, and K6's
 g_p, which a tree may sum over the lights in another order, the largest
 difference over the largest magnitude, which must stay within K7_TOL and
@@ -119,8 +125,22 @@ K6_TOL = 1e-4
 #: the frames on which K2a is timed and its buffer and boxes saved: bunny's
 #: and optional's, and (" px1") the tiles of the second of two px ranks
 K2A_SCENES = ("bunny", "optional", "bunny px1")
+#: the frames on which K1 is timed and its image saved, chip_smoke.py phase
+#: 2's cases: reference (32x32 pixel tiles at 640x480) in each lighting
+#: mode, without shadows, at t = 1.25 and at 50x37 (row-major rays); w2,
+#: w3_test, w1 (no lights), a directional light (chip_smoke.py's scene) and
+#: w4_test (OBJ)
+K1_SCENES = ("reference", "reference observed_area", "reference radiance", "reference brdf",
+             "reference no-shadows", "reference t=1.25", "reference 50x37", "w2", "w3_test", "w1",
+             "directional", "w4_test")
+#: K1's launches per timed run: a launch takes tens of microseconds
+K1_ITERS = 200
+#: P1's cases, each timed on raytpu's uniform draw and saved on both draws:
+#: triangles, worklist, staged
+P1_CASES = tuple(f"T{T}-wl{wl}-st{st}" for T in (64, 384, 1024) for wl in (0, 1) for st in (1, 0))
 #: every kernel this script times, in its order; K4 and K11b together
-KERNELS = ("K4", "K11b", "K10", "K5", "K3", "K11a", "K9", "K2b", "K8", "K7", "K6", "K2a")
+KERNELS = ("K4", "K11b", "K10", "K5", "K3", "K11a", "K9", "K2b", "K8", "K7", "K6", "K2a", "K1",
+           "P1")
 #: the mega3 route's frames: scene and frame count, chip_smoke.py's MEGA3_PATHS
 MEGA3_FRAMES = (("optional", 16), ("bunny50k", 4), ("bunny300k", 2))
 #: chip_smoke.py's sharded cases whose wall time is taken: K4 on each
@@ -235,6 +255,14 @@ def main(argv=None) -> int:
     for key in K2A_SCENES if "K2a" in want else ():
         out["-".join(key.split()) + "_K2a"] = _k2a(built[key.split()[0]], cfg, tree, key,
                                                    args.out)
+    for key in K1_SCENES if "K1" in want else ():
+        name = key.split()[0]
+        if name not in built:
+            built[name] = (cs._directional_scene(dev) if name == "directional"
+                           else scenes.get(name).build(dev))
+        out["-".join(key.split()) + "_K1"] = _k1(built[name], cfg, tree, key, args.out)
+    for key in P1_CASES if "P1" in want else ():
+        out[key + "_P1"] = _p1(dev, tree, key, args.out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -465,6 +493,73 @@ def _k2a(scene, cfg, tree: str, name: str, outdir) -> dict:
                            torch.cat([acc.flatten(), bounds.flatten()]), (buf, wl, cnt))}
 
 
+def _k1(scene, cfg, tree: str, name: str, outdir) -> dict:
+    """K1's ms (REPEATS runs of K1_ITERS launches) on the scene's frame
+    that ``name`` (K1_SCENES) names: unanimated at 640x480 unless it names
+    a lighting mode, no shadows, t = 1.25 or a size; through ``launch_mega``
+    on ``mega_pack``'s buffer; the median, least and most of K1_ITERS more
+    launches' device times under torch.profiler; its image saved."""
+    import dataclasses
+
+    import torch
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytpu_torch.core import scenes
+    from raytpu_torch.core.types import LightingMode
+    from raytpu_torch.render import cuda_kernel as ck
+    from raytpu_torch.utils.profiling import device_ms
+
+    for mod in name.split()[1:]:
+        if mod.upper() in LightingMode.__members__:
+            cfg = dataclasses.replace(cfg, lighting_mode=LightingMode[mod.upper()])
+        elif mod == "no-shadows":
+            cfg = dataclasses.replace(cfg, shadows=False)
+        elif mod.startswith("t="):
+            scene = scenes.get(name.split()[0]).animate(scene, float(mod[2:]))
+        else:
+            w, h = (int(v) for v in mod.split("x"))
+            cfg = dataclasses.replace(cfg, width=w, height=h)
+    buf, counts = ck.mega_pack(scene, cfg)
+    out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32, device=buf.device)
+    ck.launch_mega(buf, counts, cfg, out)
+    img = out.clone()
+    res = {"K1_ms": _spread([device_ms(lambda: ck.launch_mega(buf, counts, cfg, out),
+                                       iters=K1_ITERS, warmup=10) for _ in range(REPEATS)])}
+    # a launch can be shorter than the host's call: the kernels' own device
+    # time, from the profiler, is the comparison that does not wait on the host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(K1_ITERS):
+            ck.launch_mega(buf, counts, cfg, out)
+        torch.cuda.synchronize()
+    us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "mega_kernel" in e.name)
+    if us:
+        res["K1_device_ms"] = {"median": us[len(us) // 2] / 1e3, "min": us[0] / 1e3,
+                               "max": us[-1] / 1e3, "launches": len(us)}
+    return {**res, **_save(outdir, "k1", name, tree, img, (buf,))}
+
+
+def _p1(dev, tree: str, key: str, outdir) -> dict:
+    """P1's ms (REPEATS runs of the probe's DISPATCHES launches) in case
+    ``key`` (``P1_CASES``) over 300 tiles of raytpu's uniform draw, as its
+    ``main`` times it; its output on that draw and on the draw in front of
+    the rays saved as one row."""
+    import torch
+
+    from raytpu_torch.probes import probe_smem as ps
+    from raytpu_torch.utils.profiling import device_ms
+
+    T, worklist, staged = (int(part.lstrip("Twlst")) for part in key.split("-"))
+    wl = torch.from_numpy(ps.make_worklist(T, 0)).to(dev)
+    tris = [torch.from_numpy(ps.make_triangles(T, 0, front)).to(dev) for front in (False, True)]
+    outs = [ps.smem_fold(tri, wl, 300, bool(worklist), bool(staged)).flatten() for tri in tris]
+    res = {"P1_ms": _spread([device_ms(lambda: ps.smem_fold(tris[0], wl, 300, bool(worklist),
+                                                            bool(staged)),
+                                       iters=ps.DISPATCHES, warmup=1) for _ in range(REPEATS)])}
+    return {**res, **_save(outdir, "p1", key, tree, torch.cat(outs), (*tris, wl))}
+
+
 def _k2b(scene, cfg, tree: str, name: str, outdir) -> dict:
     """K2b's ms (REPEATS runs of KERNEL_ITERS launches) on K2a's buffer of
     the scene's unanimated frame, its inputs built as the tree's mega2
@@ -647,8 +742,8 @@ def compare(outdir: str, kernels=KERNELS) -> int:
     """Count the entries in which two trees' answers differ, kernel by
     kernel and scene by scene, from the files ``--out`` wrote, for the
     ``kernels`` named: K4's, K5's and K9's (light, ray) pairs, K10's and
-    K2b's (pixel, channel) entries, K3's, K11a's, K8's, K6's and K2a's
-    words; for K7 and K6's g_p also the largest difference over the
+    K2b's (pixel, channel) entries, K3's, K11a's, K8's, K6's, K2a's, K1's
+    and P1's words; for K7 and K6's g_p also the largest difference over the
     largest magnitude.  Non-zero unless every kernel and scene has both
     trees' answers, on the same inputs, and none differ (K7: none beyond
     K7_TOL of the largest; K6's g_p: K6_TOL)."""
@@ -660,7 +755,8 @@ def compare(outdir: str, kernels=KERNELS) -> int:
     for kernel, names in (("k4", KERNEL_SCENES), ("k10", K10_SCENES), ("k5", K5_SCENES),
                           ("k3", K3_SCENES), ("k11a", K11A_SCENES), ("k9", K9_SCENES),
                           ("k2b", K2B_SCENES), ("k8", K8_SCENES), ("k7", K7_SCENES),
-                          *((part, K6_SCENES) for part in K6_PARTS), ("k2a", K2A_SCENES)):
+                          *((part, K6_SCENES) for part in K6_PARTS), ("k2a", K2A_SCENES),
+                          ("k1", K1_SCENES), ("p1", P1_CASES)):
         stem = kernel.split("_")[0]  # k6_gp -> k6
         if not any(k.lower() == stem or (stem, k) == ("k4", "K11b") for k in kernels):
             continue

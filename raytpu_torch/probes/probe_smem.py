@@ -2,12 +2,14 @@
 
 Counterpart of ``probes/probe_smem.py`` (raytpu's TPU probe of a loop over
 triangle scalars in SMEM).  The kernel is ``render/csrc/probes.cu``
-(``smem_fold_kernel``): one thread per synthetic ray, one 1024-ray block per
-raytpu (8, 128) tile; each ray folds ``T`` triangles of 12 floats (9 vertex
+(``smem_fold_kernel``): synthetic rays in 1024-ray tiles, one raytpu
+(8, 128) tile each; each ray folds ``T`` triangles of 12 floats (9 vertex
 coordinates, an id, 2 pads) with a Moller-Trumbore test and keeps a running
-(min t, id), then writes ``t + id`` (1e30 on a miss).  Four variants: the
-triangles staged in shared memory (K11's way) or read from device memory as
-a broadcast (K2's way), in order or through a worklist.
+(min t, id), then writes ``t + id`` (1e30 on a miss).  Each thread folds
+FOLD_RAYS rays of one tile row, reading each triangle once for all of them
+(``thread_rays`` is its map).  Four variants: the triangles staged in shared
+memory (K11's way) or read from device memory as a broadcast (K2's way), in
+order or through a worklist.
 
 ``smem_fold`` launches the kernel for CUDA tensors and takes the plain
 version, ``smem_fold_plain``, only for CPU tensors.  ``run`` times one
@@ -38,6 +40,23 @@ TRI_COLS = 12
 MAX_SMEM_BYTES = 232448
 #: Launches timed back to back per repeat, as raytpu's 8-step scan.
 DISPATCHES = 8
+#: The kernel's rays a thread and threads a block (probes.cu kFoldRays,
+#: kFoldBlock).
+FOLD_RAYS, FOLD_BLOCK = 4, 128
+
+
+def thread_rays(tiles: int, rays: int = FOLD_RAYS, block: int = FOLD_BLOCK):
+    """(blocks, block, rays) long: the output index (tile * 1024 + sub * 128
+    + lane) of each ray of each thread of the kernel's grid, -1 for threads
+    past the last tile (probes.cu:smem_fold_kernel).  Thread g takes lanes
+    g % (128 // rays) + m * (128 // rays) of row (g % (1024 // rays)) //
+    (128 // rays) of tile g // (1024 // rays)."""
+    per_tile, per_row = TILE // rays, 128 // rays
+    blocks = -(-tiles * per_tile // block)
+    g = torch.arange(blocks * block)
+    tile, sub, lane0 = g // per_tile, (g % per_tile) // per_row, g % per_row
+    idx = (tile * TILE + sub * 128 + lane0)[:, None] + torch.arange(rays)[None, :] * per_row
+    return torch.where((g < tiles * per_tile)[:, None], idx, -1).reshape(blocks, block, rays)
 
 
 def make_triangles(T: int, seed: int = 0, front: bool = False) -> np.ndarray:
@@ -67,6 +86,7 @@ def _check(tri, wl, tiles: int, worklist: bool, staged: bool) -> int:
                                            "wl": (wl, torch.int32, (1, T))})
     if tiles < 1:
         raise ValueError(f"P1 needs at least one tile, got {tiles}")
+    build.check_aligned("P1", "tri", tri, 16)  # the kernel reads each triangle as float4s
     if staged and 4 * T * (TRI_COLS + int(worklist)) > MAX_SMEM_BYTES:
         raise ValueError(f"P1 staged: {T} triangles do not fit in {MAX_SMEM_BYTES} B of "
                          "shared memory")
@@ -75,7 +95,7 @@ def _check(tri, wl, tiles: int, worklist: bool, staged: bool) -> int:
 
 def smem_fold(tri, wl, tiles: int, worklist: bool = False, staged: bool = True):
     """P1 over ``tiles`` tiles -> (8 * tiles, 128) float32 of ``t + id``.
-    ``tri`` (T, 12) float32, ``wl`` (1, T) int32 (read when ``worklist``;
+    ``tri`` (T, 12) float32, 16-byte aligned, ``wl`` (1, T) int32 (read when ``worklist``;
     entries outside [0, T) are skipped); ``staged`` stages the triangles in
     shared memory, else every thread reads them from device memory."""
     global P1_LAUNCHES

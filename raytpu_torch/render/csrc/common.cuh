@@ -35,7 +35,10 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, fl
 }
 __device__ __forceinline__ float sqn(float x, float y, float z) { return dot3(x, y, z, x, y, z); }
 
-// pallas_kernel.py:_sphere_t_reg; valid on [lo, hi]
+// pallas_kernel.py:_sphere_t_reg; valid on [lo, hi].  kEarly returns a
+// miss before the square root once the line passes the sphere by (K1):
+// the same answer, with a branch that a warp whose lanes all miss skips by.
+template <bool kEarly = false>
 __device__ __forceinline__ float sphere_t(const float* s, float ox, float oy, float oz,
                                           float dx, float dy, float dz, float lo, float hi) {
   const float lx = s[0] - ox, ly = s[1] - oy, lz = s[2] - oz;
@@ -43,6 +46,7 @@ __device__ __forceinline__ float sphere_t(const float* s, float ox, float oy, fl
   const float proj = dot3(dx, dy, dz, lx, ly, lz);
   const float perp2 = fmaf(-proj, proj, l2);
   const bool inside = s[3] >= perp2;
+  if (kEarly && !inside) return INFINITY;
   const float tc = proj - sqrtf(inside ? s[3] - perp2 : 1.0f);
   return (inside && tc >= lo && tc <= hi) ? tc : INFINITY;
 }
@@ -58,7 +62,10 @@ __device__ __forceinline__ float plane_t(const float* p, float ox, float oy, flo
 }
 
 // pallas_kernel.py:_tri_t_read; Moller-Trumbore with cull modes, valid on
-// [lo, hi).  A shadow ray swaps front- and back-face culling.
+// [lo, hi).  A shadow ray swaps front- and back-face culling.  kEarly
+// returns a miss as soon as the cull, the determinant or u decides one
+// (K1): the same answer, as sphere_t's.
+template <bool kEarly = false>
 __device__ __forceinline__ float tri_t(const float* k, float ox, float oy, float oz,
                                        float dx, float dy, float dz, float lo, float hi,
                                        bool shadow) {
@@ -70,6 +77,7 @@ __device__ __forceinline__ float tri_t(const float* k, float ox, float oy, float
   const bool not_par = fabsf(cull_dot) >= kFltEps;
   const float cull_eff = (cull == 2.0f) ? 2.0f : (shadow ? 1.0f - cull : cull);
   const bool culled = (cull_eff == 0.0f && cull_dot < 0.0f) || (cull_eff == 1.0f && cull_dot > 0.0f);
+  if (kEarly && (!not_par || culled)) return INFINITY;
   // cross products as fmaf(p, q, -(r*s)) (math3d.cross3)
   const float hx = fmaf(dy, e2z, -(dz * e2y));
   const float hy = fmaf(dz, e2x, -(dx * e2z));
@@ -79,6 +87,7 @@ __device__ __forceinline__ float tri_t(const float* k, float ox, float oy, float
   const float inv_a = 1.0f / (det_ok ? a : 1.0f);
   const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
   const float u = inv_a * dot3(sx, sy, sz, hx, hy, hz);
+  if (kEarly && !(det_ok && u >= 0.0f && u <= 1.0f)) return INFINITY;
   const float qx = fmaf(sy, e1z, -(sz * e1y));
   const float qy = fmaf(sz, e1x, -(sx * e1z));
   const float qz = fmaf(sx, e1y, -(sy * e1x));

@@ -1,15 +1,14 @@
 // P1 and P2: the two measurement probes, for Hopper (sm_90a).
 //
 // P1, probe_smem: replaces probes/probe_smem.py:make_kernel (its
-// pl.pallas_call at probe_smem.py:60).  Synthetic rays, one 1024-thread
-// block per raytpu (8, 128) tile, one thread per ray: thread tid of block b
-// is lane tid % 128 and sublane tid / 128, its ray's origin and direction
-// are both (lane * 0.01 + b, sub * 0.1, 1).  Each ray folds T triangles
-// (12 floats: 9 vertex coordinates, an id, 2 pads), in order or through a
-// worklist, each step a Moller-Trumbore test with t > 1e-4 that keeps a
-// running (min t, id) with a strict <, and writes t + id (1e30 on a miss).
-// It is the bare per-(ray, triangle) loop of K2 and K11, with no culling and
-// no shading around it.  Four variants, the product of:
+// pl.pallas_call at probe_smem.py:60).  Synthetic rays in 1024-ray tiles,
+// one a raytpu (8, 128) tile: ray (lane, sub) of tile b has origin and
+// direction both (lane * 0.01 + b, sub * 0.1, 1).  Each ray folds T
+// triangles (12 floats: 9 vertex coordinates, an id, 2 pads), in order or
+// through a worklist, each step a Moller-Trumbore test with t > 1e-4 that
+// keeps a running (min t, id) with a strict <, and writes t + id (1e30 on
+// a miss).  It is the bare per-(ray, triangle) loop of K2 and K11, with no
+// culling and no shading around it.  Four variants, the product of:
 //   - where the triangles come from: shared memory (the block stages tri,
 //     and the worklist, once, then loops: K11's way), or device memory read
 //     as a warp-uniform broadcast through const __restrict__ (K2's way);
@@ -23,9 +22,19 @@
 // for s, 6 for u, 9 for q, 6 each for w and t, u + w), against a few
 // kilobytes of triangles; chip_smoke.py prints the count over 67 TFLOP/s
 // and over the card's non-FMA issue rate, since with -fmad=false each add
-// and multiply is one instruction.  What the design does about it: nothing
-// but keep the loop bare, so its time is the fold's own cost, which the
-// culled kernels (K2, K11) pay for every listed triangle.
+// and multiply is one instruction, and the fold loop's SASS instructions
+// a test (cuobjdump) at that rate.  What the design does about it: each
+// thread folds kFoldRays = 4 rays of one row of 128, 128 threads a block,
+// so the four share every triangle's read (three float4s), its edges,
+// the worklist entry, the loop and the terms of their common ry (nvcc
+// merges the identical operations: the same bits), and four division
+// chains are in flight at once: 60 SASS instructions a test.  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, T = 1024 over 300
+// tiles, staged / broadcast: in order 0.8173 / 0.7166 ms, through the
+// worklist 0.8530 / 0.7616 (the first port's layout, a thread a ray in
+// 1024-thread blocks: 0.9776 / 1.1308, 1.0936 / 1.2599), the broadcast
+// in order 1.27x its SASS bound of 0.5642 ms.  Staged at T = 1024 a block
+// takes 48 KB of shared memory, which holds an SM to 4 blocks.
 //
 // P2, probe_dma_smem: replaces probes/probe_dma_smem.py:kernel (its
 // pl.pallas_call at probe_dma_smem.py:74).  A worklist drives copies of
@@ -52,60 +61,81 @@ namespace {
 
 using namespace raytpu_dev;
 
-constexpr int kTile = 1024;          // rays a block: one raytpu (8, 128) tile
-constexpr int kTriFloats = 12;       // v0, v1, v2, id, 2 pads
+constexpr int kTile = 1024;          // rays a tile: one raytpu (8, 128) tile
+constexpr int kTriFloats = 12;       // v0, v1, v2, id, 2 pads: three float4s
+constexpr int kFoldRays = 4;         // rays a thread
+constexpr int kFoldBlock = 128;      // threads a block
+constexpr int kRowThreads = 128 / kFoldRays;  // threads a row of 128 rays
 constexpr int kRows = 8, kCols = 256;
 constexpr int kBlockFloats = kRows * kCols;  // one row-block, 8 KB
 constexpr int kBlockCopies = kBlockFloats / 4;
 constexpr int kRing = 4;
 constexpr int kRingThreads = 256;
 
+// Thread g of the grid takes kFoldRays rays of one row (sub) of tile g /
+// (kTile / kFoldRays): lanes lane0 + m * kRowThreads, so each warp writes
+// 32 consecutive outputs per ray and a thread's rays share sub, hence ry.
+// Each triangle is read once a thread, as three float4s, for all its rays.
 template <bool kStaged, bool kWorklist>
-__global__ void __launch_bounds__(kTile) smem_fold_kernel(const float* __restrict__ tri,
-                                                          const int* __restrict__ wl, int T,
-                                                          float* __restrict__ out) {
+__global__ void __launch_bounds__(kFoldBlock, 8) smem_fold_kernel(
+    const float* __restrict__ tri, const int* __restrict__ wl, int T, int tiles,
+    float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  const float* tris = tri;
+  const float4* tris = reinterpret_cast<const float4*>(tri);
   const int* order = wl;
   if (kStaged) {
-    for (int q = threadIdx.x; q < T * kTriFloats; q += blockDim.x) smem[q] = tri[q];
+    float4* s4 = reinterpret_cast<float4*>(smem);
+    for (int q = threadIdx.x; q < T * (kTriFloats / 4); q += blockDim.x) s4[q] = tris[q];
     int* swl = reinterpret_cast<int*>(smem + T * kTriFloats);
     if (kWorklist)
       for (int q = threadIdx.x; q < T; q += blockDim.x) swl[q] = wl[q];
     __syncthreads();
-    tris = smem;
+    tris = s4;
     order = swl;
   }
-  const int tid = threadIdx.x;
-  const float lane = static_cast<float>(tid % 128), sub = static_cast<float>(tid / 128);
-  const float rx = lane * 0.01f + static_cast<float>(blockIdx.x);
-  const float ry = sub * 0.1f;
+  const int g = blockIdx.x * kFoldBlock + threadIdx.x;
+  if (g >= tiles * (kTile / kFoldRays)) return;
+  const int tile = g / (kTile / kFoldRays);
+  const int sub = (g % (kTile / kFoldRays)) / kRowThreads;
+  const int lane0 = g % kRowThreads;
+  const float ry = static_cast<float>(sub) * 0.1f;
   const float rz = 1.0f;
-  float t_best = 1e30f, idx_best = 0.0f;
+  float rx[kFoldRays], t_best[kFoldRays], idx_best[kFoldRays];
+#pragma unroll
+  for (int m = 0; m < kFoldRays; ++m) {
+    rx[m] = static_cast<float>(lane0 + m * kRowThreads) * 0.01f + static_cast<float>(tile);
+    t_best[m] = 1e30f;
+    idx_best[m] = 0.0f;
+  }
   for (int j = 0; j < T; ++j) {
     const int jj = kWorklist ? order[j] : j;
     if (kWorklist && (jj < 0 || jj >= T)) continue;  // not a triangle of tri
-    const float* v = tris + jj * kTriFloats;
-    const float ex = v[3] - v[0], ey = v[4] - v[1], ez = v[5] - v[2];
-    const float fx = v[6] - v[0], fy = v[7] - v[1], fz = v[8] - v[2];
-    const float px = ry * fz - rz * fy;
-    const float py = rz * fx - rx * fz;
-    const float pz = rx * fy - ry * fx;
-    const float det = ex * px + ey * py + ez * pz;
-    const float inv = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
-    const float sx = rx - v[0], sy = ry - v[1], sz = rz - v[2];
-    const float u = (sx * px + sy * py + sz * pz) * inv;
-    const float qx = sy * ez - sz * ey;
-    const float qy = sz * ex - sx * ez;
-    const float qz = sx * ey - sy * ex;
-    const float w = (rx * qx + ry * qy + rz * qz) * inv;
-    const float t = (fx * qx + fy * qy + fz * qz) * inv;
-    if (u >= 0.0f && w >= 0.0f && u + w <= 1.0f && t > 1e-4f && t < t_best) {
-      t_best = t;
-      idx_best = v[9];
+    const float4 a = tris[3 * jj], b = tris[3 * jj + 1], c = tris[3 * jj + 2];
+    const float ex = a.w - a.x, ey = b.x - a.y, ez = b.y - a.z;  // v1 - v0
+    const float fx = b.z - a.x, fy = b.w - a.y, fz = c.x - a.z;  // v2 - v0
+#pragma unroll
+    for (int m = 0; m < kFoldRays; ++m) {
+      const float px = ry * fz - rz * fy;
+      const float py = rz * fx - rx[m] * fz;
+      const float pz = rx[m] * fy - ry * fx;
+      const float det = ex * px + ey * py + ez * pz;
+      const float inv = 1.0f / (fabsf(det) < 1e-8f ? 1.0f : det);
+      const float sx = rx[m] - a.x, sy = ry - a.y, sz = rz - a.z;
+      const float u = (sx * px + sy * py + sz * pz) * inv;
+      const float qx = sy * ez - sz * ey;
+      const float qy = sz * ex - sx * ez;
+      const float qz = sx * ey - sy * ex;
+      const float w = (rx[m] * qx + ry * qy + rz * qz) * inv;
+      const float t = (fx * qx + fy * qy + fz * qz) * inv;
+      if (u >= 0.0f && w >= 0.0f && u + w <= 1.0f && t > 1e-4f && t < t_best[m]) {
+        t_best[m] = t;
+        idx_best[m] = c.y;
+      }
     }
   }
-  out[(size_t)blockIdx.x * kTile + tid] = t_best + idx_best;
+#pragma unroll
+  for (int m = 0; m < kFoldRays; ++m)
+    out[(size_t)tile * kTile + sub * 128 + lane0 + m * kRowThreads] = t_best[m] + idx_best[m];
 }
 
 // Starts the copies of worklist entry j into ring slot j % kRing.
@@ -163,7 +193,9 @@ int launch_fold(const float* tri, const int* wl, int T, int tiles, float* out,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
-  smem_fold_kernel<kStaged, kWorklist><<<tiles, kTile, smem, stream>>>(tri, wl, T, out);
+  const int blocks = (tiles * (kTile / kFoldRays) + kFoldBlock - 1) / kFoldBlock;
+  smem_fold_kernel<kStaged, kWorklist><<<blocks, kFoldBlock, smem, stream>>>(tri, wl, T, tiles,
+                                                                             out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -171,8 +203,8 @@ int launch_fold(const float* tri, const int* wl, int T, int tiles, float* out,
 
 extern "C" {
 
-// Launches P1 on `stream`: `tiles` blocks of 1024 rays over `T` triangles
-// `tri` (T, 12) float32, through `wl` (T,) int32 when `worklist`, the
+// Launches P1 on `stream`: `tiles` tiles of 1024 rays over `T` triangles
+// `tri` (T, 12) float32, 16-byte aligned, through `wl` (T,) int32 when `worklist`, the
 // triangles staged in shared memory when `staged`; `out` (8 * tiles, 128)
 // float32.  Returns the CUDA error of the launch.
 int raytpu_probe_smem_fold(const float* tri, const int* wl, int T, int tiles, int worklist,

@@ -20,6 +20,7 @@ import torch
 
 from raytpu_torch.core import math3d
 from raytpu_torch.core.types import RenderConfig, Scene
+from raytpu_torch.ops import accel
 from raytpu_torch.render import build, chunked, mega2, packed, plain, renderer
 from raytpu_torch.render.plain import (  # noqa: F401  (mega_pack: K1's buffer, public here)
     CAM_COLS,
@@ -102,6 +103,28 @@ def launch_mega(buf, counts, config: RenderConfig, out, tile0: int = 0):
         raise RuntimeError(f"megakernel launch failed: {build.cuda_error_name(lib, err)}")
     MEGA_LAUNCHES += 1
     return out
+
+
+def mega_rays(W: int, H: int, tile0: int, n_out: int):
+    """(row, px, py, valid), each (n_out,): what thread ``slot`` of
+    ``mega.cu``'s grid (``blockIdx.x * 128 + threadIdx.x``) renders and
+    where it writes it (``mega.cu:slot_ray``).  The whole frame with W and
+    H multiples of 32 runs in 32x32 pixel tiles, warp w on the 8x4 block
+    ``accel.warp_slots()[w % 32]`` of tile w // 32, each pixel written at
+    its row-major row; else slot j is ray ``1024 * tile0 + j`` of the
+    row-major frame at row j, not valid past the frame."""
+    slot = torch.arange(n_out)
+    if tile0 == 0 and n_out == W * H and W % 32 == 0 and H % 32 == 0:
+        warp = slot // 32
+        j = accel.warp_slots()[warp % 32, slot % 32]
+        tile = warp // 32
+        px = (tile % (W // 32)) * 32 + j % 32
+        py = (tile // (W // 32)) * 32 + j // 32
+        return py * W + px, px, py, torch.ones_like(slot, dtype=torch.bool)
+    rid = tile0 * mega2.TILE + slot
+    valid = rid < W * H
+    rid = torch.where(valid, rid, 0)
+    return slot, rid % W, rid // W, valid
 
 
 def render_image_mega_f32_plain(scene: Scene, config: RenderConfig, tile0: int | None = None,

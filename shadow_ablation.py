@@ -1,12 +1,15 @@
 """The group walk's kernels K4, K10, K5, K3, K11a, K9, K2b, K8, K7, K6 and
-K2a on one CUDA card with parts of their design taken out: what each part
-of the walk (raytpu_torch/render/csrc/shadow.cuh) buys.
+K2a, the whole-frame megakernel K1 and the fold probe P1 on one CUDA card
+with parts of their design taken out: what each part of the walk
+(raytpu_torch/render/csrc/shadow.cuh) and of K1's and P1's layouts buys.
 
     python3 shadow_ablation.py               # prints one JSON line
     python3 shadow_ablation.py --kernels K9  # only K9's cases and variants
+    python3 shadow_ablation.py --kernels K1 P1
 
 Each variant is the kernels' sources built with one change to shadow.cuh,
-closest.cuh, packed.cu, chunked.cu, soft.cu, mega3.cu or mega2.cu (nvcc,
+closest.cuh, packed.cu, chunked.cu, soft.cu, mega3.cu, mega2.cu, mega.cu or
+probes.cu (nvcc,
 the package's flags, one library per variant under
 raytpu_torch/_build/ablation, all compiled at once).  The kernels run on
 frame 0 at 640x480, their inputs formed as chip_smoke.py phase 4 forms
@@ -24,11 +27,18 @@ folded queries of reference_s106 (no records: the few-groups kernel), K8
 reference_s106 in 32x32 blocks (the route's) and of the first two
 row-major (``chunked.shade_rays``'), K7 and K6 on the soft shadow
 queries of optional, bunny50k and bunny300k with a random cotangent, K2a
-on the frames of bunny and optional (the mega2 route's); each is timed
+on the frames of bunny and optional (the mega2 route's), K1 on the frames
+of reference and w4_test at 640x480 and of reference at 50x37 (where a
+launch takes less than the host's call, so its times measure the host),
+160x120, 320x240 and 1920x1080 (row-major rays, H no multiple of 32),
+P1 in its twelve cases (T = 64, 384, 1024; in order or through the
+worklist; staged or not) over 300 tiles of the draw in front of the rays;
+each is timed
 with CUDA events (REPEATS runs of ITERS launches), and each variant's
 answer (K4's, K9's and K5's (L, R), K10's (R, 3) colors, K3's and K8's
 (t, idx, normal, material), K11a's and K2a's buffer and tile boxes, K2b's
-image, K6's g_p, g_dirs and g_mags) must equal the design's bit for bit,
+image, K6's g_p, g_dirs and g_mags, K1's image, P1's output) must equal
+the design's bit for bit,
 K7's (T, 9) sums within 1e-4 of the largest (its atomics add in another
 order each run) and K6's per_ray and fold1024 within 1e-4 of each
 output's largest (they add the lights in another order); the variant
@@ -41,9 +51,34 @@ wrapper's on the same inputs (``packed.any_hit_lights``,
 ``packed.winner_search``, ``mega3.mega3_closest``,
 ``chunked.any_hit_lights``, ``mega2.mega2_shade``,
 ``chunked.chunked_min_t``, ``soft.soft_dprim``, ``soft.soft_dray``,
-``mega2.mega2_closest``):
+``mega2.mega2_closest``, ``cuda_kernel.render_image_mega_f32``,
+``probe_smem.smem_fold``):
 
   design        the kernels as committed;
+  first_port    (K1, P1) the first port's layout: K1 in 256-thread blocks
+                on row-major rays, its tests without the early miss; P1
+                a thread a ray in 1024-thread blocks, the triangle's
+                twelve floats read one by one;
+  mask          (K1) every light's shadow query into one bit of a mask
+                before the shading, as K2b, not each right before its
+                light's shading;
+  no_early      (K1) the tests without common.cuh's kEarly: each runs to
+                its end;
+  k1_rows       (K1) row-major rays on the whole frame, not warp_slot's
+                8x4 pixel blocks of 32x32 tiles;
+  unroll1, unroll2, unroll4
+                (K1) ``#pragma unroll`` 1, 2 or 4 on the closest-hit
+                loops, not nvcc's own choice;
+  persistent    (K1) a grid of 8 blocks an SM, each staging the scene once
+                and looping over 128-ray blocks of slots;
+  readonly      (K1) no staging: the scene read from device memory through
+                the read-only path;
+  block256      (K1, P1) 256-thread blocks, not 128 (launch bounds of 4);
+  block64       (P1) 64-thread blocks (launch bounds of 16);
+  rays1, rays2, rays8
+                (P1) a thread folds 1, 2 or 8 rays, not 4 (rays8 at launch
+                bounds of 4 blocks);
+  bounds12      (K1) launch bounds of 12 blocks of 128 an SM, not 8;
   no_bundle     (K4) no test of the warp's bundle: every listed entry goes
                 to each ray's box test;
   no_ray_box    (K4, K10, K5, K3, K11a, K9, K2b, K8, K7, K6, K2a) no
@@ -88,12 +123,15 @@ wrapper's on the same inputs (``packed.any_hit_lights``,
                 kernel, not the one that tests every listed triangle;
   regs64        (K10, K5, K2b, K8, K7, K6, K2a) at most 64 registers a
                 thread (launch bounds of 8 blocks of 128 an SM, not 4);
-  bounds4       (K9) launch bounds of 4 blocks of 128 an SM, not 8 (at most
-                128 registers a thread, not 64);
-  bounds2       (K9, K2b, K8, K7) launch bounds of 2 blocks of 128 an SM,
-                not 8 or 4 (at most 255 registers a thread).
+  bounds4       (K9, K1, P1) launch bounds of 4 blocks of 128 an SM, not 8
+                (at most 128 registers a thread, not 64);
+  bounds2       (K9, K2b, K8, K7, K1) launch bounds of 2 blocks of 128 an
+                SM, not 8 or 4 (at most 255 registers a thread).
 
-Beside the kernels' times the line holds, per K10 and K5 scene, the
+K1's launches are also timed on the device, one by one under
+torch.profiler (``device_ms``: the median of K1_ITERS), since at 50x37 a
+launch is shorter than the host's call.  Beside the kernels' times the
+line holds, per K10 and K5 scene, the
 milliseconds a frame or step spends building the records
 (``accel.normal_boxes``) and all of the kernel's per-frame inputs
 (records and worklists: ``chunked.shadow_inputs``, ``soft.soft_boxes``),
@@ -116,6 +154,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 REPEATS, ITERS = 3, 5
+#: K1's launches per timed run: one takes tens of microseconds
+K1_ITERS = 200
 K4_SCENES = ("bunny50k", "bunny300k")
 K10_SCENES = ("optional_l12", "bunny18k_l12", "reference_s106")
 K5_SCENES = ("optional", "bunny50k", "bunny300k")
@@ -202,9 +242,117 @@ RAY_BOX = ("const bool pass = live && seg_box<kNormals>(bj, boxes + kCols * (siz
 BUNDLE = "cand = bundle_box<kNormals>(q, b, boxes + kCols * (size_t)g);"
 CLOSEST_WALK = ("group_walk<kRec, kNormalCols, kExpand>(tri, T, boxes, w, c, live, o, d, INFINITY, "
                 "visit);")
+K1_SCENES = ("reference", "w4_test", "reference 50x37", "reference 160x120", "reference 320x240",
+             "reference 1920x1080")
+#: P1's cases: triangles, worklist, staged, on the draw in front of the rays
+P1_CASES = tuple(f"T{T}-wl{wl}-st{st}" for T in (64, 384, 1024) for wl in (0, 1) for st in (1, 0))
+K1_BOUNDS = "__launch_bounds__(kBlock, 8) mega_kernel"
+P1_BOUNDS = "__launch_bounds__(kFoldBlock, 8) smem_fold_kernel"
+#: K1's three closest-hit loops, which the variants unroll2 and unroll4
+#: unroll by hand and unroll1 not at all (the design leaves it to nvcc)
+K1_LOOPS = ("  for (int s = 0; s < S; ++s) {\n    const float* r = sph",
+            "  for (int p = 0; p < P; ++p) {\n    const float* r = pln",
+            "  for (int k = 0; k < T; ++k) {\n    const float* r = tri")
+
+
+def k1_unroll(n: int) -> list:
+    """The patches that put ``#pragma unroll n`` before K1's closest loops."""
+    return [("mega.cu", loop, f"#pragma unroll {n}\n" + loop) for loop in K1_LOOPS]
+
+
+K1_TILED = "  const int tiled = tile0 == 0 &&"
+#: K1's order, each light's shadow query inside shade_hit's light loop
+#: right before that light's shading, and the variant mask's: every
+#: light's query into one bit of a mask first, then the shading (K2b's)
+K1_MASK = """  unsigned occ = 0u;
+  if (shadows) {
+    const float ox = fmaf(nx, normal_offset, fmaf(t, rdx, rox));
+    const float oy = fmaf(ny, normal_offset, fmaf(t, rdy, roy));
+    const float oz = fmaf(nz, normal_offset, fmaf(t, rdz, roz));
+    for (int l = 0; l < L; ++l) {
+      float lx, ly, lz, mag;
+      light_dir(lit + l * kLight, ox, oy, oz, &lx, &ly, &lz, &mag);
+      if (occluded(sph, S, pln, P, tri, T, ox, oy, oz, lx, ly, lz, tmin, mag)) occ |= 1u << l;
+    }
+  }
+  shade_hit(lit, L, mode, shadows != 0, normal_offset, shadow_dim, rox, roy, roz, rdx, rdy, rdz,
+            t, nx, ny, nz, mat,
+            [&](int l, float, float, float, float, float, float, float) {
+              return ((occ >> l) & 1u) != 0u;
+            },
+            o);"""
+K1_INTERLEAVED = """  shade_hit(lit, L, mode, shadows != 0, normal_offset, shadow_dim, rox, roy, roz, rdx, rdy, rdz,
+            t, nx, ny, nz, mat,
+            [&](int, float ox, float oy, float oz, float lx, float ly, float lz, float mag) {
+              return occluded(sph, S, pln, P, tri, T, ox, oy, oz, lx, ly, lz, tmin, mag);
+            },
+            o);"""
+K1_ONE_SLOT = """  const int slot = blockIdx.x * kBlock + threadIdx.x;
+  if (slot < n_out)
+    render_ray(sm, S, P, T, L, W, H, mode, shadows, tmin, normal_offset, shadow_dim, tiled, tile0,
+               slot, out);"""
+K1_GRID = "  const int blocks = (n_out + kBlock - 1) / kBlock;"
+K1_STAGING = """  extern __shared__ float sm[];
+  const int n = kCam + S * kSph + P * kPln + T * kTri + L * kLight;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sm[i] = scene[i];
+  __syncthreads();"""
+K1_SMEM = ("  const size_t smem = sizeof(float) * (kCam + S * kSph + P * kPln + T * kTri + "
+           "L * kLight);")
+#: K1's first port: 256-thread blocks, row-major rays, no early miss
+K1_FIRST_PORT = [
+    ("mega.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),
+    ("mega.cu", K1_BOUNDS, K1_BOUNDS.replace(", 8)", ")")),
+    ("mega.cu", K1_TILED, "  const int tiled = 0 && tile0 == 0 &&"),
+    ("mega.cu", "<true>", "")]
+P1_LOADS = "    const float4 a = tris[3 * jj], b = tris[3 * jj + 1], c = tris[3 * jj + 2];"
+#: P1's first port: a thread a ray, 1024-thread blocks, the triangle's
+#: twelve floats read one by one
+P1_FIRST_PORT = [
+    ("probes.cu", "constexpr int kFoldRays = 4;", "constexpr int kFoldRays = 1;"),
+    ("probes.cu", "constexpr int kFoldBlock = 128;", "constexpr int kFoldBlock = 1024;"),
+    ("probes.cu", P1_BOUNDS, P1_BOUNDS.replace(", 8)", ")")),
+    ("probes.cu", P1_LOADS, """    const float* v = reinterpret_cast<const float*>(tris) + jj * kTriFloats;
+    const float4 a = make_float4(v[0], v[1], v[2], v[3]);
+    const float4 b = make_float4(v[4], v[5], v[6], v[7]);
+    const float4 c = make_float4(v[8], v[9], v[10], v[11]);""")]
 #: variant -> (the kernels it applies to, [(file, text in the design, text in the variant)])
 VARIANTS = {
-    "design": ("K4 K10 K5 K3 K11a K9 K2b K8 K7 K6 K2a", []),
+    "design": ("K4 K10 K5 K3 K11a K9 K2b K8 K7 K6 K2a K1 P1", []),
+    "first_port": ("K1 P1", K1_FIRST_PORT + P1_FIRST_PORT),
+    "mask": ("K1", [("mega.cu", K1_INTERLEAVED, K1_MASK)]),
+    "no_early": ("K1", [("mega.cu", "<true>", "")]),
+    "k1_rows": ("K1", [("mega.cu", K1_TILED, "  const int tiled = 0 && tile0 == 0 &&")]),
+    "block256": ("K1 P1", [
+        ("mega.cu", "constexpr int kBlock = 128;", "constexpr int kBlock = 256;"),
+        ("mega.cu", K1_BOUNDS, K1_BOUNDS.replace(", 8)", ", 4)")),
+        ("probes.cu", "constexpr int kFoldBlock = 128;", "constexpr int kFoldBlock = 256;"),
+        ("probes.cu", P1_BOUNDS, P1_BOUNDS.replace(", 8)", ", 4)"))]),
+    "block64": ("P1", [
+        ("probes.cu", "constexpr int kFoldBlock = 128;", "constexpr int kFoldBlock = 64;"),
+        ("probes.cu", P1_BOUNDS, P1_BOUNDS.replace(", 8)", ", 16)"))]),
+    "unroll1": ("K1", k1_unroll(1)),
+    "unroll2": ("K1", k1_unroll(2)),
+    "unroll4": ("K1", k1_unroll(4)),
+    "persistent": ("K1", [
+        ("mega.cu", K1_ONE_SLOT, """  for (int b = blockIdx.x; b * kBlock < n_out; b += gridDim.x) {
+    const int slot = b * kBlock + threadIdx.x;
+    if (slot < n_out)
+      render_ray(sm, S, P, T, L, W, H, mode, shadows, tmin, normal_offset, shadow_dim, tiled,
+                 tile0, slot, out);
+  }"""),
+        ("mega.cu", K1_GRID, """  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = min((n_out + kBlock - 1) / kBlock, sms * 8);""")]),
+    "readonly": ("K1", [("mega.cu", K1_STAGING, "  const float* sm = scene;"),
+                        ("mega.cu", K1_SMEM, "  const size_t smem = 0;")]),
+    "rays2": ("P1", [("probes.cu", "constexpr int kFoldRays = 4;",
+                      "constexpr int kFoldRays = 2;")]),
+    "rays1": ("P1", [("probes.cu", "constexpr int kFoldRays = 4;",
+                      "constexpr int kFoldRays = 1;")]),
+    "rays8": ("P1", [("probes.cu", "constexpr int kFoldRays = 4;", "constexpr int kFoldRays = 8;"),
+                     ("probes.cu", P1_BOUNDS, P1_BOUNDS.replace(", 8)", ", 4)"))]),
+    "bounds12": ("K1", [("mega.cu", K1_BOUNDS, K1_BOUNDS.replace(", 8)", ", 12)"))]),
     "no_bundle": ("K4", [("shadow.cuh", BUNDLE, "cand = true;")]),
     "no_ray_box": ("K4 K10 K5 K3 K11a K9 K2b K8 K7 K6 K2a",
                    [("shadow.cuh", RAY_BOX, "const bool pass = live;")]),
@@ -285,8 +433,11 @@ VARIANTS = {
         ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 8)")),
         ("soft.cu", K6_BOUNDS, K6_BOUNDS.replace(", 4)", ", 8)")),
         ("mega2.cu", K2A_BOUNDS, K2A_BOUNDS.replace(", 4)", ", 8)"))]),
-    "bounds4": ("K9", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 4)"))]),
-    "bounds2": ("K9 K2b K8 K7", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
+    "bounds4": ("K9 K1 P1", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 4)")),
+                            ("mega.cu", K1_BOUNDS, K1_BOUNDS.replace(", 8)", ", 4)")),
+                            ("probes.cu", P1_BOUNDS, P1_BOUNDS.replace(", 8)", ", 4)"))]),
+    "bounds2": ("K9 K2b K8 K7 K1", [("chunked.cu", K9_BOUNDS, K9_BOUNDS.replace(", 8)", ", 2)")),
+                                    ("mega.cu", K1_BOUNDS, K1_BOUNDS.replace(", 8)", ", 2)")),
                                  ("mega2.cu", K2B_BOUNDS, K2B_BOUNDS.replace(", 4)", ", 2)")),
                                  ("chunked.cu", K8_BOUNDS, K8_BOUNDS.replace(", 4)", ", 2)")),
                                  ("soft.cu", K7_BOUNDS, K7_BOUNDS.replace(", 4)", ", 2)"))]),
@@ -302,7 +453,9 @@ SOURCES = {"K4": ("packed.cu", "packed_anyhit"),
            "K8": ("chunked.cu", "chunked_min_t_kernelILb1ELb0E"),  # the closest walk's instance
            "K7": ("soft.cu", "soft_dprim"),
            "K6": ("soft.cu", "soft_dray_kernel"),
-           "K2a": ("mega2.cu", "mega2_closest")}
+           "K2a": ("mega2.cu", "mega2_closest"),
+           "K1": ("mega.cu", "mega_kernel"),
+           "P1": ("probes.cu", "smem_fold_kernelILb1ELb0E")}  # staged, in order
 K3_SCENES = ("bunny50k", "bunny300k")
 K11A_SCENES = ("optional", "bunny50k", "bunny300k")
 
@@ -323,7 +476,7 @@ def build_variants(out: Path, keys: list) -> dict:
         src = out / name
         src.mkdir(parents=True)
         for f in ("common.cuh", "shadow.cuh", "closest.cuh", "packed.cu", "chunked.cu", "soft.cu",
-                  "mega3.cu", "mega2.cu"):
+                  "mega3.cu", "mega2.cu", "mega.cu", "probes.cu"):
             shutil.copy(csrc / f, src / f)
         for f, old, new in patches:
             text = (src / f).read_text()
@@ -804,6 +957,70 @@ def k2a_launcher(scene, cfg, dev):
     return torch.empty((n_acc + nt * 6,), dtype=torch.float32, device=dev), launch, None, want
 
 
+def k1_launcher(scene, cfg, dev, size=None):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    K1 on the scene's frame 0 at 640x480 or ``size`` ("50x37"), through
+    ``mega_pack``'s buffer: the (H, W, 3) image, flat.  A launch takes tens
+    of microseconds, so each timed run holds K1_ITERS of them."""
+    import dataclasses
+
+    import torch
+
+    from raytpu_torch.render import cuda_kernel as ck
+
+    if size:
+        w, h = (int(v) for v in size.split("x"))
+        cfg = dataclasses.replace(cfg, width=w, height=h)
+    buf, counts = ck.mega_pack(scene, cfg)
+    S, P, T, L = counts
+    W, H = cfg.width, cfg.height
+
+    def launch(lib, out, variant):
+        return lib.raytpu_mega_render(
+            buf.data_ptr(), S, P, T, L, W, H, int(cfg.lighting_mode), int(bool(cfg.shadows)),
+            float(cfg.ray_min), float(cfg.normal_offset), float(cfg.shadow_dim), 0, W * H,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    launch.iters = K1_ITERS
+    want = ck.render_image_mega_f32(scene, cfg).flatten()
+    return torch.empty((W * H * 3,), dtype=torch.float32, device=dev), launch, None, want
+
+
+def p1_launcher(case, dev):
+    """(output, launch(lib, out, variant), None, the package's answer) for
+    P1 in ``case`` (P1_CASES) over 300 tiles of the draw in front of the
+    rays, whose rays hit: the (2400, 128) output, flat."""
+    import torch
+
+    from raytpu_torch.probes import probe_smem as ps
+
+    T, worklist, staged = (int(part.lstrip("Twlst")) for part in case.split("-"))
+    tri = torch.from_numpy(ps.make_triangles(T, 0, front=True)).to(dev)
+    wl = torch.from_numpy(ps.make_worklist(T, 0)).to(dev)
+
+    def launch(lib, out, variant):
+        return lib.raytpu_probe_smem_fold(tri.data_ptr(), wl.data_ptr(), T, 300, worklist, staged,
+                                          out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+    want = ps.smem_fold(tri, wl, 300, bool(worklist), bool(staged)).flatten()
+    return torch.empty((300 * ps.TILE,), dtype=torch.float32, device=dev), launch, None, want
+
+
+def k1_device_ms(run, iters: int) -> float:
+    """The median device time of ``iters`` launches of K1 by ``run()``,
+    from torch.profiler's kernel events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "mega_kernel" in e.name)
+    return us[len(us) // 2] / 1e3
+
+
 def glue_ms(records, inputs) -> dict:
     """The median ms of REPEATS timings of ITERS back-to-back calls of
     ``records()`` and of ``inputs()``."""
@@ -861,6 +1078,11 @@ def _bind(lib_path: str, kernels: list):
     if "K2a" in kernels:
         lib.raytpu_mega2_closest.argtypes = ([c_ptr, c_int, c_int, c_int, c_ptr, c_ptr, c_ptr]
                                              + [c_int] * 6 + [c_float, c_float] + [c_ptr] * 5)
+    if "K1" in kernels:
+        lib.raytpu_mega_render.argtypes = ([c_ptr] + [c_int] * 8 + [c_float] * 3 + [c_int] * 2
+                                           + [c_ptr] * 2)
+    if "P1" in kernels:
+        lib.raytpu_probe_smem_fold.argtypes = [c_ptr, c_ptr] + [c_int] * 4 + [c_ptr, c_ptr]
     return lib
 
 
@@ -910,7 +1132,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = RenderConfig()
     out = {"card": smi, "registers": {n: r for n, (_, r) in libs.items()}, "ms": {},
-           "records": {}, "k6_dropped": {}}
+           "device_ms": {}, "records": {}, "k6_dropped": {}}
     bound = {n: _bind(str(lib), list(regs)) for n, (lib, regs) in libs.items()}
 
     def scene(name):
@@ -927,13 +1149,16 @@ def main(argv=None) -> int:
                              ("K11a", K11A_SCENES, k11a_launcher),
                              ("K9", K9_SCENES, k9_launcher), ("K2b", K2B_SCENES, k2b_launcher),
                              ("K8", K8_SCENES, k8_launcher), ("K7", K7_SCENES, k7_launcher),
-                             ("K6", K6_SCENES, k6_launcher), ("K2a", K2A_SCENES, k2a_launcher)):
+                             ("K6", K6_SCENES, k6_launcher), ("K2a", K2A_SCENES, k2a_launcher),
+                             ("K1", K1_SCENES, k1_launcher), ("P1", P1_CASES, p1_launcher)):
         if key not in keys:
             continue
         variants = [n for n, (kernels, _) in VARIANTS.items() if key in kernels.split()]
         for scene_name in names:
             name, *order = scene_name.split()  # "rows": K9 on row-major queries
-            template, launch, glue, want = make(scene(name), cfg, dev, *order)
+            template, launch, glue, want = (make(scene_name, dev) if key == "P1"
+                                            else make(scene(name), cfg, dev, *order))
+            iters = getattr(launch, "iters", ITERS)
             answers, ms = {}, {}
             for name in variants:
                 lib, res = bound[name], template.clone()
@@ -946,7 +1171,10 @@ def main(argv=None) -> int:
                 run()
                 torch.cuda.synchronize()
                 answers[name] = res.clone()
-                ms[name] = sorted(device_ms(run, iters=ITERS, warmup=1) for _ in range(REPEATS))
+                ms[name] = sorted(device_ms(run, iters=iters, warmup=1) for _ in range(REPEATS))
+                if key == "K1":  # shorter than the host's call at 50x37: the device's own time
+                    out["device_ms"].setdefault(f"{key} {scene_name}", {})[name] = k1_device_ms(
+                        run, iters)
             if key == "K7":  # atomic sums: within K7_TOL of the largest
                 def differ(a, b):
                     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)

@@ -110,6 +110,29 @@ def test_p1_staging_and_order():
     assert ps.P1_LAUNCHES == 0
 
 
+@pytest.mark.parametrize("rays,block", [(4, ps.FOLD_BLOCK), (2, ps.FOLD_BLOCK), (4, 64),
+                                        (4, 256), (1, 1024)])
+def test_p1_thread_map_covers_every_ray_once(rays, block):
+    """The twin of P1's thread-to-ray map (``probe_smem.thread_rays``): over
+    a ragged grid, every output is written by exactly one (thread, ray);
+    a thread's rays share a row of 128, hence ry; for each of a thread's
+    rays a warp writes 32 consecutive outputs.  One ray a thread in
+    1024-thread blocks is the first port's map: thread t of block b takes
+    ray 1024 b + t."""
+    tiles = 3
+    idx = ps.thread_rays(tiles, rays, block)
+    flat = idx[idx >= 0]
+    assert torch.equal(torch.sort(flat).values, torch.arange(tiles * ps.TILE))
+    live = idx[:, :, 0] >= 0
+    assert ((idx[live] // 128) == (idx[live][:, :1] // 128)).all()
+    warps = idx.reshape(-1, 32, rays)
+    whole = (warps >= 0).all(dim=(1, 2))
+    steps = warps[whole][:, 1:, :] - warps[whole][:, :-1, :]
+    assert (steps == 1).all()
+    if rays == 1 and block == ps.TILE:
+        assert torch.equal(idx.reshape(-1), torch.arange(tiles * ps.TILE))
+
+
 @pytest.mark.parametrize("cnt", [pd.RAYTPU_CNT, 0, 3])
 def test_p2_plain_matches_raytpu_interpret(cnt):
     blob, wl, _, blocks = pd.raytpu_shape("cpu")

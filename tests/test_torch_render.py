@@ -309,10 +309,38 @@ def test_chunked_route_renders():
            0.01, 0.5)
 
 
+@pytest.mark.parametrize("w,h,tile0,tiles", [(640, 480, 0, None), (64, 32, 0, None),
+                                              (50, 37, 0, None), (640, 480, 5, 296),
+                                              (50, 37, 1, 2), (64, 32, 0, 2)])
+def test_megakernel_writes_every_pixel_once(w, h, tile0, tiles):
+    """The twin of K1's thread-to-ray map (``cuda_kernel.mega_rays``): every
+    output row is written by one thread, and each pixel of the frame, or
+    of the tile range's rays, is rendered once at its row-major row (32x32
+    pixel tiles with 8x4 pixel warps for a whole frame of multiples of 32,
+    row-major rays otherwise, padded rays past the frame black)."""
+    n_out = w * h if tiles is None else tiles * 1024
+    row, px, py, valid = cuda_kernel.mega_rays(w, h, tile0, n_out)
+    assert torch.equal(torch.sort(row).values, torch.arange(n_out))
+    assert ((px >= 0) & (px < w) & (py >= 0) & (py < h)).all()
+    rid = py * w + px
+    if tiles is None:
+        assert valid.all() and torch.equal(rid, row)
+        if w % 32 == 0 and h % 32 == 0:  # a warp's 32 lanes: an 8x4 pixel block
+            blocks = torch.stack([px, py], 1).reshape(-1, 32, 2)
+            span = blocks.amax(1) - blocks.amin(1)
+            assert (span == torch.tensor([7, 3])).all()
+    else:
+        want = tile0 * 1024 + row
+        assert torch.equal(valid, want < w * h)
+        assert torch.equal(rid[valid], want[valid])
+
+
 @pytest.mark.cuda
 def test_megakernel_matches_plain_version_on_the_card():
-    """K1 on the card against its plain version (megakernel budget); run on a
-    machine with a card with ``pytest -m cuda tests/test_torch_render.py``."""
+    """K1 on the card against its plain version (megakernel budget), on the
+    whole frame, a ragged frame and a tile range with a padded tile, and
+    the whole frame equal bit for bit to its tile ranges; run on a machine
+    with a card with ``pytest -m cuda tests/test_torch_render.py``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     spec = scenes.get("reference")
@@ -323,3 +351,13 @@ def test_megakernel_matches_plain_version_on_the_card():
         assert cuda_kernel.MEGA_LAUNCHES == before + 1
         b = math3d.quantize_u8(cuda_kernel.render_image_mega_f32_plain(scene, cfg))
         _close(a.cpu().numpy(), b.cpu().numpy(), 0.01, 0.5)
+        nt = -(-(cfg.width * cfg.height) // 1024)
+        whole = cuda_kernel.render_image_mega_f32(scene, cfg)
+        ranges = [cuda_kernel.render_image_mega_f32(scene, cfg, tile0=t0, tiles=k)
+                  for t0, k in ((0, 1), (1, nt))]  # the second ends past the frame
+        flat = torch.cat(ranges)
+        assert torch.equal(flat[:cfg.width * cfg.height].reshape(whole.shape), whole)
+        assert not flat[cfg.width * cfg.height:].any()
+        got = math3d.quantize_u8(ranges[1])
+        want = math3d.quantize_u8(cuda_kernel.render_image_mega_f32_plain(scene, cfg, 1, nt))
+        _close(got.cpu().numpy(), want.cpu().numpy(), 0.01, 0.5)
