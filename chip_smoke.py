@@ -71,6 +71,15 @@ Phases (each passes or raises; nothing is caught):
      --frames-per-dispatch 4 over 10 frames (frames, K1 launches and
      device-to-host copies counted); the viewer's FramePipeline over 16
      frames of bunny with a moving fly camera against the synchronous loop;
+     the tools and examples (9a-9f): examples/torch_geometry_fit.py at
+     640x480 for 8 steps on bunny (K3, K5, K6, K7 every step; the loss
+     falls), examples/torch_inverse_rendering.py at 640x480 (10 steps with
+     a checkpoint every 5, resumed to 15, within 1e-5 of an uninterrupted
+     run), the port's oracle against K1 on reference at 64x48, the native
+     BVH closest hit against K3 on 256 camera rays of bunny50k,
+     utils.profiling.trace of a bunny frame naming K2a's and K2b's
+     symbols, and utils.debug.nan_check around a geometry-fit step (clean;
+     a NaN vertex raises);
   4. times on the card (CUDA events) of every kernel beside its bound, and
      of each scene's frame, with the device's idle share from torch.profiler;
      for K4 and K11b, which test each shadow ray's segment against the
@@ -226,6 +235,15 @@ P2_BLOCKS, P2_PER_BLOCK = 132 * 4, 36
 OPS_P1_TEST = 53
 #: the viewer's double-buffered pipeline: scene and frames
 PIPELINE_SCENE, PIPELINE_FRAMES = "bunny", 16
+#: phase 3 (tools and examples): the geometry fit's steps at 640x480; the
+#: inverse-rendering runs (10 steps saving every 5, resumed to 15, against
+#: 15 uninterrupted) and their final losses' relative tolerance (CUDA's
+#: index_add_ is not deterministic); the oracle's frame against K1; the
+#: camera rays of bunny50k held to the native BVH closest hit
+GEOMETRY_FIT_STEPS = 8
+INVERSE_STEPS, INVERSE_EVERY, INVERSE_RESUME_TO, INVERSE_RTOL = 10, 5, 15, 1e-5
+ORACLE_SIZE = (64, 48)
+BVH_RAYS = 256
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -2802,8 +2820,8 @@ def phase_compare_probes(dev) -> dict:
 
 
 def _quiet_main(fn, argv) -> tuple:
-    """(return code, standard output) of an entry point's ``main(argv)``
-    called in this process; its output is printed too."""
+    """(return value, standard output) of an entry point's ``main(argv)``
+    (or ``run(argv)``) called in this process; its output is printed too."""
     import contextlib
     import io
 
@@ -2955,6 +2973,260 @@ def phase_app_paths(dev, built: dict) -> dict:
     return out
 
 
+def _expect_counts(what: str, counts: dict, **want) -> None:
+    """The launch counts are ``want`` and 0 for every other kernel."""
+    full = {k: 0 for k in counts}
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{what}: launched {counts}, expected {full}")
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _examples():
+    """The port's example modules (examples/torch_*.py)."""
+    if str(REPO / "examples") not in sys.path:
+        sys.path.insert(0, str(REPO / "examples"))
+    import torch_geometry_fit
+    import torch_inverse_rendering
+
+    return torch_geometry_fit, torch_inverse_rendering
+
+
+def tools_geometry_fit(dev, tmp: str, size=(W, H), steps: int = GEOMETRY_FIT_STEPS) -> dict:
+    """9a: examples/torch_geometry_fit.py on bunny, ``steps`` steps: K3 and
+    K5 once a step and once for each of its three renders (target, start,
+    final), K6 (walk and light sum) and K7 once a step; the loss falls."""
+    geometry_fit, _ = _examples()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res, _ = _quiet_main(geometry_fit.run, [
+        "--steps", str(steps), "--size", f"{size[0]}x{size[1]}", "--noise", "0.15",
+        "--device", dev.type, "--out", f"{tmp}/geometry_fit.png"])
+    _sync(dev)
+    counts = launch_counts()
+    _expect_counts("torch_geometry_fit", counts, K3=steps + 3, K5=steps + 3, K6=steps,
+                   K6sum=steps, K7=steps)
+    losses = res["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"torch_geometry_fit: the loss did not fall: {losses}")
+    out = {"launches": counts, "losses": losses, "rc": res["rc"],
+           "vertex_rmse": res["vertex_rmse"], "seconds": time.perf_counter() - t0}
+    print(f"phase 3: 9a torch_geometry_fit bunny {size[0]}x{size[1]}, {steps} steps: launches "
+          f"{counts}; loss {losses[0]:.6f} -> {losses[-1]:.6f}; vertex RMSE "
+          f"{res['vertex_rmse'][0]:.4f} -> {res['vertex_rmse'][1]:.4f} (rc {res['rc']}: 0 once "
+          f"the loss halves); {out['seconds']:.1f}s", flush=True)
+    return out
+
+
+def tools_inverse_rendering(dev, tmp: str, size=(W, H)) -> dict:
+    """9b: examples/torch_inverse_rendering.py on w3_test (spheres and
+    planes: the eager soft path, no kernel), INVERSE_STEPS steps saving a
+    checkpoint every INVERSE_EVERY, resumed to INVERSE_RESUME_TO ("resumed
+    from checkpoint step 10"), its final loss within INVERSE_RTOL of an
+    uninterrupted run's."""
+    _, inverse = _examples()
+    t0 = time.perf_counter()
+    base = ["--size", f"{size[0]}x{size[1]}", "--device", dev.type, "--out", f"{tmp}/inverse.png"]
+    ckpt = ["--checkpoint-dir", f"{tmp}/ckpt", "--checkpoint-every", str(INVERSE_EVERY)]
+    reset_launch_counts()
+    first, _ = _quiet_main(inverse.run, ["--steps", str(INVERSE_STEPS), *base, *ckpt])
+    resumed, text = _quiet_main(inverse.run, ["--steps", str(INVERSE_RESUME_TO), *base, *ckpt])
+    whole, _ = _quiet_main(inverse.run, ["--steps", str(INVERSE_RESUME_TO), *base])
+    _sync(dev)
+    counts = launch_counts()
+    _expect_counts("torch_inverse_rendering (eager soft path)", counts)
+    if f"resumed from checkpoint step {INVERSE_STEPS}" not in text or not (
+            first["rc"] == resumed["rc"] == whole["rc"] == 0):
+        raise AssertionError(f"torch_inverse_rendering: rc {first['rc']}, {resumed['rc']}, "
+                             f"{whole['rc']}; the second run printed:\n{text}")
+    got, want = resumed["losses"][-1], whole["losses"][-1]
+    rel = abs(got - want) / abs(want)
+    if not (rel <= INVERSE_RTOL and math.isfinite(got)):
+        raise AssertionError(f"torch_inverse_rendering: resumed final loss {got!r} against "
+                             f"{want!r} uninterrupted ({rel:.3e} relative)")
+    out = {"final_loss_resumed": got, "final_loss_uninterrupted": want, "relative": rel,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 3: 9b torch_inverse_rendering w3_test {size[0]}x{size[1]}: {INVERSE_STEPS} "
+          f"steps, resumed from checkpoint step {resumed['start_step']} to {INVERSE_RESUME_TO}: "
+          f"final loss {got!r} against {want!r} uninterrupted ({rel:.3e} relative, limit "
+          f"{INVERSE_RTOL}); launches {counts}; {out['seconds']:.1f}s", flush=True)
+    return out
+
+
+def tools_oracle(dev, scene) -> dict:
+    """9c: the port's oracle against K1 on reference at ORACLE_SIZE, under
+    tests/test_render_vs_oracle.py:_compare's budget (<= 1% of pixels off
+    by more than one step, mean <= 0.5)."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.oracle import render_oracle
+    from raytpu_torch.render import render_image
+
+    t0 = time.perf_counter()
+    cfg = RenderConfig(width=ORACLE_SIZE[0], height=ORACLE_SIZE[1])
+    reset_launch_counts()
+    img = render_image(scene, cfg).cpu().numpy()
+    counts = launch_counts()
+    _expect_counts("K1 at 64x48", counts, K1=1)
+    flips, mean = close_u8(img, render_oracle(scene, cfg), 0.01, 0.5)
+    print(f"phase 3: 9c the port's oracle against K1 on reference {cfg.width}x{cfg.height}: "
+          f"flips {flips:.5f} (budget 0.01), mean {mean:.5f} (0.5); launches {counts}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"flips": flips, "mean": mean}
+
+
+def _native_t(native, tri, o, d, tmin) -> float:
+    """t at which the native closest hit's arithmetic meets the one triangle
+    ``tri`` (3, 3): its traversal over a one-leaf tree."""
+    box = np.concatenate([tri.min(axis=0), tri.max(axis=0)])[None].astype(np.float32)
+    return native.bvh_closest_hit(tri[None], box, np.array([[0, 1, -1]], np.int32),
+                                  np.zeros(1, np.int32), o, d, tmin)[1]
+
+
+def tools_bvh_vs_k3(dev, scene, rays: int = BVH_RAYS, size=(W, H)) -> dict:
+    """9d: the native BVH closest hit (``native.bvh_closest_hit``, a CPU
+    traversal of the SAH tree, no culling) against K3's winner search
+    (``packed.scene_min_t_mega2``, one launch over the frame's camera rays)
+    on ``rays`` of them, drawn with a seed, half among those whose K3
+    winner is a triangle: there the native hit is the same triangle or one
+    at the same t (a tie), and t agrees within 1e-5 relative; where K3's
+    winner is a plane or a miss, no triangle lies in front of it."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.native import runtime as native
+    from raytpu_torch.render import packed, renderer
+
+    t0 = time.perf_counter()
+    tris = scene.triangles
+    tv = torch.stack([tris.v0, tris.v1, tris.v2], dim=1).cpu().numpy()
+    nb, nm, order = native.build_bvh(tv)
+    ro, rd = renderer.generate_rays(scene.camera, RenderConfig(width=size[0], height=size[1]))
+    tmin = float(RenderConfig().ray_min)
+    reset_launch_counts()
+    t_all, idx_all, _, _ = packed.scene_min_t_mega2(scene, ro.reshape(1, 3), rd, tmin)
+    _sync(dev)
+    counts = launch_counts()
+    _expect_counts("K3 on the frame's camera rays", counts, K3=1)
+    first_tri = scene.spheres.count + scene.planes.count
+    t_all, idx_all = t_all.cpu().numpy(), idx_all.cpu().numpy()
+    on_tri = (idx_all >= first_tri) & np.isfinite(t_all)
+    rng = np.random.default_rng(0)
+    pick = np.sort(np.concatenate([
+        rng.choice(np.flatnonzero(on_tri), rays // 2, replace=False),
+        rng.choice(np.flatnonzero(~on_tri), rays - rays // 2, replace=False)]))
+    t_k3, idx_k3 = t_all[pick], idx_all[pick]
+    o, dirs = ro.reshape(3).cpu().numpy(), rd.cpu().numpy()[pick]
+    tri_hits = ties = other = 0
+    for r in range(rays):
+        tid, t = native.bvh_closest_hit(tv, nb, nm, order, o, dirs[r], tmin)
+        k3_tri = int(idx_k3[r]) - first_tri
+        if k3_tri >= 0 and math.isfinite(t_k3[r]):
+            tri_hits += 1
+            if not abs(t - t_k3[r]) <= 1e-5 * abs(t_k3[r]):
+                raise AssertionError(f"ray {pick[r]}: native t {t!r} (triangle {tid}), K3 "
+                                     f"{t_k3[r]!r} (triangle {k3_tri})")
+            if tid != k3_tri:
+                k3_t = _native_t(native, tv[k3_tri], o, dirs[r], tmin)
+                if k3_t != t:
+                    raise AssertionError(f"ray {pick[r]}: native triangle {tid} at t {t!r}, K3 "
+                                         f"triangle {k3_tri} at {k3_t!r}: no tie")
+                ties += 1
+        elif tid >= 0 and t < t_k3[r] * (1.0 - 1e-5):
+            raise AssertionError(f"ray {pick[r]}: native triangle {tid} at t {t!r} in front of "
+                                 f"K3's winner {idx_k3[r]} at {t_k3[r]!r}")
+        else:
+            other += 1
+    print(f"phase 3: 9d native.bvh_closest_hit against K3 on {rays} camera rays of bunny50k "
+          f"({tris.count} triangles, {nm.shape[0]} BVH nodes): {tri_hits} triangle hits agree "
+          f"(t within 1e-5, {ties} ties on another triangle at the same t), {other} plane or "
+          f"miss with no triangle in front; launches {counts}; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return {"rays": rays, "triangle_hits": tri_hits, "ties": ties, "plane_or_miss": other}
+
+
+def tools_trace(dev, scene) -> dict:
+    """9e: ``utils.profiling.trace`` around one 640x480 bunny frame: its
+    Chrome trace names K2a's and K2b's kernel symbols."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.render import render_image
+    from raytpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        with profiling.trace(tmp) as tr:
+            render_image(scene, RenderConfig(width=W, height=H))
+        counts = launch_counts()
+        with open(tr["path"]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    named = {sym: [k for k in kernels if sym in k]
+             for sym in ("mega2_closest_kernel", "mega2_shade_kernel")}
+    _expect_counts("the traced bunny frame", counts, K2a=1, K2b=1)
+    if not all(named.values()):
+        raise AssertionError(f"the trace names no K2a or K2b symbol: {named}; kernels {kernels}")
+    out = {"kernel_names": len(kernels), "K2a": named["mega2_closest_kernel"][0],
+           "K2b": named["mega2_shade_kernel"][0]}
+    print(f"phase 3: 9e profiling.trace of one bunny {W}x{H} frame: {len(events)} events, "
+          f"{len(kernels)} kernel names, K2a as {out['K2a']!r}, K2b as {out['K2b']!r}; "
+          f"launches {counts}; {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
+def tools_nan_check(dev, scene, size=(W, H)) -> dict:
+    """9f: ``utils.debug.nan_check`` around one geometry-fit step: nothing
+    raised (K3, K5, K6, K7 launched once); with one NaN vertex,
+    FloatingPointError."""
+    from raytpu_torch.core.types import RenderConfig
+    from raytpu_torch.grad import diff_render as dr
+    from raytpu_torch.utils import debug
+
+    geometry_fit, _ = _examples()
+    t0 = time.perf_counter()
+    cfg = RenderConfig(width=size[0], height=size[1], soft_shadows=True, soft_beta=60.0)
+    with torch.no_grad():
+        target = dr.render_soft(scene, cfg)
+    params = dr.trainable({"positions": scene.meshes.positions + 0.01})
+    step = dr.make_train_step(cfg, torch.optim.Adam(params.values(), lr=5e-3),
+                              geometry_fit.with_positions)
+    reset_launch_counts()
+    with debug.nan_check():
+        loss = float(step(params, scene, target))
+    counts = launch_counts()
+    _expect_counts("the nan_check step", counts, K3=1, K5=1, K6=1, K6sum=1, K7=1)
+    with torch.no_grad():
+        params["positions"][0, 0] = float("nan")
+    try:
+        with debug.nan_check():
+            step(params, scene, target)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("nan_check let a step with a NaN vertex through")
+    print(f"phase 3: 9f debug.nan_check around a geometry-fit step at {size[0]}x{size[1]}: clean, "
+          f"loss {loss:.6f}, launches {counts}; with a NaN vertex: FloatingPointError({raised!r}); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"clean_loss": loss, "raised": raised}
+
+
+def phase_tools_examples(dev, built: dict) -> dict:
+    """Phase 3 (tools and examples): 9a-9f, each with the launch counts set
+    to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"geometry_fit": tools_geometry_fit(dev, tmp),
+               "inverse_rendering": tools_inverse_rendering(dev, tmp)}
+    out["oracle_vs_k1"] = tools_oracle(dev, built["reference"])
+    out["bvh_vs_k3"] = tools_bvh_vs_k3(dev, built["bunny50k"])
+    out["trace"] = tools_trace(dev, built["bunny"])
+    out["nan_check"] = tools_nan_check(dev, built["bunny"])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 3: tools and examples took {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def _sm_clock_hz() -> float:
     """The card's maximum SM clock (nvidia-smi), in Hz."""
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -3064,6 +3336,7 @@ def main() -> int:
     sharded = timed("phase 3 (sharded)", phase_sharded, dev, built)
     probe_paths = timed("phase 3 (probes)", phase_probe_paths, dev)
     app = timed("phase 3 (app shell)", phase_app_paths, dev, built)
+    tools = timed("phase 3 (tools and examples)", phase_tools_examples, dev, built)
     probes = timed("phase 4 (probes)", time_probes, dev, env, probes_cmp, probe_paths)
     timed("phase 4 (times)", phase_times, dev, env, built, worst, main_path, big, grad,
           chunked_paths, mega3_paths, sharded, probes)
@@ -3078,7 +3351,8 @@ def main() -> int:
                           for n, _, _, _ in CHUNKED_PATHS},
                       "stage_reports": chunked_paths["stages"],
                       "gloo_on_cuda_tensors": sharded["gloo_cuda"],
-                      "app_shell": app, "card": env["nvidia_smi"]}))
+                      "app_shell": app, "tools_and_examples": tools,
+                      "card": env["nvidia_smi"]}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s "
           f"on {env['nvidia_smi']}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

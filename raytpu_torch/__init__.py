@@ -5,8 +5,11 @@ with the same layout:
   raytpu_torch.core    — math conventions, scene schema and builder, the OBJ
                          loader, scenes, the carry-across from raytpu's
                          scene arrays
-  raytpu_torch.native  — the host library (OBJ parser, SAH order), a copy
-                         of raytpu's, built with g++
+  raytpu_torch.native  — the host library (OBJ parser, SAH and Morton
+                         orders, the CPU BVH closest hit, the BMP writer,
+                         a monotonic clock), a copy of raytpu's, built with g++
+  raytpu_torch.oracle  — the scalar numpy renderer, the ground truth
+  raytpu_torch.assets  — the OBJ assets (copies of raytpu's) and make_assets
   raytpu_torch.ops     — batched intersection and shading on tensors, and
                          the triangle order and cull glue (accel)
   raytpu_torch.render  — the eager renderer; the router and the hand-written
@@ -19,8 +22,9 @@ with the same layout:
   raytpu_torch.parallel — the (px, prim) sharded render and train step
   raytpu_torch.probes  — the measurement probes P1 (the fold loop) and P2
                          (the shared-memory copy ring)
-  raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers, ray stats
-                         and the per-stage profiler
+  raytpu_torch.utils   — image IO (BMP, PNG without PIL), timers, ray stats,
+                         the profiler trace, the per-stage profiler,
+                         checkpoints and the NaN checks
   raytpu_torch.app     — the command line and the viewer
 
 It imports torch, numpy and the standard library, never jax or raytpu.

@@ -76,8 +76,12 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def sqr_magnitude(v):
+    return dot(v, v)
+
+
 def magnitude(v):
-    return torch.sqrt(dot(v, v))
+    return torch.sqrt(sqr_magnitude(v))
 
 
 def normalize(v):
@@ -89,6 +93,27 @@ def normalize_safe(v, eps=1e-20):
     """Normalize with the norm clamped away from zero, so that the gradient
     of a zero vector is finite (the differentiable path's normalize)."""
     return v / torch.clamp(magnitude(v), min=eps)[..., None]
+
+
+def reflect(l, n):
+    """The reference's Phong reflect, with its nonstandard clamp inside
+    (reference: source/BRDFs.h:35): ``l - 2*max(dot(n,l),0)*n``."""
+    return l - 2.0 * torch.clamp(dot(n, l), min=0.0)[..., None] * n
+
+
+def project(v, onto):
+    """``v`` projected onto ``onto`` (reference: Vector3::Project)."""
+    return onto * (dot(v, onto) / dot(onto, onto))[..., None]
+
+
+def reject(v, onto):
+    """The part of ``v`` perpendicular to ``onto`` (reference: Vector3::Reject)."""
+    return v - project(v, onto)
+
+
+def lerp(a, b, factor):
+    """Linear interpolation (reference: source/ColorRGB.h Lerp, MathHelpers Lerpf)."""
+    return a + (b - a) * factor
 
 
 def gather_rows(table, idx):
@@ -158,6 +183,31 @@ def mat_rotation(pitch, yaw, roll, device="cuda"):
     """``Rx @ Ry @ Rz`` (reference: source/Matrix.cpp:150-155)."""
     return (mat_rotation_x(pitch, device) @ mat_rotation_y(yaw, device)
             @ mat_rotation_z(roll, device))
+
+
+def _vec3(v, device):
+    """A 3-vector as a float32 tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def mat_translation(t, device="cuda"):
+    """Identity with ``t`` in the translation row."""
+    m = mat_identity(device)
+    m[3, :3] = _vec3(t, device)
+    return m
+
+
+def mat_scale(s, device="cuda"):
+    """Diagonal scale by the three components of ``s``."""
+    return torch.diag(torch.cat([_vec3(s, device), torch.ones(1, dtype=torch.float32, device=device)]))
+
+
+def srt(scale_m, rot_m, trans_m):
+    """A mesh's transform ``S @ R @ T``: with row vectors, scale first, then
+    rotation, then translation (reference: source/DataTypes.h:213)."""
+    return scale_m @ rot_m @ trans_m
 
 
 def max_to_one(rgb):

@@ -7,24 +7,37 @@ recomputes per-face normals as ``normalize(cross(v1-v0, v2-v0))``.
 
 ``parse_obj`` uses the native parser (``raytpu_torch.native``), as raytpu
 does when its library is built, so both packages give the same arrays.  The
-assets are raytpu's (``raytpu/assets``), read as data files.
+bundled assets are the port's own (``raytpu_torch/assets``, copies of
+raytpu's).
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
-ASSET_DIR = Path(__file__).resolve().parents[2] / "raytpu" / "assets"
+#: the bundled assets
+ASSET_DIR = Path(__file__).resolve().parent.parent / "assets"
+
+
+def asset_dirs() -> list[str]:
+    """Directories searched for an asset, in raytpu's order: ``RAYTPU_ASSETS``,
+    then the bundled assets, then ``RAYTPU_EXTRA_ASSETS`` (read at each call)."""
+    return [os.environ.get("RAYTPU_ASSETS", ""), str(ASSET_DIR),
+            os.environ.get("RAYTPU_EXTRA_ASSETS", "")]
 
 
 def resolve_asset(filename: str) -> str:
-    """``filename`` itself if it is a file, else the asset of that name."""
+    """``filename`` itself if it is a file, else the first asset of that name
+    in ``asset_dirs()``."""
     p = Path(filename)
     if p.is_file():
         return str(p)
-    if (ASSET_DIR / filename).is_file():
-        return str(ASSET_DIR / filename)
-    raise FileNotFoundError(f"OBJ asset not found: {filename} (searched {ASSET_DIR})")
+    dirs = asset_dirs()
+    for d in dirs:
+        if d and (Path(d) / filename).is_file():
+            return str(Path(d) / filename)
+    raise FileNotFoundError(f"OBJ asset not found: {filename} (searched {dirs})")
 
 
 def parse_obj(path: str):

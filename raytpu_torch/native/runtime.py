@@ -1,4 +1,6 @@
-"""ctypes bindings and the on-demand build of ``src/native.cpp``.
+"""ctypes bindings and the on-demand build of ``src/native.cpp``: the OBJ
+parser, the SAH order, the Morton order, the CPU BVH closest hit, the BMP
+writer and the monotonic clock.
 
 The library is compiled with g++ and raytpu's flags
 (``raytpu/native/runtime.py``) into ``raytpu_torch/_build/`` the first time
@@ -7,6 +9,8 @@ and of the host, since ``-march=native`` builds for the host's CPU, is kept
 beside the library).  There is no fallback: without a C++ compiler
 the OBJ scenes and the large-mesh reorder cannot be built, and the call
 raises, because another triangle order would change the scene's tie-breaks.
+``available()`` says whether the library builds; every other binding raises
+when it does not.
 """
 
 from __future__ import annotations
@@ -64,8 +68,30 @@ def load():
                                      ctypes.POINTER(c_int)]
         lib.rt_build_bvh.restype = c_int
         lib.rt_build_bvh.argtypes = [f_p, c_int, c_int, c_int, f_p, i_p, i_p]
+        lib.rt_monotonic.restype = ctypes.c_double
+        lib.rt_monotonic.argtypes = []
+        lib.rt_morton_order.restype = None
+        lib.rt_morton_order.argtypes = [f_p, c_int, i_p]
+        lib.rt_bvh_closest_hit.restype = c_int
+        lib.rt_bvh_closest_hit.argtypes = [f_p, f_p, i_p, i_p, c_int, f_p, f_p, ctypes.c_float, f_p]
+        lib.rt_write_bmp.restype = c_int
+        lib.rt_write_bmp.argtypes = [ctypes.c_char_p, c_int, c_int, ctypes.POINTER(ctypes.c_uint8)]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the library builds (or is built) here."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
+def monotonic() -> float:
+    """Seconds on the host's steady clock (``std::chrono::steady_clock``)."""
+    return load().rt_monotonic()
 
 
 def _fptr(a):
@@ -108,3 +134,45 @@ def build_bvh(tri_verts: np.ndarray, leaf_size: int = 8, bins: int = 8):
     if n < 0:
         raise RuntimeError("BVH build failed")
     return nb[:n].copy(), nm[:n].copy(), order
+
+
+def morton_order(tri_verts: np.ndarray) -> np.ndarray:
+    """Morton permutation of a (T, 3, 3) or (T, 9) soup: triangles sorted
+    (stably) by the 30-bit Morton code of their centroid in the soup's
+    centroid box."""
+    tv = np.ascontiguousarray(np.asarray(tri_verts, np.float32).reshape(-1, 9))
+    perm = np.empty(tv.shape[0], np.int32)
+    load().rt_morton_order(_fptr(tv), tv.shape[0], _iptr(perm))
+    return perm
+
+
+def bvh_closest_hit(tri_verts, node_bounds, node_meta, prim_order, ro, rd, tmin=1e-4):
+    """Closest hit of one ray through a ``build_bvh`` tree on the CPU:
+    ``(triangle id or -1, t)``.  Moller-Trumbore without culling, strict
+    ``<`` against the best t, children pushed right then left; ids in the
+    soup's own numbering."""
+    tv = np.ascontiguousarray(np.asarray(tri_verts, np.float32).reshape(-1, 9))
+    nb = np.ascontiguousarray(node_bounds, np.float32)
+    nm = np.ascontiguousarray(node_meta, np.int32)
+    po = np.ascontiguousarray(prim_order, np.int32)
+    if nb.shape != (nm.shape[0], 6) or nm.shape[1:] != (3,) or po.shape != (tv.shape[0],):
+        raise ValueError(f"bvh_closest_hit: bounds {nb.shape}, meta {nm.shape}, order "
+                         f"{po.shape} do not fit {tv.shape[0]} triangles")
+    ro = np.ascontiguousarray(ro, np.float32).reshape(3)
+    rd = np.ascontiguousarray(rd, np.float32).reshape(3)
+    t_out = ctypes.c_float()
+    tid = load().rt_bvh_closest_hit(_fptr(tv), _fptr(nb), _iptr(nm), _iptr(po), nm.shape[0],
+                                    _fptr(ro), _fptr(rd), tmin, ctypes.byref(t_out))
+    return tid, t_out.value
+
+
+def write_bmp(path: str, image: np.ndarray) -> None:
+    """(H, W, 3) uint8 RGB to a 24-bit bottom-up BI_RGB BMP."""
+    img = np.ascontiguousarray(image)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    rc = load().rt_write_bmp(str(path).encode(), w, h,
+                             img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc != 0:
+        raise OSError(f"cannot write {path}")

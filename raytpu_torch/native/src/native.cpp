@@ -1,13 +1,13 @@
-// Host-side scene preparation for raytpu_torch: the OBJ parser and the
-// binned-SAH BVH builder whose leaf order sets the triangle order of meshes
-// over 256 faces.
+// The host library of raytpu_torch: the OBJ parser, the binned-SAH BVH
+// builder whose leaf order sets the triangle order of meshes over 256
+// faces, the Morton order, a CPU BVH closest hit (an oracle for the
+// closest-hit kernels), the BMP writer and a monotonic clock.
 //
-// A copy of rt_parse_obj and rt_build_bvh from
-// raytpu/native/src/native.cpp, function for function, built with the same
-// g++ flags (raytpu_torch/native/runtime.py).  The SAH leaf order decides
-// the triangle order, and the triangle order decides closest-hit ties, so
-// the port must reproduce raytpu's permutation bit for bit: change nothing
-// here that raytpu's copy does not change too.
+// A copy of raytpu/native/src/native.cpp, function for function, built with
+// the same g++ flags (raytpu_torch/native/runtime.py).  The SAH leaf order
+// decides the triangle order, and the triangle order decides closest-hit
+// ties, so the port must reproduce raytpu's permutation bit for bit: change
+// nothing here that raytpu's copy does not change too.
 //
 // Built as a plain shared library; Python binds via ctypes (no pybind11).
 
@@ -24,6 +24,15 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Timer
+// ---------------------------------------------------------------------------
+
+double rt_monotonic() {
+  using clock = std::chrono::steady_clock;
+  return std::chrono::duration<double>(clock::now().time_since_epoch()).count();
+}
 
 // ---------------------------------------------------------------------------
 // OBJ parser — same observable semantics as the reference parser:
@@ -109,6 +118,50 @@ int rt_parse_obj(const char* path, const float** positions, int* num_pos,
   *indices = d->indices.data();
   *num_faces = static_cast<int>(nf);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Morton spatial ordering: sort triangles by the Morton code of their
+// centroid so contiguous chunks are spatially coherent (tight chunk AABBs
+// for chunk culling).
+// ---------------------------------------------------------------------------
+
+static uint32_t expand_bits10(uint32_t v) {
+  v &= 0x3ff;
+  v = (v | (v << 16)) & 0x030000FF;
+  v = (v | (v << 8)) & 0x0300F00F;
+  v = (v | (v << 4)) & 0x030C30C3;
+  v = (v | (v << 2)) & 0x09249249;
+  return v;
+}
+
+// tri_verts: T x 9 floats (v0 v1 v2). perm_out: T indices (new order).
+void rt_morton_order(const float* tri_verts, int num_tris, int32_t* perm_out) {
+  float lo[3] = {INFINITY, INFINITY, INFINITY};
+  float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  std::vector<float> cent(num_tris * 3);
+  for (int t = 0; t < num_tris; ++t) {
+    for (int a = 0; a < 3; ++a) {
+      float c = (tri_verts[t * 9 + a] + tri_verts[t * 9 + 3 + a] + tri_verts[t * 9 + 6 + a]) / 3.0f;
+      cent[t * 3 + a] = c;
+      lo[a] = std::min(lo[a], c);
+      hi[a] = std::max(hi[a], c);
+    }
+  }
+  std::vector<std::pair<uint32_t, int32_t>> keys(num_tris);
+  for (int t = 0; t < num_tris; ++t) {
+    uint32_t code = 0;
+    uint32_t xyz[3];
+    for (int a = 0; a < 3; ++a) {
+      float range = hi[a] - lo[a];
+      float u = range > 0 ? (cent[t * 3 + a] - lo[a]) / range : 0.5f;
+      xyz[a] = static_cast<uint32_t>(std::min(1023.0f, std::max(0.0f, u * 1023.0f)));
+    }
+    code = (expand_bits10(xyz[0]) << 2) | (expand_bits10(xyz[1]) << 1) | expand_bits10(xyz[2]);
+    keys[t] = {code, t};
+  }
+  std::stable_sort(keys.begin(), keys.end());
+  for (int t = 0; t < num_tris; ++t) perm_out[t] = keys[t].second;
 }
 
 // ---------------------------------------------------------------------------
@@ -292,6 +345,111 @@ int rt_build_bvh(const float* tri_verts, int num_tris, int leaf_size, int bins,
   }
   for (int t = 0; t < num_tris; ++t) prim_order_out[t] = st.tris[t].id;
   return nn;
+}
+
+// ---------------------------------------------------------------------------
+// CPU BVH closest-hit traversal (validation oracle for the builder)
+// ---------------------------------------------------------------------------
+
+static bool slab_test(const float lo[3], const float hi[3], const float ro[3],
+                      const float inv_d[3], float tmax) {
+  float tmin_v = -INFINITY, tmax_v = INFINITY;
+  for (int a = 0; a < 3; ++a) {
+    float t1 = (lo[a] - ro[a]) * inv_d[a];
+    float t2 = (hi[a] - ro[a]) * inv_d[a];
+    tmin_v = std::max(tmin_v, std::min(t1, t2));
+    tmax_v = std::min(tmax_v, std::max(t1, t2));
+  }
+  return tmax_v > 0 && tmax_v >= tmin_v && tmin_v <= tmax;
+}
+
+// Returns closest triangle id (original numbering) or -1; writes t.
+int rt_bvh_closest_hit(const float* tri_verts, const float* node_bounds,
+                       const int32_t* node_meta, const int32_t* prim_order, int num_nodes,
+                       const float* ro, const float* rd, float tmin, float* t_out) {
+  (void)num_nodes;
+  float inv_d[3] = {1.0f / rd[0], 1.0f / rd[1], 1.0f / rd[2]};
+  float best_t = INFINITY;
+  int best_id = -1;
+  int32_t stack[128];
+  int sp = 0;
+  stack[sp++] = 0;
+  while (sp > 0) {
+    int32_t ni = stack[--sp];
+    const float* lo = &node_bounds[ni * 6];
+    const float* hi = &node_bounds[ni * 6 + 3];
+    if (!slab_test(lo, hi, ro, inv_d, best_t)) continue;
+    int32_t first = node_meta[ni * 3], count = node_meta[ni * 3 + 1], left = node_meta[ni * 3 + 2];
+    if (count > 0) {
+      for (int k = first; k < first + count; ++k) {
+        int32_t id = prim_order[k];
+        const float* v0 = &tri_verts[id * 9];
+        const float* v1 = &tri_verts[id * 9 + 3];
+        const float* v2 = &tri_verts[id * 9 + 6];
+        float e1[3] = {v1[0] - v0[0], v1[1] - v0[1], v1[2] - v0[2]};
+        float e2[3] = {v2[0] - v0[0], v2[1] - v0[1], v2[2] - v0[2]};
+        float h[3] = {rd[1] * e2[2] - rd[2] * e2[1], rd[2] * e2[0] - rd[0] * e2[2],
+                      rd[0] * e2[1] - rd[1] * e2[0]};
+        float a = e1[0] * h[0] + e1[1] * h[1] + e1[2] * h[2];
+        if (std::fabs(a) < 1.1920929e-07f) continue;
+        float f = 1.0f / a;
+        float s[3] = {ro[0] - v0[0], ro[1] - v0[1], ro[2] - v0[2]};
+        float u = f * (s[0] * h[0] + s[1] * h[1] + s[2] * h[2]);
+        if (u < 0 || u > 1) continue;
+        float q[3] = {s[1] * e1[2] - s[2] * e1[1], s[2] * e1[0] - s[0] * e1[2],
+                      s[0] * e1[1] - s[1] * e1[0]};
+        float v = f * (rd[0] * q[0] + rd[1] * q[1] + rd[2] * q[2]);
+        if (v < 0 || u + v > 1) continue;
+        float t = f * (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]);
+        if (t < tmin || t >= best_t) continue;
+        best_t = t;
+        best_id = id;
+      }
+    } else {
+      stack[sp++] = left + 1;
+      stack[sp++] = left;
+    }
+  }
+  *t_out = best_t;
+  return best_id;
+}
+
+// ---------------------------------------------------------------------------
+// BMP writer (24-bit BI_RGB, bottom-up) — screenshot parity with SDL_SaveBMP
+// ---------------------------------------------------------------------------
+
+int rt_write_bmp(const char* path, int w, int h, const uint8_t* rgb) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return -1;
+  int row = (w * 3 + 3) & ~3;
+  uint32_t pixel_bytes = row * h;
+  uint32_t off = 14 + 40;
+  uint8_t hdr[54] = {0};
+  hdr[0] = 'B';
+  hdr[1] = 'M';
+  uint32_t fsize = off + pixel_bytes;
+  std::memcpy(hdr + 2, &fsize, 4);
+  std::memcpy(hdr + 10, &off, 4);
+  uint32_t hsz = 40;
+  std::memcpy(hdr + 14, &hsz, 4);
+  std::memcpy(hdr + 18, &w, 4);
+  std::memcpy(hdr + 22, &h, 4);
+  uint16_t planes = 1, bpp = 24;
+  std::memcpy(hdr + 26, &planes, 2);
+  std::memcpy(hdr + 28, &bpp, 2);
+  std::memcpy(hdr + 34, &pixel_bytes, 4);
+  std::fwrite(hdr, 1, 54, f);
+  std::vector<uint8_t> line(row, 0);
+  for (int y = h - 1; y >= 0; --y) {
+    for (int x = 0; x < w; ++x) {
+      line[x * 3] = rgb[(y * w + x) * 3 + 2];
+      line[x * 3 + 1] = rgb[(y * w + x) * 3 + 1];
+      line[x * 3 + 2] = rgb[(y * w + x) * 3];
+    }
+    std::fwrite(line.data(), 1, row, f);
+  }
+  std::fclose(f);
+  return 0;
 }
 
 }  // extern "C"

@@ -57,6 +57,16 @@ def spatial_permutation(tri_verts: np.ndarray) -> np.ndarray:
     return order
 
 
+def morton_permutation(tri_verts: np.ndarray) -> np.ndarray:
+    """Morton order of a (T,3,3) triangle soup, through the native library
+    (raises where it does not build).  No route takes it: the SAH leaf
+    order (``spatial_permutation``) is the only triangle order the port
+    renders with."""
+    from raytpu_torch.native import runtime
+
+    return runtime.morton_order(tri_verts)
+
+
 def reorder_scene_triangles(scene: Scene) -> Scene:
     """Reorder the triangle soup, and the mesh face tables that generate it,
     by SAH leaf order, PER MESH: each mesh's faces stay contiguous, so a

@@ -5,7 +5,10 @@ Counterpart of ``raytpu/ops/shading.py``.  The reference's virtual
 gather of material parameters plus all four families evaluated and selected
 by kind.  BRDF formulas follow reference: source/BRDFs.h, quirks included:
 the clamped reflect inside Phong (:35), GGX with alpha = roughness^2
-(:62-68) and the k = (alpha+1)^2/8 geometry term (:81).
+(:62-68) and the k = (alpha+1)^2/8 geometry term (:81).  The terms are
+public one by one (``lambert`` to ``cook_torrance``); ``shade`` evaluates
+the same formulas inline, in the order its images were held to raytpu's
+and to the goldens with.
 """
 
 from __future__ import annotations
@@ -22,6 +25,72 @@ def _pow5(x):
     """x**5 as ``x * (x*x)**2``: the multiplication order of JAX's integer power."""
     x2 = x * x
     return x * (x2 * x2)
+
+
+def lambert(kd, cd):
+    """``cd * kd / pi``; ``kd`` per ray (...,) or per channel (...,3)
+    (reference: source/BRDFs.h:14-22)."""
+    if kd.ndim == cd.ndim - 1:
+        kd = kd[..., None]
+    return cd * kd / PI
+
+
+def phong(ks, exp, l, v, n):
+    """White specular lobe with the reference's clamped reflect
+    (reference: source/BRDFs.h:33-40).  ``cosa**exp`` is guarded so that its
+    gradient at cosa = 0 stays finite for exp < 1; the value is powf's:
+    pow(0, 0) = 1, pow(0, e > 0) = 0."""
+    cosa = torch.clamp(math3d.dot(math3d.reflect(l, n), v), min=0.0)
+    pos = cosa > 0.0
+    one = torch.ones_like(cosa)
+    powv = torch.where(pos, torch.pow(torch.where(pos, cosa, one), exp),
+                       torch.where(exp == 0.0, one, torch.zeros_like(one)))
+    return (ks * powv)[..., None] * torch.ones(3, dtype=cosa.dtype, device=cosa.device)
+
+
+def fresnel_schlick(h, v, f0):
+    """Schlick's Fresnel (reference: source/BRDFs.h:49-53)."""
+    return f0 + (1.0 - f0) * _pow5(1.0 - torch.clamp(math3d.dot(h, v), min=0.0))[..., None]
+
+
+def ggx_distribution(n, h, roughness):
+    """Trowbridge-Reitz GGX with UE4's alpha = roughness^2
+    (reference: source/BRDFs.h:62-68)."""
+    a = roughness * roughness
+    sqr_a = a * a
+    ndh = torch.clamp(math3d.dot(n, h), min=0.0)
+    denom = ndh * ndh * (sqr_a - 1.0) + 1.0
+    return sqr_a / (PI * denom * denom)
+
+
+def schlick_ggx_geometry(n, x, roughness):
+    """k = (alpha+1)^2/8 with alpha = roughness^2: the reference's deviation
+    from UE4's (roughness+1)^2/8 (reference: source/BRDFs.h:78-86)."""
+    a = roughness * roughness
+    k = (a + 1.0) * (a + 1.0) / 8.0
+    cd = torch.clamp(math3d.dot(n, x), min=0.0)
+    return cd / (cd * (1.0 - k) + k)
+
+
+def smith_geometry(n, v, l, roughness):
+    """(reference: source/BRDFs.h:96-99)."""
+    return schlick_ggx_geometry(n, v, roughness) * schlick_ggx_geometry(n, l, roughness)
+
+
+def cook_torrance(albedo, metalness, roughness, n, l, v):
+    """Microfacet specular plus Lambert diffuse for non-metals
+    (reference: source/Material.h:107-123)."""
+    h = math3d.normalize_safe(v + l)
+    is_dielectric = (metalness == 0.0)[..., None]
+    f0 = torch.where(is_dielectric, torch.full_like(albedo, 0.04), albedo)
+    F = fresnel_schlick(h, v, f0)
+    D = ggx_distribution(n, h, roughness)
+    G = smith_geometry(n, v, l, roughness)
+    denom = (4.0 * torch.clamp(math3d.dot(v, n), min=1e-4)
+             * torch.clamp(math3d.dot(l, n), min=1e-4))
+    specular = F * (D * G / denom)[..., None]
+    kd = torch.where(is_dielectric, 1.0 - F, torch.zeros_like(F))
+    return lambert(kd, albedo) + specular
 
 
 def shade(materials: Materials, mat_idx, n, l, v):

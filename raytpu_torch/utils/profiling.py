@@ -7,11 +7,14 @@ the reference's four-line ``benchmark.txt`` format, and rays/s counters.
 CUDA launches return before the card has finished, so a host clock around a
 launch measures only the enqueue.  ``FrameTimer.tick`` is to be called after
 the frame's result has reached the host (which waits for the card), and
-``device_ms`` times on the card's own clock with CUDA events.
+``device_ms`` times on the card's own clock with CUDA events, and ``trace``
+records a ``torch.profiler`` timeline (Chrome-trace JSON).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -152,3 +155,28 @@ def device_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record a ``torch.profiler`` timeline of the block: CPU activity, and
+    CUDA activity where a card is present.  On exit one Chrome-trace JSON
+    (``trace_<pid>_<ns>.json``, open it in Perfetto or chrome://tracing) is
+    written into ``log_dir`` and its path is kept in the yielded dict under
+    ``"path"``.  CUPTI sees every launch of the process, so the kernels
+    launched through ctypes appear under their own symbols.  Counterpart of
+    raytpu's ``jax.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    out = {"path": None}
+    with profile(activities=activities) as prof:
+        yield out
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    out["path"] = path

@@ -14,6 +14,7 @@ Tolerances:
 
 import dataclasses
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -76,11 +77,14 @@ def _jax_scene(arrays):
 @pytest.mark.parametrize("name", OBJS)
 def test_parse_obj_matches_raytpu(name):
     """raytpu parses with its native library when that is built, as the
-    port always does."""
+    port always does.  The port reads its own copy of each asset, equal to
+    raytpu's byte for byte."""
     for a, b in zip(obj.parse_obj(name), jobj.parse_obj(name)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    assert obj.resolve_asset(name) == jobj.resolve_asset(name)
+    assert obj.resolve_asset(name) == str(obj.ASSET_DIR / name)
+    assert (Path(obj.resolve_asset(name)).read_bytes()
+            == Path(jobj.resolve_asset(name)).read_bytes())
     with pytest.raises(FileNotFoundError):
         obj.resolve_asset("no_such_mesh.obj")
 

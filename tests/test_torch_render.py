@@ -1,6 +1,7 @@
 """raytpu_torch.render against raytpu: the eager path and the megakernel's
 plain version (what csrc/mega.cu computes, which the CPU takes in its place)
-against raytpu's jnp renderer, its scalar oracle and the committed goldens.
+against raytpu's jnp renderer, the port's scalar oracle (equal to raytpu's
+bit for bit, tests/test_torch_oracle.py) and the committed goldens.
 
 Budgets, all counted on uint8 images, pixel by pixel, where a pixel differs
 when some channel differs by more than one step:
@@ -24,10 +25,10 @@ from raytpu.core import scenes as jscenes
 from raytpu.core.types import LightingMode as JLightingMode
 from raytpu.core.types import RenderConfig as JRenderConfig
 from raytpu.core.types import SceneBuilder as JSceneBuilder
-from raytpu.oracle import render_oracle
 from raytpu_torch.app import cli
 from raytpu_torch.core import convert, math3d, scenes
 from raytpu_torch.core.types import LightingMode, RenderConfig
+from raytpu_torch.oracle import render_oracle
 from raytpu_torch.render import cuda_kernel, renderer
 from raytpu_torch.utils import image as image_io
 
@@ -71,10 +72,11 @@ def _jax_config(cfg):
 
 
 def _oracle_image(name, cfg):
-    """raytpu's scalar oracle render, computed once per module."""
+    """The port's scalar oracle render of the scene carried across from
+    raytpu, computed once per module."""
     key = (name, cfg)
     if key not in _JAX_IMAGES:
-        _JAX_IMAGES[key] = render_oracle(_jax_scene(name), _jax_config(cfg))
+        _JAX_IMAGES[key] = render_oracle(_port_scene(name), cfg)
     return _JAX_IMAGES[key]
 
 
