@@ -26,8 +26,11 @@ import torch
 
 PI = 3.14159265358979323846
 PI_2 = 6.283185307179586476925
+PI_DIV_2 = 1.57079632679489661923
 TO_RADIANS = PI / 180.0
+TO_DEGREES = 180.0 / PI
 
+UNIT_X = (1.0, 0.0, 0.0)
 UNIT_Y = (0.0, 1.0, 0.0)
 UNIT_Z = (0.0, 0.0, 1.0)
 

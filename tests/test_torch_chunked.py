@@ -10,8 +10,9 @@ On the CPU every kernel wrapper takes its plain version; the test marked
 references run its Pallas kernels in interpret mode, as its own tests do
 on the CPU (tests/test_pallas.py), jitted and compiled at XLA's backend
 optimisation level 0, which compiles several times faster; they run in
-worker processes (``_raytpu_jobs``), started as the module starts, while
-the port's side runs here.
+worker processes (``_raytpu_jobs``, tests/torch_jobs.py: niced, one
+thread each), started as the module starts, while the port's side runs
+here.
 
 Tolerances (raytpu's own, tests/test_pallas.py):
   * K8's closest mode against ``closest_hit_pallas`` and the jnp
@@ -28,14 +29,13 @@ Tolerances (raytpu's own, tests/test_pallas.py):
 """
 
 import dataclasses
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import math3d as jmath3d
 from raytpu.core import types as jtypes
@@ -153,11 +153,6 @@ def _queries(name):
 # -- raytpu's references, computed in worker processes -------------------------
 
 
-def _worker_init():
-    jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
-
-
 def _compiled(fn, *args, fast=True):
     """``jax.jit(fn)(*args)``, compiled at optimisation level 0 when
     ``fast``."""
@@ -224,8 +219,7 @@ def _raytpu_jobs(request):
     if all(i.get_closest_marker("cuda") for i in mine):
         yield
         return
-    ex = ProcessPoolExecutor(JOB_WORKERS, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init)
+    ex = torch_jobs.pool(JOB_WORKERS)
     jobs = _CACHE["jobs"] = {}
     try:
         for kind in JOBS:

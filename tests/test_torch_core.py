@@ -126,6 +126,19 @@ def test_max_to_one_matches_raytpu():
     assert mine.max() <= 1.0 and not np.isnan(mine).any()
 
 
+def _constants(module):
+    return {k: v for k, v in vars(module).items()
+            if k.isupper() and isinstance(v, (int, float, tuple))}
+
+
+def test_math3d_constants_match_raytpu():
+    """Every public constant of raytpu's math3d exists in the port's, equal,
+    and the port has no other."""
+    mine, theirs = _constants(math3d), _constants(jmath3d)
+    assert set(theirs) >= {"PI", "PI_DIV_2", "TO_DEGREES", "UNIT_X"}
+    assert mine == theirs
+
+
 def test_row_vector_matrices_match_raytpu():
     """mat_rotation_y, then a point and a vector through it with a
     translation row: row-vector order, p @ M[:3, :3] + M[3, :3]."""

@@ -6,11 +6,11 @@ Tolerances: the first-step loss of the port's inverse-rendering set-up (the
 same scene, perturbation and soft-shadow config) within 1e-5 relative of
 raytpu's; the examples' own checks are tests/test_examples.py's (exit code
 0, the strip written, the printed lines).  The three example runs start
-together as the module starts, in subprocesses of two threads each.
+together as the module starts, in niced subprocesses of one thread each
+(tests/torch_jobs.py).
 """
 
 import dataclasses
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import scenes as jscenes
 from raytpu.core.types import RenderConfig as JRenderConfig
@@ -31,13 +32,10 @@ import torch_inverse_rendering  # noqa: E402
 
 from raytpu_torch.grad import diff_render as dr  # noqa: E402
 
-ENV = dict(os.environ, OMP_NUM_THREADS="2")
-
 
 def _start(script, *args):
-    return subprocess.Popen([sys.executable, str(REPO / "examples" / script), *args],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
-                            env=ENV)
+    return torch_jobs.popen([sys.executable, str(REPO / "examples" / script), *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO)
 
 
 def _finish(proc, timeout=300):

@@ -9,10 +9,11 @@ holds the kernels against them on a card.  raytpu is never run through its
 Pallas kernels here: its jnp reference is what they reproduce
 (raytpu/grad/soft.py:1-10), and its interpret mode is slow.  raytpu's
 references are jitted functions that take seconds each to trace and
-compile, so they run in worker processes (``_raytpu_jobs``), started as the
-module starts, while the tests that need no reference run here; each is
-compiled at XLA's backend optimisation level 0, which compiles in a third
-of the time and changes raytpu's float32 rounding far inside the
+compile, so they run in worker processes (``_raytpu_jobs``,
+tests/torch_jobs.py: niced, one thread each), started as the module
+starts, while the tests that need no reference run here; each is compiled
+at XLA's backend optimisation level 0, which compiles in a third of the
+time and changes raytpu's float32 rounding far inside the
 tolerances.
 
 Tolerances (raytpu's own):
@@ -53,8 +54,6 @@ Tolerances (raytpu's own):
 
 import dataclasses
 import functools
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +61,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import types as jtypes
 from raytpu.grad import diff_render as jdr
@@ -192,11 +192,6 @@ def _train_target():
 # -- raytpu's references, computed in worker processes -------------------------
 
 
-def _worker_init():
-    jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
-
-
 def _raytpu_trans(arrays, p, dirs, mags, g):
     """raytpu's transmittance of the shadow queries in float32, and its VJP
     in float64 for the cotangent ``g`` in (p, dirs, mags, v0, v1, v2)."""
@@ -271,8 +266,7 @@ def _raytpu_jobs(request):
     if all(i.get_closest_marker("cuda") for i in mine):
         yield
         return
-    ex = ProcessPoolExecutor(JOB_WORKERS, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init)
+    ex = torch_jobs.pool(JOB_WORKERS)
     jobs = _CACHE["jobs"] = {}
     try:
         for name in SOFT_NAMES:

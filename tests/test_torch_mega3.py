@@ -8,7 +8,8 @@ triangles differs); the test marked ``cuda`` holds the kernels against the
 plain versions and against K2 on a card.  raytpu's references run its
 Pallas kernels in interpret mode, as its own tests do on the CPU
 (tests/test_pallas.py:238-287), jitted and compiled at XLA's backend
-optimisation level 0, in worker processes started as the module starts.
+optimisation level 0, in worker processes started as the module starts
+(tests/torch_jobs.py: niced, one thread each).
 
 Tolerances:
   * the route against raytpu's mega3 (its "fine" worklist mode, the one
@@ -27,13 +28,11 @@ them (its module constants ``MEGA3_FINE_MAX_G`` = 8, then also
 core to trace and compile, so that comparison is marked ``slow``.
 """
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
-
 import jax
 import numpy as np
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import math3d as jmath3d
 from raytpu.core import scenes as jscenes
@@ -70,11 +69,6 @@ def _cfg(kind):
 
 
 # -- raytpu's references, computed in worker processes -------------------------
-
-
-def _worker_init():
-    jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
 
 
 def _raytpu_job(kind, w, h):
@@ -115,8 +109,7 @@ def _raytpu_jobs(request):
     if all(i.get_closest_marker("cuda") or i.get_closest_marker("slow") for i in mine):
         yield
         return
-    ex = ProcessPoolExecutor(JOB_WORKERS, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init)
+    ex = torch_jobs.pool(JOB_WORKERS)
     _CACHE["jobs"] = {job: ex.submit(_raytpu_job, *job) for job in _jobs()}
     try:
         yield
@@ -253,8 +246,7 @@ def test_k11_route_matches_raytpu_coarse_modes():
     worklist form gives, on optional at 64x32.  Run by name: ``pytest -m
     slow tests/test_torch_mega3.py`` (about 150 s, two workers)."""
     img = mega3.render_image_mega3_f32(_scene("optional"), RenderConfig(width=64, height=32))
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init) as ex:
+    with torch_jobs.pool(2) as ex:
         refs = {kind: ex.submit(_raytpu_job, kind, 64, 32) for kind in ("coarse", "coarse2")}
         for kind, ref in refs.items():
             _matches_raytpu_mega3(img.numpy(), ref.result())

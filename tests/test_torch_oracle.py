@@ -18,13 +18,12 @@ spawned worker while the other cases run.
 """
 
 import dataclasses
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import types as jtypes
 from raytpu.oracle import render_oracle as jax_oracle
@@ -61,9 +60,6 @@ def _jax_config(cfg):
 
 def _raytpu_oracle(arrays, cfg):
     """raytpu's oracle on the scene arrays, in a worker process."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     return jax_oracle(_jax_scene(arrays), _jax_config(cfg))
 
 
@@ -79,7 +75,7 @@ def _raytpu_bunny(request):
     if not any("bunny" in i.name for i in request.session.items if i.module is request.module):
         yield
         return
-    ex = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    ex = torch_jobs.pool(1)
     try:
         _JOBS[BUNNY] = ex.submit(_raytpu_oracle, convert.scene_to_arrays(_port_scene("bunny")),
                                  BUNNY[1])

@@ -24,15 +24,13 @@ of its largest change (the two packages shade in different op orders, so
 gradients differ in their last bits and near-ties of the soft path).
 """
 
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import scenes as jscenes
 from raytpu.core.types import RenderConfig as JRenderConfig
@@ -65,7 +63,6 @@ _CACHE = {}
 
 
 def _worker_init():
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 2)
 
 
@@ -107,13 +104,12 @@ def launched(tmp_path_factory):
     images of reference and bunny, and the error of a launch whose worker
     dies (started alongside, so that its process start costs nothing)."""
     out = tmp_path_factory.mktemp("ranks")
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init) as ex, ThreadPoolExecutor(1) as th:
+    with torch_jobs.pool(2, _worker_init) as ex, torch_jobs.niced_threads(2) as th:
         ref = ex.submit(_raytpu_sharded_step)
         images = {name: ex.submit(_raytpu_image, name) for name in ("reference", "bunny")}
         failed = th.submit(_failed_launch, str(tmp_path_factory.mktemp("bad")))
-        results = launch.spawn(2, str(out), "cpu", CASES, timeout=300.0)
-        return {"results": results, "dir": out, "raytpu_step": ref.result(),
+        ranks = th.submit(launch.spawn, 2, str(out), "cpu", CASES, timeout=300.0)
+        return {"results": ranks.result(), "dir": out, "raytpu_step": ref.result(),
                 "raytpu_images": {k: v.result() for k, v in images.items()},
                 "failed_launch": failed.result()}
 

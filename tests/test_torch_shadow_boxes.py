@@ -38,12 +38,11 @@ cuda tests/test_torch_shadow_boxes.py``).
 """
 
 import functools
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
 import torch
+import torch_jobs
 
 from raytpu_torch.core import scenes
 from raytpu_torch.core.types import RenderConfig, Triangles
@@ -89,7 +88,6 @@ def _raytpu_closest(name):
     from raytpu.render import pallas_soft
     from raytpu_torch.core import convert
 
-    jax.config.update("jax_platforms", "cpu")
     scene, ro, rd, _, _ = _camera_rays(name)
     arrays = convert.scene_to_arrays(scene)
     js = jtypes.Scene(**{g: getattr(jtypes, cls.__name__)(**{
@@ -101,10 +99,6 @@ def _raytpu_closest(name):
     return tuple(np.asarray(x) for x in out)
 
 
-def _worker_init():
-    torch.set_num_threads(1)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def _raytpu_jobs(request):
     """Submit raytpu's winner searches to worker processes as the module
@@ -114,8 +108,7 @@ def _raytpu_jobs(request):
     if not any("matches_raytpu" in i.name for i in mine):
         yield
         return
-    ex = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=_worker_init)
+    ex = torch_jobs.pool(2)
     _JOBS.update({name: ex.submit(_raytpu_closest, name) for name in ("optional", "bunny")})
     try:
         yield

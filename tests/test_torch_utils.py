@@ -20,14 +20,13 @@ the other tests do.
 
 import dataclasses
 import json
-import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+import torch_jobs
 
 from raytpu.core import math3d as jmath3d
 from raytpu.core import types as jtypes
@@ -55,10 +54,6 @@ def _jax_scene(scene):
 def _raytpu_validate_registry():
     """raytpu's ``validate_scene`` of every registry scene, built by the
     port, in a worker process: {name: problems}."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
     return {name: jdebug.validate_scene(_jax_scene(scenes.get(name).build("cpu")))
             for name in scenes.REGISTRY}
 
@@ -73,7 +68,7 @@ def _raytpu_jobs(request):
     if not any("registry" in i.name for i in request.session.items if i.module is request.module):
         yield
         return
-    ex = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    ex = torch_jobs.pool(1)
     try:
         _JOBS["registry"] = ex.submit(_raytpu_validate_registry)
         yield
